@@ -1,0 +1,235 @@
+// Psi-statistics forward on Hopper: Psi1^T (w Y) (M, D) and
+// sum_n w_n Psi2_n (M, M), float32.
+//
+// Replaces the TPU kernel gparml_tpu/ops/psi_pallas.py `_fwd_kernel_flat`
+// (launched by `_call_fwd_flat`), which carried both sums across a
+// sequential grid over N and multiplied bf16 hi/lo rungs on the MXU. Here:
+//
+//  * psi2_fwd_kernel: one grid axis over upper-triangle TILE x TILE tiles of
+//    (m, m') cells, one over N-splits. Each thread owns CPT cells of one
+//    tile row and keeps their zb vectors and E0 in registers; the block
+//    stages 64 data rows of (mu, c) and (lc, w) at a time in shared memory
+//    and every thread walks all of them, summing each such chunk apart
+//    before adding it to the cell's total. Each split writes its own
+//    (M, M) partial, mirrored to both triangles in the kernel; the wrapper
+//    sums the partials (deterministic, no atomics).
+//  * psi1y_fwd_kernel: one thread per inducing point m, grid over
+//    (N-splits, m-blocks); per staged chunk of 32 rows it forms
+//    w_n Psi1[n, m] in registers and adds their products with the staged
+//    Y rows into its split's (M, D) partial row.
+//
+// What bounds it on an H100: exp and FMA issue, not bytes. Each (n, cell)
+// pair costs ~3 FMA-pipe operations per latent dimension plus one expf, and
+// reads nothing from device memory (the rows come from shared memory as
+// warp-wide broadcasts); N * M^2 / 2 pairs dominate everything else. The
+// design keeps the operands in registers, reuses one broadcast float4 load
+// (two latent dims of mu and c) across CPT = 4 cells per thread, and sizes
+// N-splits so about eight blocks per SM are resident.
+#include "psi_common.cuh"
+
+namespace gparml {
+
+template <int QM, int TILE, int CPT>
+__global__ void __launch_bounds__(TILE * TILE / CPT)
+psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
+                const float* __restrict__ w, const float* __restrict__ z,
+                const float* __restrict__ alpha, const float* __restrict__ sf2,
+                int n, int m, int q, int rows_per_split, int ntile,
+                float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi2 * QM;
+
+  int ti, tj;
+  upper_tile(blockIdx.x, ntile, &ti, &tj);
+  constexpr int TPR = TILE / CPT;  // threads per tile row
+  const int mi = ti * TILE + threadIdx.x / TPR;
+  const int col0 = tj * TILE + threadIdx.x % TPR;
+
+  float zb[CPT][QM], e0[CPT], acc[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int mj = col0 + c * TPR;
+    float e = 0.f;
+#pragma unroll
+    for (int k = 0; k < QM; ++k) {
+      const float zi = (mi < m && k < q) ? z[(size_t)mi * q + k] : 0.f;
+      const float zj = (mj < m && k < q) ? z[(size_t)mj * q + k] : 0.f;
+      zb[c][k] = 0.5f * (zi + zj);
+      const float dz = zi - zj;
+      if (k < q) e = fmaf(alpha[k] * dz, dz, e);
+    }
+    e0[c] = -0.25f * e;
+    acc[c] = 0.f;
+  }
+
+  const float logsf2 = logf(*sf2);
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
+    __syncthreads();
+    stage_rows<QM, kRowsPsi2>(mu, s, w, alpha, logsf2, 2.f, 2.f, q, n0, hi,
+                              s_mc, s_lw);
+    __syncthreads();
+    const int nr = min(kRowsPsi2, hi - n0);
+    // Each chunk of rows is summed on its own and then added to acc, so no
+    // float32 running sum is longer than a chunk or the count of chunks (at
+    // N=1e6 a split holds ~26k rows, and one running sum over them is
+    // ~1e-5 off in float32).
+    float part[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) part[c] = 0.f;
+    for (int r = 0; r < nr; ++r) {
+      const float2 lw = s_lw[r];
+      const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
+      float qd[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) qd[c] = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < QM / 2; ++k2) {
+        const float4 v = mc[k2];  // (mu_k, c_k, mu_k+1, c_k+1)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float t0 = zb[c][2 * k2] - v.x;
+          const float t1 = zb[c][2 * k2 + 1] - v.z;
+          qd[c] = fmaf(v.y * t0, t0, qd[c]);
+          qd[c] = fmaf(v.w * t1, t1, qd[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        part[c] = fmaf(lw.y, expf(lw.x + e0[c] - qd[c]), part[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[c] += part[c];
+  }
+
+  float* o = out + (size_t)blockIdx.y * m * m;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int mj = col0 + c * TPR;
+    if (mi < m && mj < m) {
+      // Cells are bitwise symmetric (zb and (z_m - z_m')^2 are), so the two
+      // writes of a diagonal tile's mirrored cells agree.
+      o[(size_t)mi * m + mj] = acc[c];
+      o[(size_t)mj * m + mi] = acc[c];
+    }
+  }
+}
+
+template <int QM>
+__global__ void __launch_bounds__(128)
+psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
+                 const float* __restrict__ y, const float* __restrict__ w,
+                 const float* __restrict__ z, const float* __restrict__ alpha,
+                 const float* __restrict__ sf2, int n, int m, int q, int d,
+                 int rows_per_split, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi1 * QM;
+  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
+
+  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool active = mi < m;
+  float zm[QM];
+#pragma unroll
+  for (int k = 0; k < QM; ++k)
+    zm[k] = (active && k < q) ? z[(size_t)mi * q + k] : 0.f;
+
+  const float logsf2 = logf(*sf2);
+  const int lo = blockIdx.x * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  float* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
+    __syncthreads();
+    stage_rows<QM, kRowsPsi1>(mu, s, w, alpha, logsf2, 1.f, 1.f, q, n0, hi,
+                              s_mc, s_lw);
+    for (int i = threadIdx.x; i < kRowsPsi1 * d; i += blockDim.x) {
+      const int nn = n0 + i / d;
+      s_y[i] = nn < hi ? y[(size_t)nn * d + i % d] : 0.f;
+    }
+    __syncthreads();
+    float p[kRowsPsi1];
+#pragma unroll
+    for (int r = 0; r < kRowsPsi1; ++r) {
+      const float2 lw = s_lw[r];
+      const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
+      float qd = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < QM / 2; ++k2) {
+        const float4 v = mc[k2];
+        const float t0 = v.x - zm[2 * k2];
+        const float t1 = v.z - zm[2 * k2 + 1];
+        qd = fmaf(v.y * t0, t0, qd);
+        qd = fmaf(v.w * t1, t1, qd);
+      }
+      p[r] = lw.y * expf(lw.x - 0.5f * qd);
+    }
+    if (active) {
+      for (int k = 0; k < d; ++k) {
+        float a = 0.f;
+#pragma unroll
+        for (int r = 0; r < kRowsPsi1; ++r) a = fmaf(p[r], s_y[r * d + k], a);
+        o[k] += a;
+      }
+    }
+  }
+}
+
+// Psi2 tile edge and cells per thread of a Q bucket.
+constexpr int fwd_tile(int qm) { return qm <= 16 ? 32 : 16; }
+constexpr int fwd_cpt(int qm) { return qm <= 16 ? 4 : 1; }
+
+template <int QM>
+int launch_fwd(const float* mu, const float* s, const float* y,
+               const float* w, const float* z, const float* alpha,
+               const float* sf2, int n, int m, int q, int d, int splits2,
+               int splits1, float* p2_part, float* p1y_part,
+               cudaStream_t stream) {
+  constexpr int TILE = fwd_tile(QM);
+  constexpr int CPT = fwd_cpt(QM);
+  const int ntile = (m + TILE - 1) / TILE;
+  const int rows2 = (n + splits2 - 1) / splits2;
+  dim3 grid2(ntile * (ntile + 1) / 2, splits2);
+  psi2_fwd_kernel<QM, TILE, CPT>
+      <<<grid2, TILE * TILE / CPT, smem_rows_psi2(QM), stream>>>(
+          mu, s, w, z, alpha, sf2, n, m, q, rows2, ntile, p2_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int rows1 = (n + splits1 - 1) / splits1;
+  const size_t smem1 = smem_rows_psi1(QM, d);
+  err = allow_smem(psi1y_fwd_kernel<QM>, smem1);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid1(splits1, (m + 127) / 128);
+  psi1y_fwd_kernel<QM><<<grid1, 128, smem1, stream>>>(
+      mu, s, y, w, z, alpha, sf2, n, m, q, d, rows1, p1y_part);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gparml
+
+// Launch plan of gparml_psi_fwd: plan = (splits2, splits1, the largest
+// dynamic shared memory of its blocks in bytes, the device's limit for it).
+extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
+                                   int* plan) {
+  using namespace gparml;
+  const int qm = qm_for(q);
+  if (qm == 0) return (int)cudaErrorInvalidValue;
+  plan[0] = n_splits(n, tri_tiles(m, fwd_tile(qm)), kRowsPsi2, num_sms);
+  plan[1] = n_splits(n, (m + 127) / 128, kRowsPsi1, num_sms);
+  plan[2] = smem_bytes(std::max(smem_rows_psi2(qm), smem_rows_psi1(qm, d)));
+  return (int)smem_limit(plan);
+}
+
+// p2_part: (splits2, M, M), every element written. p1y_part: (splits1, M, D),
+// zero-filled by the caller (accumulated in place). Returns cudaGetLastError.
+extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
+                              const float* w, const float* z,
+                              const float* alpha, const float* sf2, int n,
+                              int m, int q, int d, int splits2, int splits1,
+                              float* p2_part, float* p1y_part, void* stream) {
+  GPARML_QM_SWITCH(q, gparml::launch_fwd, mu, s, y, w, z, alpha, sf2, n, m,
+                   q, d, splits2, splits1, p2_part, p1y_part,
+                   static_cast<cudaStream_t>(stream));
+}

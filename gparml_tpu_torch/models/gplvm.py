@@ -1,0 +1,204 @@
+"""Bayesian GPLVM (Titsias & Lawrence 2010) with variational q(X).
+
+Counterpart of ``gparml_tpu/models/gplvm.py``: ``GPLVMConfig``,
+``FitResult``, ``init_params``, ``suff_stats``, ``log_bound``,
+``neg_bound_value_and_grad`` and ``fit`` with SCG. Latents q(x_n) =
+N(mu_n, diag(s_n)) are (N, Q) leaves optimized jointly with the globals.
+
+Not ported yet (they raise NotImplementedError; see ROADMAP.md):
+``layout='qn'``, ``y_layout='dn'``, a ``mesh``, the Adam/GD optimizers,
+``infer_latents``, ``predict_observed`` and ``reconstruct``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gparml_tpu_torch.models import params as P
+from gparml_tpu_torch.ops import bound as bound_ops
+from gparml_tpu_torch.ops import psi
+from gparml_tpu_torch.opt import scg
+from gparml_tpu_torch.parallel.stats import suff_stats_auto
+from gparml_tpu_torch.utils import init as init_utils
+
+
+@dataclass(frozen=True)
+class GPLVMConfig:
+    q: int = 2                       # latent dimensionality (reference -q)
+    num_inducing: int = 10           # reference -m
+    bijector: str = "exp"
+    jitter: float = 1e-6
+    block: Optional[int] = None      # N-block of the plain engine (divides N)
+    stats_impl: str = "auto"         # psi engine, the JAX package's names:
+                                     # 'pallas' = the hand-written CUDA
+                                     # kernels (plain versions for CPU
+                                     # tensors) | 'xla' = the plain PyTorch
+                                     # engine | 'auto' = kernels for CUDA
+                                     # tensors, plain engine for CPU tensors
+    pallas_tile: int = 64            # no-op: a Pallas tiling hint
+    init: str = "pca"                # reference --init {PCA, random}
+    layout: str = "nq"               # only 'nq' is ported
+    y_layout: str = "nd"             # only 'nd' is ported
+    s0: float = 0.5                  # initial variational variance
+    fixed_embeddings: bool = False   # reference --fixed_embeddings
+    fixed_beta: bool = False         # reference --fixed_beta
+    fixed_z: bool = False
+    fixed_hypers: bool = False
+    scg_mode: str = "auto"           # no-op: 'fused' | 'stepped' | 'auto'
+                                     # chose a TPU program shape; the port's
+                                     # SCG is always one host loop
+
+
+class FitResult(NamedTuple):
+    params: P.GPLVMParams
+    bound: float
+    history: np.ndarray           # per-iteration bound (nan past the end)
+    n_evals: int
+    trace: Optional[dict] = None  # SCG per-iteration {bound, gnorm2, lambda, alpha, accepted}
+
+
+def _check_config(config: GPLVMConfig) -> None:
+    if config.layout != "nq" or config.y_layout != "nd":
+        raise NotImplementedError(
+            f"layout={config.layout!r}, y_layout={config.y_layout!r} are not "
+            "ported yet; only 'nq'/'nd' (ROADMAP.md Queue 1)")
+    if config.scg_mode not in ("auto", "fused", "stepped"):
+        raise ValueError(
+            f"scg_mode must be 'fused', 'stepped' or 'auto'; got {config.scg_mode!r}")
+
+
+def init_params(
+    gen: torch.Generator,
+    y: torch.Tensor,
+    config: GPLVMConfig,
+    sf2: float = 1.0,
+    alpha=None,
+    beta: Optional[float] = None,
+) -> P.GPLVMParams:
+    """PCA (or random) latent init; Z by farthest-point sampling of the
+    initialized latents; hypers default to sf2=1, alpha=1, beta=10/var(Y).
+    ``gen`` draws the random parts; the params live on y's device."""
+    _check_config(config)
+    mu, s = init_utils.init_latents(gen, y, config.q, method=config.init, s0=config.s0)
+    z = init_utils.init_inducing(gen, mu, config.num_inducing)
+    if alpha is None:
+        alpha = torch.ones(config.q, dtype=y.dtype, device=y.device)
+    if beta is None:
+        beta = 10.0 / torch.clamp(torch.var(y, correction=0), min=1e-6)
+    glob = P.make_global(z, sf2, alpha, beta, bijector=config.bijector)
+    lat = P.make_latents(mu, s, bijector=config.bijector, layout=config.layout)
+    return P.GPLVMParams(glob=glob, lat=lat)
+
+
+def _stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None, weights=None):
+    _check_config(config)
+    z, sf2, alpha, _ = P.constrain(p.glob, config.bijector)
+    mu, s = P.constrain_latents(p.lat, config.bijector, config.layout)
+    return suff_stats_auto(
+        y, mu, s, z, sf2, alpha, mesh=mesh, block=config.block,
+        weights=weights, impl=config.stats_impl,
+    )
+
+
+def suff_stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None,
+               weights=None) -> psi.SufficientStats:
+    return _stats(p, y, config, mesh=mesh, weights=weights)
+
+
+def log_bound(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None,
+              weights=None) -> torch.Tensor:
+    """Evidence lower bound."""
+    z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
+    stats = _stats(p, y, config, mesh=mesh, weights=weights)
+    return bound_ops.bound_from_stats(
+        stats, z, sf2, alpha, beta, d=y.shape[1], jitter=config.jitter)
+
+
+def neg_bound_value_and_grad(p: P.GPLVMParams, y, config: GPLVMConfig,
+                             mask=None, mesh=None, weights=None):
+    """(-bound, gradient leaves in ``named_parameters`` order)."""
+    leaves = list(p.parameters())
+    f = -log_bound(p, y, config, mesh=mesh, weights=weights)
+    grads = list(torch.autograd.grad(f, leaves))
+    if mask is not None:
+        grads = P.apply_mask(grads, mask)
+    return f.detach(), grads
+
+
+def _check(p: P.GPLVMParams, y, config: GPLVMConfig):
+    if y.ndim != 2:
+        raise ValueError(f"Y must be 2-D; got {tuple(y.shape)}")
+    n, q = p.lat.mu.shape
+    if y.shape[0] != n:
+        raise ValueError(f"Y has N={y.shape[0]} but latents have N={n}")
+    if q != config.q:
+        raise ValueError(f"latents have Q={q} but config.q={config.q}")
+    if tuple(p.glob.z.shape) != (config.num_inducing, config.q):
+        raise ValueError(
+            f"Z has shape {tuple(p.glob.z.shape)}, expected "
+            f"({config.num_inducing}, {config.q})")
+
+
+def scg_trace(st: scg.SCGState) -> dict:
+    """Bound-sign per-iteration dict from a final SCGState (the JAX
+    package's ``models/sgpr.py`` ``scg_trace``)."""
+    return {
+        "bound": -st.history.f,
+        "gnorm2": st.history.gnorm2,
+        "lambda": st.history.lam,
+        "alpha": st.history.alpha,
+        "accepted": st.history.accepted,
+    }
+
+
+def fit(
+    p0: P.GPLVMParams,
+    y: torch.Tensor,
+    config: GPLVMConfig,
+    iters: int = 100,
+    optimizer: str = "scg",
+    learning_rate: float = 1e-2,
+    scg_options: Optional[scg.SCGOptions] = None,
+    mesh=None,
+    weights=None,
+) -> FitResult:
+    """Maximize the bound over all unmasked leaves with SCG."""
+    _check_config(config)
+    _check(p0, y, config)
+    if optimizer in ("adam", "gd"):
+        raise NotImplementedError(
+            f"optimizer={optimizer!r} is not ported yet (ROADMAP.md Queue 1, item 9)")
+    if optimizer != "scg":
+        raise ValueError(f"unknown optimizer {optimizer!r}; options: scg, adam, gd")
+    mask = P.grad_mask(
+        p0,
+        fixed_beta=config.fixed_beta,
+        fixed_embeddings=config.fixed_embeddings,
+        fixed_z=config.fixed_z,
+        fixed_hypers=config.fixed_hypers,
+    )
+
+    def vg(leaves):
+        return neg_bound_value_and_grad(P.from_leaves(leaves), y, config, mask,
+                                        mesh=mesh, weights=weights)
+
+    st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters))
+    return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f,
+                     st.n_evals, scg_trace(st))
+
+
+def _not_ported(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"gplvm.{name} is not ported yet (ROADMAP.md Queue 1, item 9)")
+    fn.__name__ = name
+    return fn
+
+
+predict_observed = _not_ported("predict_observed")
+infer_latents = _not_ported("infer_latents")
+reconstruct = _not_ported("reconstruct")

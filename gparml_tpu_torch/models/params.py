@@ -1,0 +1,190 @@
+"""Parameter containers for the GPLVM — ``nn.Module``s whose parameters carry
+the JAX pytree paths.
+
+Counterpart of ``gparml_tpu/models/params.py``. ``GPLVMParams`` holds a
+``GlobalParams`` (``glob``) and a ``LatentParams`` (``lat``), so
+``named_parameters()`` yields ``glob.z``, ``glob.u_sf2``, ``glob.u_alpha``,
+``glob.u_beta``, ``lat.mu`` and ``lat.u_s`` in the JAX leaf order. The
+optimizer works on the list of those leaves (``leaves`` / ``from_leaves``);
+the ``tree_*`` helpers act on such lists.
+
+Only the ``nq`` latent layout is ported; ``qn`` raises (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from gparml_tpu_torch.utils import transforms
+
+
+def _check_layout(layout: str) -> None:
+    if layout != "nq":
+        raise NotImplementedError(
+            f"layout={layout!r} is not ported yet; only 'nq' (ROADMAP.md Queue 1)")
+
+
+class GlobalParams(nn.Module):
+    """Replicated global parameters, unconstrained space."""
+
+    def __init__(self, z, u_sf2, u_alpha, u_beta):
+        super().__init__()
+        self.z = nn.Parameter(torch.as_tensor(z).detach())          # (M, Q)
+        self.u_sf2 = nn.Parameter(torch.as_tensor(u_sf2).detach())  # ()
+        self.u_alpha = nn.Parameter(torch.as_tensor(u_alpha).detach())  # (Q,)
+        self.u_beta = nn.Parameter(torch.as_tensor(u_beta).detach())    # ()
+
+
+class LatentParams(nn.Module):
+    """Per-data-point variational parameters q(x_n) = N(mu_n, diag(s_n)),
+    (N, Q) leaves."""
+
+    def __init__(self, mu, u_s):
+        super().__init__()
+        self.mu = nn.Parameter(torch.as_tensor(mu).detach())    # (N, Q)
+        self.u_s = nn.Parameter(torch.as_tensor(u_s).detach())  # (N, Q)
+
+
+class GPLVMParams(nn.Module):
+    def __init__(self, glob: GlobalParams, lat: LatentParams):
+        super().__init__()
+        self.glob = glob
+        self.lat = lat
+
+
+def leaves(p: nn.Module) -> list:
+    """The parameter tensors in JAX leaf order (detached)."""
+    return [t.detach() for t in p.parameters()]
+
+
+def from_leaves(leaves_: Sequence[torch.Tensor]):
+    """Rebuild params from a leaf list (the inverse of ``leaves``): 4 leaves
+    give a GlobalParams, 6 a GPLVMParams."""
+    glob = GlobalParams(*leaves_[:4])
+    if len(leaves_) == 4:
+        return glob
+    return GPLVMParams(glob, LatentParams(*leaves_[4:]))
+
+
+def constrain(g: GlobalParams, bijector: str = "exp"):
+    """Unconstrained GlobalParams -> (z, sf2, alpha, beta) in natural space."""
+    bij = transforms.get(bijector)
+    return g.z, bij.forward(g.u_sf2), bij.forward(g.u_alpha), bij.forward(g.u_beta)
+
+
+def constrain_latents(l: LatentParams, bijector: str = "exp", layout: str = "nq"):
+    """Unconstrained LatentParams -> (mu, s) in natural space, (N, Q)."""
+    _check_layout(layout)
+    return l.mu, transforms.get(bijector).forward(l.u_s)
+
+
+def make_global(z, sf2, alpha, beta, bijector: str = "exp") -> GlobalParams:
+    """Build GlobalParams from natural-space values."""
+    bij = transforms.get(bijector)
+    z = torch.as_tensor(z)
+    as_z = lambda v: torch.as_tensor(v, dtype=z.dtype, device=z.device)
+    return GlobalParams(
+        z=z,
+        u_sf2=bij.inverse(as_z(sf2)),
+        u_alpha=bij.inverse(as_z(alpha)),
+        u_beta=bij.inverse(as_z(beta)),
+    )
+
+
+def make_latents(mu, s, bijector: str = "exp", layout: str = "nq") -> LatentParams:
+    """Build LatentParams from natural-space (N, Q) values."""
+    _check_layout(layout)
+    mu = torch.as_tensor(mu)
+    s = torch.as_tensor(s, dtype=mu.dtype, device=mu.device)
+    return LatentParams(mu=mu, u_s=transforms.get(bijector).inverse(s))
+
+
+def grad_mask(
+    params,
+    fixed_beta: bool = False,
+    fixed_embeddings: bool = False,
+    fixed_z: bool = False,
+    fixed_hypers: bool = False,
+) -> list:
+    """0/1 tensors, one per leaf of ``params``, that zero the gradients of
+    fixed leaves (the reference's ``--fixed_beta`` / ``--fixed_embeddings``)."""
+    glob = params.glob if isinstance(params, GPLVMParams) else params
+    fixed = [fixed_z, fixed_hypers, fixed_hypers, fixed_beta or fixed_hypers]
+    if isinstance(params, GPLVMParams):
+        fixed += [fixed_embeddings, fixed_embeddings]
+        ts = leaves(glob) + leaves(params.lat)
+    else:
+        ts = leaves(glob)
+    return [torch.zeros_like(t) if f else torch.ones_like(t)
+            for t, f in zip(ts, fixed)]
+
+
+def apply_mask(grads, mask) -> list:
+    return [g * m for g, m in zip(grads, mask)]
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Sum over all leaves of <a_i, b_i>."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b))
+
+
+def tree_axpy(alpha, x, y) -> list:
+    """y + alpha * x, leafwise."""
+    return [yi + alpha * xi for xi, yi in zip(x, y)]
+
+
+def tree_scale(alpha, x) -> list:
+    return [alpha * xi for xi in x]
+
+
+def tree_neg(x) -> list:
+    return [-xi for xi in x]
+
+
+# --- interop with the JAX package's parameter pytrees ----------------------
+
+class GlobalArrays(NamedTuple):
+    z: np.ndarray
+    u_sf2: np.ndarray
+    u_alpha: np.ndarray
+    u_beta: np.ndarray
+
+
+class LatentArrays(NamedTuple):
+    mu: np.ndarray
+    u_s: np.ndarray
+
+
+class GPLVMArrays(NamedTuple):
+    """numpy mirror of the JAX ``GPLVMParams`` pytree (same fields, same
+    order): ``GPLVMParams(GlobalParams(*a.glob), LatentParams(*a.lat))``
+    rebuilds the JAX params from it."""
+
+    glob: GlobalArrays
+    lat: LatentArrays
+
+
+def from_numpy(arrays, device=None, dtype=None) -> GPLVMParams:
+    """Port params from ``jax.tree.map(np.asarray, p)`` of a JAX GPLVMParams
+    (or a ``GPLVMArrays``): any object with ``.glob.{z,u_sf2,u_alpha,u_beta}``
+    and ``.lat.{mu,u_s}``."""
+    t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
+    g, l = arrays.glob, arrays.lat
+    return GPLVMParams(
+        GlobalParams(t(g.z), t(g.u_sf2), t(g.u_alpha), t(g.u_beta)),
+        LatentParams(t(l.mu), t(l.u_s)),
+    )
+
+
+def to_numpy(p: GPLVMParams) -> GPLVMArrays:
+    """The inverse of ``from_numpy``."""
+    a = lambda x: x.detach().cpu().numpy()
+    g, l = p.glob, p.lat
+    return GPLVMArrays(
+        GlobalArrays(a(g.z), a(g.u_sf2), a(g.u_alpha), a(g.u_beta)),
+        LatentArrays(a(l.mu), a(l.u_s)),
+    )

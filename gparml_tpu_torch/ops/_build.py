@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels (``gparml_tpu_torch/csrc``).
+
+No JAX counterpart (Pallas compiled the TPU kernels inside ``pallas_call``).
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface for Hopper (``sm_90a``), without fast math. The
+library lands in ``build/gparml_tpu_torch/<hash>/`` beside the package, keyed
+by a hash of the sources and flags, and is loaded with ``ctypes``: every
+pointer and the stream pass as ``c_void_p``, and each entry point returns
+``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc"
+_BUILD_ROOT = _PKG.parent / "build" / "gparml_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+# name -> argument types, in the order of the extern "C" signatures
+_ENTRY_POINTS = {
+    # n m q d num_sms | plan (int[4]): N-splits, shared memory need, limit
+    "gparml_psi_fwd_plan": [_I] * 5 + [_IP],
+    "gparml_psi_bwd_plan": [_I] * 5 + [_IP],
+    # mu s y w z alpha sf2 | n m q d splits2 splits1 | p2_part p1y_part stream
+    "gparml_psi_fwd": [_P] * 7 + [_I] * 6 + [_P] * 3,
+    # mu s y w z alpha sf2 kmat e0 r1 | n m q d splits_c splits_m |
+    # dmu ds dal dy a_part b_part stream
+    "gparml_psi_bwd": [_P] * 10 + [_I] * 6 + [_P] * 7,
+}
+
+# Seconds the last ``load()`` spent compiling (0.0 when the library was
+# already built); chip_smoke.py reports it.
+last_build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list:
+    return sorted(p for p in _SRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16] / "libgparml_psi.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global last_build_seconds
+    lib = library_path()
+    if lib.exists():
+        last_build_seconds = 0.0
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    (lib.parent / "nvcc.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,0 +1,72 @@
+"""The PyTorch port stands apart from JAX: importing any of its modules
+loads neither jax nor the JAX package, its kernel wrappers hold no
+fallback, and chip_smoke.py fails (printing no result) without a GPU or
+without the package beside it."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "gparml_tpu_torch"
+
+
+def _run(args, cwd, **env):
+    full = {**os.environ, **env}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=full,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import pkgutil, sys, importlib, gparml_tpu_torch as g\n"
+        "for m in pkgutil.walk_packages(g.__path__, 'gparml_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'gparml_tpu' or m.startswith('gparml_tpu.')]\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_never_name_jax():
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "gparml_tpu"), (path, name)
+
+
+@pytest.mark.parametrize("module", ["ops/psi_cuda.py", "ops/_build.py"])
+def test_kernel_paths_have_no_fallback(module):
+    """No try/except around the build or the launch: a failure raises."""
+    tree = ast.parse((PKG / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    res = _run(["chip_smoke.py"], cwd=ROOT, CUDA_VISIBLE_DEVICES="")
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
