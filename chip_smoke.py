@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (gparml_tpu_torch) once on one NVIDIA GPU.
 
-Phases, one line each:
+Phases, one line each or more:
   1. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
-  2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc;
+  2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
+     (one process per source, all started together);
   3. kernel parity: the forward and backward kernels against their plain
      PyTorch versions through a scalar probe objective, in float32 and
-     against the plain version in float64;
+     against the plain version in float64, in the nq layout (mu, s (N, Q),
+     Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N));
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
      5-iteration SCG fit. Both float32 paths are also held against the
      plain engine in float64 on the same inputs, kernel by kernel and
-     gradient leaf by gradient leaf.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+     gradient leaf by gradient leaf;
+  5. the (Q, N)-layout path, GPLVMConfig(layout='qn', y_layout='dn'):
+     at N=1e5, M=500, Q=10, D=12 the qn kernels against their plain versions
+     (also with every grid in one N-split) and the bound+gradient against
+     the plain engine in float64, as in phase 4; then BASELINE config 5,
+     N=1e7, M=500, Q=10, D=12: s/eval, a 2-iteration SCG fit, the qn path
+     against the nq kernel path on the same inputs transposed, and the
+     kernels' full-N outputs against their plain versions on the same
+     inputs, run over 100 column slices and summed in float64 (the plain
+     versions' times at N=1e7 are those slices' sums), and against the
+     float64 sum of the kernels' own outputs over those slices.
+Each phase that drives the main path sets the kernels' launch counts to 0
+just before it and reads them just after. The line before the last is the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}. A
+failed check prints a "chip_smoke check failed" line, the run goes on to
+its end for the readings, and then exits non-zero without those two lines.
 
 Run from the repository root: python3 chip_smoke.py
 """
 
+import contextlib
 import json
 import math
 import os
@@ -39,13 +55,31 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 VALUE_RTOL = 2e-4
 GRAD_TOL_F32 = 1e-3
 GRAD_TOL_F64 = 2e-4
-# At the slice shape both float32 paths sum 1e6 rows in different orders.
+# At the slice shapes both float32 paths sum 1e5..1e7 rows in different
+# orders.
 SLICE_TOL = 1e-3
+# The kernels' float32 statistics against the plain version in float64,
+# directly and through a float64 bound: sound kernels read <= 1.8e-6 at
+# N=1e5..1e6, and long float32 running sums 1.2e-5..4.4e-5.
+F64_TOL = 1e-5
+# The qn path against the nq kernel path on the same inputs: the kernels
+# sum in the same order in both layouts; the plain reductions around them
+# (KL, sum y^2, dalpha's row sum) may not.
+LAYOUT_TOL = 1e-6
+# Full-N sums against the float64 sum of the kernels' outputs over 100
+# short slices: sound kernels read <= 7.5e-8, splits of 5e6 rows 3.1e-6.
+LONG_SUM_TOL = 1e-6
+
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# float32 on the CUDA cores, and HBM bytes.
+F32_PEAK = 67e12
+HBM_RATE = 3.35e12
 
 # (N, M, Q, D, rows with zero weight): the flat-kernel shape of the JAX
 # smoke, a weighted N=1000, the top of the TPU's flat window (M=512), a
-# ragged shape with D > 16 (the backward's D chunking), and Q=44 (bucket 64);
-# then one case for each other Q bucket of csrc/psi_common.cuh: Q=2 (the
+# ragged shape with D > 16 (the backward's D chunking), and Q=44 (bucket 64),
+# also at the H100's M limit there (908: Z fills the shared memory); then
+# one case for each other Q bucket of csrc/psi_common.cuh: Q=2 (the
 # default GPLVMConfig), Q=3 (bucket 4), Q=16 and Q=27 (bucket 32).
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
@@ -53,47 +87,69 @@ PARITY_CASES = (
     (24, 512, 10, 12, 0),
     (37, 50, 10, 20, 0),
     (24, 256, 44, 4, 0),
+    (16, 908, 44, 4, 0),
     (64, 40, 2, 3, 0),
     (50, 70, 3, 5, 10),
     (48, 100, 16, 12, 0),
     (40, 64, 27, 6, 0),
 )
+LAYOUTS = ("nq", "qn")
+# (N, Q, M, D) of phase 4's slice (BASELINE config 4), of phase 5's check
+# shape (JAX bench's m500_n1e5_sec; with the plain engine's N-block) and of
+# BASELINE config 5.
+SLICE = (1_000_000, 10, 200, 12)
+QN_CHECK = (100_000, 10, 500, 12, 1000)
+CONFIG5 = (10_000_000, 10, 500, 12)
 GRAD_NAMES = ("mu", "s", "z", "sf2", "alpha", "y")
+
+FAILURES = []
 
 
 def _require(ok, what) -> None:
-    """Fail the run (a check that survives ``python -O``, unlike assert)."""
+    """Record a failed check (a check that survives ``python -O``, unlike
+    assert); main() exits non-zero at the end if any failed."""
     if not ok:
-        raise RuntimeError(f"chip_smoke check failed: {what}")
+        FAILURES.append(what)
+        print(f"chip_smoke check failed: {what}", flush=True)
 
 
 def _norm_err(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def parity_case(n, m, q, d, nzero, device="cuda"):
-    """Kernel vs plain version on one shape; returns a dict of errors and
-    raises past the tolerances."""
-    import torch
-    from gparml_tpu_torch.ops import psi_cuda
+def _wrappers(layout):
+    """(fwd, bwd, fused, fwd_reference, bwd_reference) of a layout."""
+    from gparml_tpu_torch.ops import psi_cuda as pc
 
+    if layout == "nq":
+        return (pc.psi_fwd, pc.psi_bwd, pc.psi_fused, pc.psi_fused_fwd_reference,
+                pc.psi_fused_bwd_reference)
+    return (pc.psi_fwd_t, pc.psi_bwd_t, pc.psi_fused_t,
+            pc.psi_fused_t_fwd_reference, pc.psi_fused_t_bwd_reference)
+
+
+def parity_case(n, m, q, d, nzero, device="cuda", layout="nq"):
+    """Kernel vs plain version on one shape in one layout; returns a dict
+    of errors and fails the run past the tolerances."""
+    import torch
+
+    _, _, fused, fwd_ref, _ = _wrappers(layout)
     rng = np.random.default_rng(m + n)
     host = dict(
         mu=rng.standard_normal((n, q)), s=0.3 + 0.5 * rng.random((n, q)),
         z=rng.standard_normal((m, q)), sf2=np.asarray(1.3),
         alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)),
     )
+    if layout == "qn":
+        host.update({k: np.ascontiguousarray(host[k].T) for k in ("mu", "s", "y")})
     w = np.r_[np.ones(n - nzero), np.zeros(nzero)]
     wy = rng.standard_normal((m, d))
     wp = rng.standard_normal((m, m))
 
-    def run(dtype, fused):
+    def run(dtype, kernels):
         t = lambda a: torch.tensor(a, dtype=dtype, device=device)
         xs = [t(host[k]).requires_grad_(True) for k in GRAD_NAMES]
-        if fused:
-            p1y, p2 = psi_cuda.psi_fused(*xs, t(w))
-        else:
-            p1y, p2 = psi_cuda.psi_fused_fwd_reference(*xs, t(w))
+        p1y, p2 = (fused if kernels else fwd_ref)(*xs, t(w))
         f = torch.sum(p1y * t(wy)) * 1e-2 + torch.sum(p2 * t(wp)) * 1e-3
         grads = torch.autograd.grad(f, xs)
         return float(f.detach()), [g.double().cpu().numpy() for g in grads]
@@ -109,7 +165,7 @@ def parity_case(n, m, q, d, nzero, device="cuda"):
     bad += [k for k in ("value_rel",) if out[k] > VALUE_RTOL]
     bad += [f"d{k}" for k in GRAD_NAMES if out[f"d{k}"] > GRAD_TOL_F32]
     bad += [f"d{k}_f64" for k in GRAD_NAMES if out[f"d{k}_f64"] > GRAD_TOL_F64]
-    _require(not bad, f"parity N={n} M={m} Q={q} D={d}: {bad} {out}")
+    _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d}: {bad} {out}")
     return out
 
 
@@ -133,6 +189,10 @@ def _max_rel(a, b):
                for x, y in zip(a, b))
 
 
+def _max_abs(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
 def _ptxas_q10(log):
     """{kernel: (registers, spill-store bytes)} of the Q-bucket-10
     instantiations, from nvcc's -Xptxas -v output."""
@@ -148,6 +208,38 @@ def _ptxas_q10(log):
             out[name] = (int(ln.split("Used")[1].split()[0]), spill)
             name = None
     return out
+
+
+def _work(kind, n, m, q, d):
+    """(float32 operations, bytes) of one forward ('fwd') or backward
+    ('bwd') wrapper call: the operations the function needs per (row, cell)
+    and per (row, inducing point) pair, each computed once (an expf as one
+    operation, an FMA as two), and each input read and each output written
+    once."""
+    cells = m * (m + 1) // 2
+    if kind == "fwd":
+        # Psi2: per q a difference, a product, an FMA; then two adds, the
+        # exp and the weighted FMA: 4Q + 5. Psi1^T Y: 4Q + 4 + 2D.
+        ops = n * (cells * (4 * q + 5) + m * (4 * q + 4 + 2 * d))
+        elems = n * (2 * q + d + 1) + (m * q + q + 1) + (m * d + m * m)
+    else:
+        # Psi2: the exponent once, 4Q + 4 (as in the forward, times w);
+        # g = K w e and G += g, 2; t_q += g d_q, u_q += g d_q^2, 4Q; the
+        # centred cell sum A_q += w e (c_q d_q), one FMA on the exponent's
+        # product, 2Q: 10Q + 6. Psi1: the exponent 4Q + 4, y . dPsi1Y_m and
+        # dY += p dPsi1Y_m 4D, h and H 2, T and U 4Q, B 2Q: 10Q + 6 + 4D.
+        ops = n * (cells * (10 * q + 6) + m * (10 * q + 6 + 4 * d))
+        elems = (n * (2 * q + d + 1) + (m * q + q + 1) + 2 * (m * d + m * m)
+                 + n * (2 * q + d) + (m * q + q + 1))
+    return ops, 4 * elems
+
+
+def _bound(kind, n, m, q, d):
+    """(bound ms, what bounds it): the larger of the operations over the
+    card's float32 peak and the bytes over its memory rate."""
+    ops, nbytes = _work(kind, n, m, q, d)
+    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _eval_seconds(gplvm, p, y, config, reps=4):
@@ -175,9 +267,393 @@ def _neg_bound_f64_bound(p, y, config):
     z, sf2, alpha, beta = (t.double() for t in P.constrain(p.glob, config.bijector))
     st = gplvm.suff_stats(p, y, config)
     st = type(st)(*(t.double() for t in st))
-    f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=y.shape[1],
+    f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=gplvm._d_of(y, config),
                                     jitter=config.jitter)
     return f.detach(), torch.autograd.grad(f, list(p.parameters()))
+
+
+@contextlib.contextmanager
+def partial_budget(nbytes):
+    """The kernels' ``psi_cuda.PARTIAL_BYTES`` set to ``nbytes`` (None:
+    unchanged; 1: every grid in one N-split, however long)."""
+    from gparml_tpu_torch.ops import psi_cuda
+
+    saved = psi_cuda.PARTIAL_BYTES
+    psi_cuda.PARTIAL_BYTES = saved if nbytes is None else nbytes
+    try:
+        yield
+    finally:
+        psi_cuda.PARTIAL_BYTES = saved
+
+
+def _kernels_vs_plain(label, layout, fwd_in, cot, block, one_split=False):
+    """The layout's kernel wrappers against their plain versions on one
+    input: float32 vs float32 and both against the plain float64 version;
+    with ``one_split`` the kernels also run with every grid in one N-split.
+    Returns (forward outputs, forward and backward max abs error vs plain
+    f32, a printable summary) of the default plan."""
+    fwd, bwd, _, fwd_ref, bwd_ref = _wrappers(layout)
+    fwd_r = fwd_ref(*fwd_in, block=block)
+    bwd_r = bwd_ref(*fwd_in, *cot, block=block)
+    in64 = [t.double() for t in fwd_in]
+    fwd_64 = fwd_ref(*in64, block=block)
+    bwd_64 = bwd_ref(*in64, *(t.double() for t in cot), block=block)
+    del in64
+    texts, out = [], None
+    for plan, nbytes in (("default plan", None), ("one split a grid", 1))[:1 + one_split]:
+        with partial_budget(nbytes):
+            fwd_k = fwd(*fwd_in)
+            bwd_k = bwd(*fwd_in, *fwd_k, *cot)
+        fwd_err, bwd_err = _max_rel(fwd_k, fwd_r), _max_rel(bwd_k, bwd_r)
+        _require(fwd_err <= SLICE_TOL and bwd_err <= SLICE_TOL,
+                 f"{label} ({plan}) kernels vs plain: fwd {fwd_err}, bwd {bwd_err}")
+        err64 = {"fwd": (_max_rel(fwd_k, fwd_64), _max_rel(fwd_r, fwd_64)),
+                 "bwd": (_max_rel(bwd_k, bwd_64), _max_rel(bwd_r, bwd_64))}
+        _require(max(e[0] for e in err64.values()) <= F64_TOL,
+                 f"{label} ({plan}) kernels vs plain float64: {err64}")
+        texts.append(f"{plan}: " + "; ".join(
+            f"{k} max rel err {e:.2e}; vs plain f64: kernel {e64[0]:.2e}, plain f32 "
+            f"{e64[1]:.2e}" for k, e, e64 in zip(
+                ("fwd", "bwd"), (fwd_err, bwd_err), (err64["fwd"], err64["bwd"]))))
+        if out is None:
+            out = fwd_k, (_max_abs(fwd_k, fwd_r), _max_abs(bwd_k, bwd_r))
+        del bwd_k
+    return (*out, " | ".join(texts))
+
+
+def _hold_against_plain(label, p, y, cfg, cfg_x, f_k, g_k, f_x, g_x):
+    """Hold the kernel path's (-bound, gradient) (f_k, g_k) against the
+    plain engine's float32 (f_x, g_x), and the kernels' float32 statistics
+    through a float64 bound against the plain engine in float64, per leaf;
+    print both and the full float32 paths' distance from float64."""
+    from gparml_tpu_torch.models import gplvm, params as P
+
+    p64 = P.from_leaves([t.double() for t in P.leaves(p)])
+    f_64, g_64 = gplvm.neg_bound_value_and_grad(p64, y.double(), cfg_x)
+    del p64
+    f_kb, g_kb = _neg_bound_f64_bound(p, y, cfg)
+    f_xb, g_xb = _neg_bound_f64_bound(p, y, cfg_x)
+    rel_f = abs(float(f_k) - float(f_x)) / abs(float(f_x))
+    reads = {"kernels": (f_k, g_k), "plain f32": (f_x, g_x),
+             "kernels+f64 bound": (f_kb, g_kb), "plain f32+f64 bound": (f_xb, g_xb)}
+    bound_err = {k: abs(float(f) - float(f_64)) / abs(float(f_64))
+                 for k, (f, _) in reads.items()}
+    names = [k for k, _ in p.named_parameters()]
+    vs64 = {k: {nm: _norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
+                for nm, a, b in zip(names, g, g_64)} for k, (_, g) in reads.items()}
+    vs_plain = {nm: _norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
+                for nm, a, b in zip(names, g_k, g_x)}
+    rel_g = max(vs_plain.values())
+    _require(rel_f <= SLICE_TOL and rel_g <= SLICE_TOL,
+             f"{label} bound/grad vs plain engine: {rel_f}, {vs_plain}")
+    kb = vs64["kernels+f64 bound"]
+    _require(bound_err["kernels+f64 bound"] <= F64_TOL and max(kb.values()) <= F64_TOL,
+             f"{label} kernels' statistics with a float64 bound vs float64: "
+             f"{bound_err}, {vs64}")
+    print(f"{label} gradient per leaf, kernels vs plain f32 (norm-scaled): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in vs_plain.items()))
+    for k, errs in vs64.items():
+        print(f"{label} vs plain f64, {k}: bound rel {bound_err[k]:.2e}; "
+              "gradient " + ", ".join(f"{nm} {v:.2e}" for nm, v in errs.items()))
+    return rel_f, rel_g
+
+
+def _kernel_inputs(p, y, cfg, native=False):
+    """Detached (mu, s, z, sf2, alpha, y, w) of params ``p`` as the kernels
+    take them (``native``: the qn storage layout)."""
+    import torch
+    from gparml_tpu_torch.models import params as P
+
+    with torch.no_grad():
+        z, sf2, alpha, _ = P.constrain(p.glob, cfg.bijector)
+        mu, s = P.constrain_latents(p.lat, cfg.bijector, cfg.layout, native=native)
+        xs = [t.detach().contiguous() for t in (mu, s, z, sf2, alpha, y)]
+    n = mu.shape[1] if native else mu.shape[0]
+    return (*xs, torch.ones(n, dtype=y.dtype, device=y.device))
+
+
+def _cotangents(m, d, dev):
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(1)
+    return (torch.randn((m, d), generator=gen, device=dev),
+            torch.randn((m, m), generator=gen, device=dev))
+
+
+def phase4(dev, kernels):
+    """The nq slice at N=1e6, Q=10, M=200, D=12."""
+    import torch
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import gplvm, params as P
+    from gparml_tpu_torch.ops import psi_cuda
+
+    n, q, m, d = SLICE
+    block = 4000 if n % 4000 == 0 else None
+    t0 = time.perf_counter()
+    y_np, _ = data.oil_flow_like(n=n, d=d)
+    y = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="auto")
+    p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y, cfg)
+    torch.cuda.synchronize()
+    print(f"phase 4 data+init: {time.perf_counter() - t0:.2f} s")
+
+    # kernels vs plain versions at the slice shape (launches here are not
+    # counted as the main path's)
+    fwd_in = _kernel_inputs(p, y, cfg)
+    cot = _cotangents(m, d, dev)
+    fwd_k, abs_err, text = _kernels_vs_plain("phase 4 slice-shape", "nq", fwd_in, cot, block)
+    entries = [
+        {"name": "psi_fwd", "route": "cuda",
+         "source": "gparml_tpu_torch/csrc/psi_fwd.cu",
+         "replaces": "gparml_tpu/ops/psi_pallas.py:634",
+         "max_abs_err": abs_err[0],
+         "ms": _cuda_ms(lambda: psi_cuda.psi_fwd(*fwd_in), 5),
+         "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_fwd_reference(*fwd_in, block=block), 2)},
+        {"name": "psi_bwd", "route": "cuda",
+         "source": "gparml_tpu_torch/csrc/psi_bwd.cu",
+         "replaces": "gparml_tpu/ops/psi_pallas.py:794",
+         "max_abs_err": abs_err[1],
+         "ms": _cuda_ms(lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot), 3),
+         "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=block), 1)},
+    ]
+    for k, kind in zip(entries, ("fwd", "bwd")):
+        k["bound_ms"], k["bound_by"] = _bound(kind, n, m, q, d)
+        k["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
+    del fwd_k, fwd_in
+    print("phase 4 kernels at the slice shape: " + "; ".join(
+        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
+        f"{k['bound_ms']:.2f} ms)" for k in entries) + "; " + text)
+
+    # the main path: bound+gradient evaluations and a 5-iteration SCG fit
+    psi_cuda.LAUNCHES.update(fwd=0, bwd=0)
+    torch.cuda.reset_peak_memory_stats()
+    sec_k, (f_k, g_k) = _eval_seconds(gplvm, p, y, cfg)
+    t0 = time.perf_counter()
+    res = gplvm.fit(p, y, cfg, iters=5)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd", "bwd")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k in entries:
+        k["launches"] = launches[k["name"][4:]]
+    bound = res.trace["bound"][:5]
+    _require(np.all(np.isfinite(bound)), f"phase 4 fit bound not finite: {bound}")
+    _require(np.all(np.diff(bound) >= 0), f"phase 4 fit bound decreased: {bound}")
+    _require(launches["fwd"] > 0 and launches["bwd"] > 0,
+             f"phase 4 main path skipped a kernel: {launches}")
+
+    cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla", block=block)
+    sec_x, (f_x, g_x) = _eval_seconds(gplvm, p, y, cfg_x)
+    rel_f, rel_g = _hold_against_plain("phase 4 slice", p, y, cfg, cfg_x, f_k, g_k, f_x, g_x)
+    torch.cuda.synchronize()
+    print(f"phase 4 slice N={n} Q={q} M={m} D={d} f32: kernels {sec_k:.4f} s/eval, "
+          f"plain engine {sec_x:.4f} s/eval; bound vs plain rel {rel_f:.2e}, "
+          f"grad norm-scaled {rel_g:.2e}; fit 5 iters {fit_s:.2f} s, "
+          f"{res.n_evals} evals, bound {bound[0]:.6g} -> {bound[-1]:.6g}; "
+          f"launches {launches}; peak {peak_gb:.2f} GB")
+    kernels.extend(entries)
+
+
+def _qn_data(n, d, dev):
+    """oil_flow_like(n, d) as a float32 (D, N) tensor on the card."""
+    import torch
+    from gparml_tpu_torch import data
+
+    y_np, _ = data.oil_flow_like(n=n, d=d)
+    return torch.tensor(np.ascontiguousarray(y_np.T, dtype=np.float32), device=dev)
+
+
+def phase5_small(dev):
+    """qn at N=1e5, M=500, Q=10, D=12: the kernels against their plain
+    versions (with the default plan and with every grid in one N-split),
+    and the bound+gradient against the plain engine in float64."""
+    import torch
+    from gparml_tpu_torch.models import gplvm
+
+    n, q, m, d, block = QN_CHECK
+    y_t = _qn_data(n, d, dev)
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn", y_layout="dn",
+                            stats_impl="auto")
+    cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn", y_layout="dn",
+                              stats_impl="xla", block=block)
+    p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y_t, cfg)
+    fwd_in = _kernel_inputs(p, y_t, cfg, native=True)
+    cot = _cotangents(m, d, dev)
+    _, _, text = _kernels_vs_plain("phase 5 N=1e5", "qn", fwd_in, cot, block,
+                                   one_split=True)
+    del fwd_in
+    print(f"phase 5 N={n} M={m} Q={q} D={d} qn kernels: {text}")
+
+    f_k, g_k = gplvm.neg_bound_value_and_grad(p, y_t, cfg)
+    f_x, g_x = gplvm.neg_bound_value_and_grad(p, y_t, cfg_x)
+    rel_f, rel_g = _hold_against_plain(f"phase 5 N={n} qn", p, y_t, cfg, cfg_x,
+                                       f_k, g_k, f_x, g_x)
+    print(f"phase 5 N={n} qn bound+gradient: vs plain f32 bound rel {rel_f:.2e}, "
+          f"grad norm-scaled {rel_g:.2e}")
+
+
+# Outputs of psi_fwd_t then psi_bwd_t, and those summed over N.
+_OUTPUTS = ("psi1_y", "psi2", "dmu", "ds", "dz", "dsf2", "dalpha", "dy")
+_SUMMED = ("psi1_y", "psi2", "dz", "dsf2", "dalpha")
+
+
+def _full_n_checks(fwd_in, cot, full, block, slices=100):
+    """The full-N kernel outputs ``full`` ({name: tensor}) against two
+    references built over ``slices`` column slices of the same inputs: the
+    plain versions (float32, N-block ``block``) and the kernels themselves,
+    the N-summed outputs of each slice summed in float64 and the per-row
+    outputs compared slice by slice. Returns ({output: (max abs error vs
+    the plain versions, max|plain|)}, {N-summed output: error of max|ref|
+    vs the kernels' slices}, (plain forward ms, plain backward ms) over the
+    slices, the backward's including its forward as psi_fused_t_bwd_reference
+    does)."""
+    import torch
+    from gparml_tpu_torch.ops import psi_cuda
+
+    mu_t, s_t, z, sf2, alpha, y_t, w = fwd_in
+    n = mu_t.shape[1]
+    step = n // slices
+    vs_plain = {k: (0.0, 0.0) for k in _OUTPUTS}
+    plain_sum, kern_sum = {}, {}
+    ms = [0.0, 0.0]
+    for i in range(0, n, step):
+        cols = [t[:, i:i + step].contiguous() for t in (mu_t, s_t, y_t)]
+        part = (cols[0], cols[1], z, sf2, alpha, cols[2], w[i:i + step].contiguous())
+        xs = [t.detach().requires_grad_(True) for t in part[:6]]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.enable_grad():
+            ev[0].record()
+            out = psi_cuda.psi_fused_t_fwd_reference(*xs, part[6], block=block)
+            ev[1].record()
+            grads = torch.autograd.grad(out, xs, grad_outputs=cot)
+            ev[2].record()
+        ev[2].synchronize()
+        ms[0] += ev[0].elapsed_time(ev[1])
+        ms[1] += ev[0].elapsed_time(ev[2])
+        plain = dict(zip(_OUTPUTS, (*(t.detach() for t in out), *grads)))
+        p1y, p2 = psi_cuda.psi_fwd_t(*part)
+        kern = dict(zip(_OUTPUTS, (p1y, p2, *psi_cuda.psi_bwd_t(*part, p1y, p2, *cot))))
+        for k in _OUTPUTS:
+            if k in _SUMMED:
+                plain_sum[k] = plain_sum.get(k, 0) + plain[k].double()
+                kern_sum[k] = kern_sum.get(k, 0) + kern[k].double()
+            else:
+                err, ref = vs_plain[k]
+                vs_plain[k] = (max(err, float((full[k][:, i:i + step] - plain[k]).abs().max())),
+                               max(ref, float(plain[k].abs().max())))
+        del xs, out, grads, plain, kern
+    for k in _SUMMED:
+        vs_plain[k] = (float((full[k].double() - plain_sum[k]).abs().max()),
+                       float(plain_sum[k].abs().max()))
+    long_sums = {k: float((full[k].double() - kern_sum[k]).abs().max()
+                          / kern_sum[k].abs().max()) for k in _SUMMED}
+    return vs_plain, long_sums, tuple(ms)
+
+
+def _layout_errors(p, y_t, cfg, out_qn):
+    """The qn path against the nq kernel path on the same inputs,
+    transposed: the statistics (and whether the kernels' two are bitwise
+    equal) and the bound+gradient, given the qn path's (-bound, gradient)
+    ``out_qn``. Returns ({name: max rel err}, bitwise)."""
+    import torch
+    from gparml_tpu_torch.models import gplvm, params as P
+
+    cfg_nq = gplvm.GPLVMConfig(q=cfg.q, num_inducing=cfg.num_inducing, stats_impl="auto")
+    lv = P.leaves(p)
+    p_nq = P.from_leaves(lv[:4] + [t.T.contiguous() for t in lv[4:]])
+    y_nd = y_t.T.contiguous()
+    with torch.no_grad():
+        st_qn = gplvm.suff_stats(p, y_t, cfg)
+        st_nq = gplvm.suff_stats(p_nq, y_nd, cfg_nq)
+    bitwise = all(torch.equal(a, b) for a, b in zip(st_qn[1:3], st_nq[1:3]))
+    errs = {f"stats.{k}": _max_rel([a], [b]) for k, a, b in zip(st_qn._fields, st_qn, st_nq)}
+    del st_qn, st_nq
+    f_nq, g_nq = gplvm.neg_bound_value_and_grad(p_nq, y_nd, cfg_nq)
+    f_qn, g_qn = out_qn
+    errs["bound"] = abs(float(f_qn) - float(f_nq)) / abs(float(f_nq))
+    for (name, _), a, b in zip(p.named_parameters(), g_qn, g_nq):
+        errs[name] = _max_rel([a], [b.T if name.startswith("lat.") else b])
+    return errs, bitwise
+
+
+def phase5_config5(dev, kernels):
+    """BASELINE config 5 in qn/dn: N=1e7, M=500, Q=10, D=12, float32."""
+    import torch
+    from gparml_tpu_torch.models import gplvm
+    from gparml_tpu_torch.ops import psi_cuda
+
+    n, q, m, d = CONFIG5
+    block = QN_CHECK[4]
+    t0 = time.perf_counter()
+    y_t = _qn_data(n, d, dev)
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn", y_layout="dn",
+                            stats_impl="auto")
+    p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y_t, cfg)
+    torch.cuda.synchronize()
+    print(f"phase 5 config 5 data+init: {time.perf_counter() - t0:.2f} s")
+
+    # the main path: bound+gradient evaluations and a 2-iteration SCG fit
+    psi_cuda.LAUNCHES.update(fwd_t=0, bwd_t=0)
+    torch.cuda.reset_peak_memory_stats()
+    sec, out = _eval_seconds(gplvm, p, y_t, cfg, reps=2)
+    t0 = time.perf_counter()
+    res = gplvm.fit(p, y_t, cfg, iters=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd_t", "bwd_t")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bound = res.trace["bound"][:2]
+    _require(np.all(np.isfinite(bound)), f"phase 5 fit bound not finite: {bound}")
+    _require(np.all(np.diff(bound) >= 0) and bound[0] >= -float(out[0]),
+             f"phase 5 fit bound decreased: {-float(out[0])} -> {bound}")
+    _require(launches["fwd_t"] > 0 and launches["bwd_t"] > 0,
+             f"phase 5 main path skipped a kernel: {launches}")
+    print(f"phase 5 config 5 N={n} Q={q} M={m} D={d} qn/dn f32: {sec:.4f} s/eval; "
+          f"fit 2 iters {fit_s:.2f} s, {res.n_evals} evals, bound "
+          f"{-float(out[0]):.6g} -> {bound[-1]:.6g}; launches {launches}; "
+          f"peak {peak_gb:.2f} GB")
+    del res
+
+    # the qn path against the nq kernel path on the same inputs
+    errs, bitwise = _layout_errors(p, y_t, cfg, out)
+    _require(max(errs.values()) <= LAYOUT_TOL, f"phase 5 qn vs nq kernel path: {errs}")
+    print(f"phase 5 config 5 qn vs nq kernel path (max rel): kernels' statistics "
+          f"bitwise equal: {bitwise}; " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    del out
+
+    # the kernels at config 5 against their plain versions on the same inputs
+    fwd_in = _kernel_inputs(p, y_t, cfg, native=True)
+    cot = _cotangents(m, d, dev)
+    full_fwd = psi_cuda.psi_fwd_t(*fwd_in)
+    full = dict(zip(_OUTPUTS, (*full_fwd, *psi_cuda.psi_bwd_t(*fwd_in, *full_fwd, *cot))))
+    t0 = time.perf_counter()
+    vs_plain, sums, plain_ms = _full_n_checks(fwd_in, cot, full, block)
+    rel = {k: e / max(r, 1e-30) for k, (e, r) in vs_plain.items()}
+    _require(max(rel.values()) <= SLICE_TOL, f"phase 5 config 5 kernels vs plain: {rel}")
+    _require(max(sums.values()) <= LONG_SUM_TOL, f"phase 5 long sums at N={n}: {sums}")
+    print(f"phase 5 config 5 kernels vs plain versions over 100 slices "
+          f"({time.perf_counter() - t0:.2f} s; max abs err of max|plain|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    print("phase 5 config 5 full-N sums vs float64 sum of the kernels over 100 "
+          "slices (of max|ref|): " + ", ".join(f"{k} {v:.2e}" for k, v in sums.items()))
+    del full
+    for name, kind, fn, reps, names, pms in (
+            ("psi_fwd_t", "fwd", lambda: psi_cuda.psi_fwd_t(*fwd_in), 2,
+             _OUTPUTS[:2], plain_ms[0]),
+            ("psi_bwd_t", "bwd", lambda: psi_cuda.psi_bwd_t(*fwd_in, *full_fwd, *cot), 1,
+             _OUTPUTS[2:], plain_ms[1])):
+        entry = {"name": name, "route": "cuda",
+                 "source": f"gparml_tpu_torch/csrc/psi_{kind}.cu",
+                 "replaces": "gparml_tpu/ops/psi_pallas.py:" + ("671" if kind == "fwd" else "820"),
+                 "launches": launches[kind + "_t"],
+                 "max_abs_err": max(vs_plain[k][0] for k in names),
+                 "ms": _cuda_ms(fn, reps), "plain_ms": pms}
+        entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
+        entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
+        kernels.append(entry)
+    print("phase 5 config 5 kernels: " + "; ".join(
+        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
+        f"{k['bound_ms']:.2f} ms)" for k in kernels[-2:]))
 
 
 def main() -> int:
@@ -204,7 +680,7 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; tf32 off")
 
     # phase 2: build
-    from gparml_tpu_torch.ops import _build, psi_cuda
+    from gparml_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load()
@@ -213,133 +689,30 @@ def main() -> int:
               f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas_q10(
                   (_build.library_path().parent / "nvcc.log").read_text()).items()))
 
-    # phase 3: kernel parity
+    # phase 3: kernel parity, both layouts
+    t0 = time.perf_counter()
     for case in PARITY_CASES:
-        res = parity_case(*case)
-        print(f"phase 3 parity N={case[0]} M={case[1]} Q={case[2]} D={case[3]} "
-              f"zero-w={case[4]}: " + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
+        for layout in LAYOUTS:
+            res = parity_case(*case, layout=layout)
+            print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
+                  f"D={case[3]} zero-w={case[4]}: "
+                  + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
+    print(f"phase 3: {time.perf_counter() - t0:.2f} s")
 
-    # phase 4: the slice at N=1e6, Q=10, M=200, D=12
-    from gparml_tpu_torch import data
-    from gparml_tpu_torch.models import gplvm, params as P
-
-    n, q, m, d = 1_000_000, 10, 200, 12
+    kernels = []
     t0 = time.perf_counter()
-    y_np, _ = data.oil_flow_like(n=n, d=d)
-    y = torch.tensor(y_np, dtype=torch.float32, device=dev)
-    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="auto")
-    p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y, cfg)
-    torch.cuda.synchronize()
-    print(f"phase 4 data+init: {time.perf_counter() - t0:.2f} s")
-
-    # kernels vs plain versions at the slice shape (launches here are not
-    # counted as the main path's)
-    with torch.no_grad():
-        z, sf2, alpha, _ = P.constrain(p.glob, cfg.bijector)
-        mu, s = P.constrain_latents(p.lat, cfg.bijector)
-        z, sf2, alpha, mu, s = (t.detach().contiguous() for t in (z, sf2, alpha, mu, s))
-    w = torch.ones(n, dtype=torch.float32, device=dev)
-    fwd_in = (mu, s, z, sf2, alpha, y, w)
-    gen = torch.Generator(dev).manual_seed(1)
-    cot = (torch.randn((m, d), generator=gen, device=dev),
-           torch.randn((m, m), generator=gen, device=dev))
-    fwd_k = psi_cuda.psi_fwd(*fwd_in)
-    fwd_r = psi_cuda.psi_fused_fwd_reference(*fwd_in, block=4000)
-    bwd_k = psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot)
-    bwd_r = psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=4000)
-    fwd_err, bwd_err = _max_rel(fwd_k, fwd_r), _max_rel(bwd_k, bwd_r)
-    _require(fwd_err <= SLICE_TOL and bwd_err <= SLICE_TOL,
-             f"slice-shape kernels vs plain: fwd {fwd_err}, bwd {bwd_err}")
-    # both float32 sides against the plain version in float64
-    in64 = [t.double() for t in fwd_in]
-    fwd_64 = psi_cuda.psi_fused_fwd_reference(*in64, block=4000)
-    bwd_64 = psi_cuda.psi_fused_bwd_reference(
-        *in64, *(t.double() for t in cot), block=4000)
-    err64 = {"fwd": (_max_rel(fwd_k, fwd_64), _max_rel(fwd_r, fwd_64)),
-             "bwd": (_max_rel(bwd_k, bwd_64), _max_rel(bwd_r, bwd_64))}
-    del in64, fwd_64, bwd_64
-    _require(max(e[0] for e in err64.values()) <= SLICE_TOL,
-             f"slice-shape kernels vs plain float64: {err64}")
-    kernels = [
-        {"name": "psi_fwd", "route": "cuda",
-         "source": "gparml_tpu_torch/csrc/psi_fwd.cu",
-         "replaces": "gparml_tpu/ops/psi_pallas.py:634",
-         "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(fwd_k, fwd_r)),
-         "ms": _cuda_ms(lambda: psi_cuda.psi_fwd(*fwd_in), 5),
-         "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_fwd_reference(*fwd_in, block=4000), 2)},
-        {"name": "psi_bwd", "route": "cuda",
-         "source": "gparml_tpu_torch/csrc/psi_bwd.cu",
-         "replaces": "gparml_tpu/ops/psi_pallas.py:794",
-         "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(bwd_k, bwd_r)),
-         "ms": _cuda_ms(lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot), 3),
-         "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=4000), 1)},
-    ]
-    del fwd_k, fwd_r, bwd_k, bwd_r
-    print("phase 4 kernels at the slice shape: " + "; ".join(
-        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms), "
-        f"max rel err {e:.2e}; vs plain f64: kernel {e64[0]:.2e}, plain f32 "
-        f"{e64[1]:.2e}" for k, e, e64 in zip(
-            kernels, (fwd_err, bwd_err), (err64["fwd"], err64["bwd"]))))
-
-    # the main path: bound+gradient evaluations and a 5-iteration SCG fit
-    psi_cuda.LAUNCHES.update(fwd=0, bwd=0)
-    torch.cuda.reset_peak_memory_stats()
-    sec_k, (f_k, g_k) = _eval_seconds(gplvm, p, y, cfg)
+    phase4(dev, kernels)
+    print(f"phase 4: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = gplvm.fit(p, y, cfg, iters=5)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = dict(psi_cuda.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for k in kernels:
-        k["launches"] = launches[k["name"][4:]]
-    bound = res.trace["bound"][:5]
-    _require(np.all(np.isfinite(bound)), f"fit bound not finite: {bound}")
-    _require(np.all(np.diff(bound) >= 0), f"fit bound decreased: {bound}")
-    _require(launches["fwd"] > 0 and launches["bwd"] > 0,
-             f"main path skipped a kernel: {launches}")
+    phase5_small(dev)
+    torch.cuda.empty_cache()
+    phase5_config5(dev, kernels)
+    print(f"phase 5: {time.perf_counter() - t0:.2f} s")
 
-    cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla", block=4000)
-    sec_x, (f_x, g_x) = _eval_seconds(gplvm, p, y, cfg_x)
-    # the same evaluation by the plain engine in float64: which float32 side
-    # is off
-    p64 = P.from_leaves([t.double() for t in P.leaves(p)])
-    f_64, g_64 = gplvm.neg_bound_value_and_grad(p64, y.double(), cfg_x)
-    del p64
-    # the float32 statistics of each engine with the bound in float64: the
-    # engines' own error, apart from the float32 bound's
-    f_kb, g_kb = _neg_bound_f64_bound(p, y, cfg)
-    f_xb, g_xb = _neg_bound_f64_bound(p, y, cfg_x)
-    rel_f = abs(float(f_k) - float(f_x)) / abs(float(f_x))
-    reads = {"kernels": (f_k, g_k), "plain f32": (f_x, g_x),
-             "kernels+f64 bound": (f_kb, g_kb), "plain f32+f64 bound": (f_xb, g_xb)}
-    bound_err = {k: abs(float(f) - float(f_64)) / abs(float(f_64))
-                 for k, (f, _) in reads.items()}
-    names = [k for k, _ in p.named_parameters()]
-    vs64 = {k: {nm: _norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
-                for nm, a, b in zip(names, g, g_64)} for k, (_, g) in reads.items()}
-    vs_plain = {nm: _norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
-                for nm, a, b in zip(names, g_k, g_x)}
-    del g_64, g_kb, g_xb
-    rel_g = max(vs_plain.values())
-    _require(rel_f <= SLICE_TOL and rel_g <= SLICE_TOL,
-             f"slice bound/grad vs plain engine: {rel_f}, {vs_plain}")
-    kb = vs64["kernels+f64 bound"]
-    _require(bound_err["kernels+f64 bound"] <= SLICE_TOL and max(kb.values()) <= SLICE_TOL,
-             f"slice kernels' statistics with a float64 bound vs float64: "
-             f"{bound_err}, {vs64}")
-    torch.cuda.synchronize()
-    print(f"phase 4 slice N={n} Q={q} M={m} D={d} f32: kernels {sec_k:.4f} s/eval, "
-          f"plain engine {sec_x:.4f} s/eval; bound vs plain rel {rel_f:.2e}, "
-          f"grad norm-scaled {rel_g:.2e}; fit 5 iters {fit_s:.2f} s, "
-          f"{res.n_evals} evals, bound {bound[0]:.6g} -> {bound[-1]:.6g}; "
-          f"launches {launches}; peak {peak_gb:.2f} GB")
-    print("phase 4 slice gradient per leaf, kernels vs plain f32 (norm-scaled): "
-          + ", ".join(f"{k} {v:.2e}" for k, v in vs_plain.items()))
-    for k, errs in vs64.items():
-        print(f"phase 4 slice vs plain f64, {k}: bound rel {bound_err[k]:.2e}; "
-              "gradient " + ", ".join(f"{nm} {v:.2e}" for nm, v in errs.items()))
-
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} checks failed", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

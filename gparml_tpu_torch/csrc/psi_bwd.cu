@@ -1,11 +1,16 @@
 // Psi-statistics backward on Hopper, float32.
 //
-// Replaces the TPU kernel gparml_tpu/ops/psi_pallas.py `_bwd_kernel_flat`
-// (launched by `_call_bwd_flat`), which formed G = exp2(lp) * sym(dPsi2) per
-// staircase slab on the MXU and closed the 2-D chains by an in-kernel
-// jax.vjp. Given the cotangents dPsi1Y (M, D) and S = sym(dPsi2) (M, M),
-// the cotangents reduce over two different axes, so this file has two
-// kinds of pass, each recomputing the exponent:
+// Replaces the TPU kernels gparml_tpu/ops/psi_pallas.py `_bwd_kernel_flat`
+// (:794, launched by `_call_bwd_flat`) and its (Q, N)-layout twin
+// `_bwd_kernel_flat_t` (:820, launched by `_call_bwd_flat_t`, which emits
+// dmu^T, ds^T (Q, N) and dY^T (D, N)), which formed G = exp2(lp) * sym(dPsi2)
+// per staircase slab on the MXU and closed the 2-D chains by an in-kernel
+// jax.vjp. One set of kernels serves both layouts through the Strides of
+// psi_common.cuh: the row passes read mu, s, Y and write dmu, ds, dalpha's
+// share and dY at the layout's strides; the column passes stage rows the
+// same way in both. Given the cotangents dPsi1Y (M, D) and S = sym(dPsi2)
+// (M, M), the cotangents reduce over two different axes, so this file has
+// two kinds of pass, each recomputing the exponent:
 //
 //  * row passes, one thread per data row n (reductions over cells):
 //      psi2_bwd_rows_kernel walks the upper-triangle cells (m <= m') with
@@ -18,12 +23,14 @@
 //        h = w Psi1 (y_n . dPsi1Y_m), adds -c1 T, -c1 H/2 + c1^2 U/2 and
 //        -(s/den1) H/2 - U/(2 den1^2) (T, U, H the h-sums as above), and
 //        writes dY = sum_m w Psi1 dPsi1Y_m.
-//  * column passes (reductions over n, one partial per N-split):
+//  * column passes (reductions over n, one float64 partial per N-split):
 //      psi2_bwd_cells_kernel, per (m, m') cell:
 //        A_q = sum_n w e c_nq (mu_nq - zb_q) with e = Psi2[n, m, m'],
 //        summed kFlushRows rows at a time into the split's partial;
 //      psi1_bwd_m_kernel, per inducing point m:
-//        B_q = sum_n h c1_nq (mu_nq - z_mq).
+//        B_q = sum_n h c1_nq (mu_nq - z_mq), at most kPsi1RowsMax rows a
+//        split in one launch (the launcher runs the grid again for further
+//        rows when the partials' memory budget lowers the split count).
 //    Both sums are centred on the cell (the inducing point), so dZ never
 //    forms them as differences of two large uncentred sums.
 //    The wrapper sums the partials and assembles dZ, dalpha's cell share and
@@ -33,16 +40,24 @@
 // backward sweeps the N * M^2 / 2 (n, cell) pairs twice (rows, cells). Row
 // passes read each cell's K, E0 and z_m' as warp-wide broadcasts (every
 // thread of the grid walks the same cell sequence), so device-memory
-// traffic is O(N (Q + D)); the register accumulators (4 Q + 1 per thread)
-// are what limits occupancy at large Q.
+// traffic is O(N (Q + D)); the register accumulators are what limits
+// occupancy at large Q. psi2_bwd_rows_kernel sums each row mi of cells
+// apart and adds it to the row's totals, all in registers: one running sum
+// over all M (M + 1) / 2 cells put dalpha 4e-5 off float64 at M = 500.
+// Totals in shared memory were 1-2% faster on an H100 but took 2 QM + 1
+// floats a thread from Z's room, lowering the M limit.
 #include "psi_common.cuh"
 
 namespace gparml {
 
+// Threads of a row-pass block.
+constexpr int kRowThreads = 128;
+
 template <int QM>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kRowThreads)
 psi2_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                     const float* __restrict__ w, const float* __restrict__ z,
+                     Strides ls, const float* __restrict__ w,
+                     const float* __restrict__ z,
                      const float* __restrict__ alpha,
                      const float* __restrict__ sf2,
                      const float* __restrict__ kmat,
@@ -56,30 +71,39 @@ psi2_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
 
-  float mv[QM], c[QM], t[QM], u[QM];
+  // The row's totals t_k, u_k and G; the sums over one row of cells go
+  // into them.
+  float tt[QM], uu[QM], gsum = 0.f;
+  float mv[QM], c[QM];
   float lsum = 0.f;
 #pragma unroll
   for (int k = 0; k < QM; ++k) {
     mv[k] = 0.f;
     c[k] = 0.f;
-    t[k] = 0.f;
-    u[k] = 0.f;
+    tt[k] = 0.f;
+    uu[k] = 0.f;
     if (k < q) {
       const float a = alpha[k];
-      const float den = 2.f * a * s[(size_t)row * q + k] + 1.f;
-      mv[k] = mu[(size_t)row * q + k];
+      const float den = 2.f * a * s[ls.at(row, k)] + 1.f;
+      mv[k] = mu[ls.at(row, k)];
       c[k] = a / den;
       lsum += logf(den);
     }
   }
   const float lc = 2.f * logf(*sf2) - 0.5f * lsum;
   const float wn = w[row];
-  float gsum = 0.f;
 
+  // Each row mi of cells is summed apart and then added to the row's
+  // totals, so no float32 running sum is longer than M (a data row meets
+  // M (M + 1) / 2 cells: 125 250 at M = 500).
   for (int mi = 0; mi < m; ++mi) {
-    float hm[QM];
+    float hm[QM], tp[QM], up[QM], gp = 0.f;
 #pragma unroll
-    for (int k = 0; k < QM; ++k) hm[k] = 0.5f * zs[mi * QM + k];
+    for (int k = 0; k < QM; ++k) {
+      hm[k] = 0.5f * zs[mi * QM + k];
+      tp[k] = 0.f;
+      up[k] = 0.f;
+    }
     const float* krow = kmat + (size_t)mi * m;
     const float* erow = e0 + (size_t)mi * m;
     for (int mj = mi; mj < m; ++mj) {
@@ -95,22 +119,28 @@ psi2_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
         qd = fmaf(c[2 * k2 + 1] * dd[2 * k2 + 1], dd[2 * k2 + 1], qd);
       }
       const float g = __ldg(krow + mj) * wn * expf(lc + __ldg(erow + mj) - qd);
-      gsum += g;
+      gp += g;
 #pragma unroll
       for (int k = 0; k < QM; ++k) {
         const float gd = g * dd[k];
-        t[k] += gd;
-        u[k] = fmaf(gd, dd[k], u[k]);
+        tp[k] += gd;
+        up[k] = fmaf(gd, dd[k], up[k]);
       }
     }
+#pragma unroll
+    for (int k = 0; k < QM; ++k) {
+      tt[k] += tp[k];
+      uu[k] += up[k];
+    }
+    gsum += gp;
   }
 
   for (int k = 0; k < q; ++k) {
-    const size_t i = (size_t)row * q + k;
+    const size_t i = ls.at(row, k);
     const float den = 2.f * alpha[k] * s[i] + 1.f;
-    dmu[i] = 2.f * c[k] * t[k];
-    ds[i] = -c[k] * gsum + 2.f * c[k] * c[k] * u[k];
-    dal[i] = -(s[i] / den) * gsum - u[k] / (den * den);
+    dmu[i] = 2.f * c[k] * tt[k];
+    ds[i] = -c[k] * gsum + 2.f * c[k] * c[k] * uu[k];
+    dal[i] = -(s[i] / den) * gsum - uu[k] / (den * den);
   }
 }
 
@@ -119,7 +149,8 @@ constexpr int kDChunk = 16;
 template <int QM>
 __global__ void __launch_bounds__(128)
 psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                     const float* __restrict__ y, const float* __restrict__ w,
+                     Strides ls, const float* __restrict__ y, Strides ys,
+                     const float* __restrict__ w,
                      const float* __restrict__ z,
                      const float* __restrict__ alpha,
                      const float* __restrict__ sf2,
@@ -143,8 +174,8 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     uu[k] = 0.f;
     if (k < q) {
       const float a = alpha[k];
-      const float den = a * s[(size_t)row * q + k] + 1.f;
-      mv[k] = mu[(size_t)row * q + k];
+      const float den = a * s[ls.at(row, k)] + 1.f;
+      mv[k] = mu[ls.at(row, k)];
       c[k] = a / den;
       lsum += logf(den);
     }
@@ -159,7 +190,7 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     float yv[kDChunk], gy[kDChunk];
 #pragma unroll
     for (int j = 0; j < kDChunk; ++j) {
-      yv[j] = d0 + j < d ? y[(size_t)row * d + d0 + j] : 0.f;
+      yv[j] = d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
       gy[j] = 0.f;
     }
     for (int mi = 0; mi < m; ++mi) {
@@ -196,11 +227,11 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     }
 #pragma unroll
     for (int j = 0; j < kDChunk; ++j)
-      if (d0 + j < d) dy[(size_t)row * d + d0 + j] = gy[j];
+      if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
   }
 
   for (int k = 0; k < q; ++k) {
-    const size_t i = (size_t)row * q + k;
+    const size_t i = ls.at(row, k);
     const float den = alpha[k] * s[i] + 1.f;
     dmu[i] += -c[k] * tt[k];
     ds[i] += -0.5f * c[k] * hsum + 0.5f * c[k] * c[k] * uu[k];
@@ -218,12 +249,12 @@ static_assert(kFlushRows % kRowsPsi2 == 0, "flush at a staged-chunk edge");
 template <int QM, int TILE>
 __global__ void __launch_bounds__(TILE * TILE, QM <= 10 ? 3 : 1)
 psi2_bwd_cells_kernel(const float* __restrict__ mu,
-                      const float* __restrict__ s,
+                      const float* __restrict__ s, Strides ls,
                       const float* __restrict__ w,
                       const float* __restrict__ z,
                       const float* __restrict__ alpha,
                       const float* __restrict__ sf2, int n, int m, int q,
-                      int rows_per_split, int ntile, float* __restrict__ out) {
+                      int rows_per_split, int ntile, double* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* s_mc = reinterpret_cast<float2*>(smem4);
   float2* s_lw = s_mc + kRowsPsi2 * QM;
@@ -249,11 +280,12 @@ psi2_bwd_cells_kernel(const float* __restrict__ mu,
   // out: (splits, q, M, M). Each thread owns cell (mi, mj): the whole
   // of a diagonal tile, the upper triangle elsewhere (mirrored at the end).
   // The registers hold the sums of kFlushRows rows at a time, which are
-  // added to the cell in `out`, so no float32 running sum spans a split
-  // (~83k rows at N=1e6) and no registers are spent on a second level.
+  // added to the cell's float64 partial in `out`, so no float32 running sum
+  // spans a split (~83k rows at N=1e6) and no registers are spent on a
+  // second level.
   const bool own = mi < m && mj < m;
   const size_t mm = (size_t)m * m;
-  float* o = out + (size_t)blockIdx.y * q * mm + (size_t)mi * m + mj;
+  double* o = out + (size_t)blockIdx.y * q * mm + (size_t)mi * m + mj;
   if (own)
     for (int k = 0; k < q; ++k) o[k * mm] = 0.f;
 
@@ -264,8 +296,8 @@ psi2_bwd_cells_kernel(const float* __restrict__ mu,
     const int fhi = min(hi, f0 + kFlushRows);
     for (int n0 = f0; n0 < fhi; n0 += kRowsPsi2) {
       __syncthreads();
-      stage_rows<QM, kRowsPsi2>(mu, s, w, alpha, logsf2, 2.f, 2.f, q, n0,
-                                fhi, s_mc, s_lw);
+      stage_rows<QM, kRowsPsi2>(mu, s, ls, w, alpha, logsf2, 2.f, 2.f, q,
+                                n0, fhi, s_mc, s_lw);
       __syncthreads();
       const int nr = min(kRowsPsi2, fhi - n0);
       for (int r = 0; r < nr; ++r) {
@@ -298,7 +330,7 @@ psi2_bwd_cells_kernel(const float* __restrict__ mu,
   }
 
   if (own && ti != tj) {
-    float* lower = o - ((size_t)mi * m + mj) + (size_t)mj * m + mi;
+    double* lower = o - ((size_t)mi * m + mj) + (size_t)mj * m + mi;
     for (int k = 0; k < q; ++k) lower[k * mm] = o[k * mm];
   }
 }
@@ -306,11 +338,12 @@ psi2_bwd_cells_kernel(const float* __restrict__ mu,
 template <int QM>
 __global__ void __launch_bounds__(128)
 psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                  const float* __restrict__ y, const float* __restrict__ w,
+                  Strides ls, const float* __restrict__ y, Strides ys,
+                  const float* __restrict__ w,
                   const float* __restrict__ z, const float* __restrict__ alpha,
                   const float* __restrict__ sf2,
-                  const float* __restrict__ r1, int n, int m, int q, int d,
-                  int rows_per_split, float* __restrict__ out) {
+                  const float* __restrict__ r1, int n_begin, int n, int m,
+                  int q, int d, int rows_per_split, double* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* s_mc = reinterpret_cast<float2*>(smem4);
   float2* s_lw = s_mc + kRowsPsi1 * QM;
@@ -318,25 +351,24 @@ psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
 
   const int mi = blockIdx.y * blockDim.x + threadIdx.x;
   const bool active = mi < m;
-  float zm[QM], acc[QM];
+  float zm[QM];
 #pragma unroll
-  for (int k = 0; k < QM; ++k) {
+  for (int k = 0; k < QM; ++k)
     zm[k] = (active && k < q) ? z[(size_t)mi * q + k] : 0.f;
-    acc[k] = 0.f;
-  }
   const float* rm = r1 + (size_t)(active ? mi : 0) * d;
 
+  float acc[QM];
+#pragma unroll
+  for (int k = 0; k < QM; ++k) acc[k] = 0.f;
+
   const float logsf2 = logf(*sf2);
-  const int lo = blockIdx.x * rows_per_split;
+  const int lo = n_begin + blockIdx.x * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
   for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
     __syncthreads();
-    stage_rows<QM, kRowsPsi1>(mu, s, w, alpha, logsf2, 1.f, 1.f, q, n0, hi,
-                              s_mc, s_lw);
-    for (int i = threadIdx.x; i < kRowsPsi1 * d; i += blockDim.x) {
-      const int nn = n0 + i / d;
-      s_y[i] = nn < hi ? y[(size_t)nn * d + i % d] : 0.f;
-    }
+    stage_rows<QM, kRowsPsi1>(mu, s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0,
+                              hi, s_mc, s_lw);
+    stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
     __syncthreads();
     // y_n . dPsi1Y_m first, so one register array of kRowsPsi1 is live
     // (a second one for w Psi1 spilled at Q=10).
@@ -373,39 +405,42 @@ psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 
   if (active) {
-    // out: (splits, q, M)
-    float* o = out + (size_t)blockIdx.x * q * m;
+    // out: (splits, q, M) float64: the grid's first launch writes it, a
+    // further one adds to it
+    double* o = out + (size_t)blockIdx.x * q * m + mi;
 #pragma unroll
     for (int k = 0; k < QM; ++k) {
-      if (k < q) o[(size_t)k * m + mi] = acc[k];
+      if (k < q) o[(size_t)k * m] = n_begin == 0 ? acc[k] : o[(size_t)k * m] + acc[k];
     }
   }
 }
 
-// Cell-pass tile edge, and the cap on its per-split partials (float32
-// elements, 512 MB).
+// Cell-pass tile edge, and the most rows of one of its N-splits (256
+// flushes).
 constexpr int kCellTile = 16;
-constexpr size_t kCellPartialElems = (size_t)1 << 27;
+constexpr int kCellRowsMax = 256 * kFlushRows;
 
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* kmat, const float* e0,
-               const float* r1, int n, int m, int q, int d, int splits_c,
-               int splits_m, float* dmu, float* ds, float* dal, float* dy,
-               float* a_part, float* b_part, cudaStream_t stream) {
+               const float* r1, int n, int m, int q, int d, int qn,
+               int splits_c, int splits_m, float* dmu, float* ds, float* dal,
+               float* dy, double* a_part, double* b_part,
+               cudaStream_t stream) {
+  const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const size_t smem_zm = smem_z(m, QM);
-  const int nblk = (n + 127) / 128;
+  const int nblk = (n + kRowThreads - 1) / kRowThreads;
   cudaError_t err = allow_smem(psi2_bwd_rows_kernel<QM>, smem_zm);
   if (err != cudaSuccess) return (int)err;
-  psi2_bwd_rows_kernel<QM><<<nblk, 128, smem_zm, stream>>>(
-      mu, s, w, z, alpha, sf2, kmat, e0, n, m, q, dmu, ds, dal);
+  psi2_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, kmat, e0, n, m, q, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   err = allow_smem(psi1_bwd_rows_kernel<QM>, smem_zm);
   if (err != cudaSuccess) return (int)err;
-  psi1_bwd_rows_kernel<QM><<<nblk, 128, smem_zm, stream>>>(
-      mu, s, y, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy);
+  psi1_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   constexpr int TILE = kCellTile;
@@ -413,51 +448,61 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   dim3 grid_c(ntile * (ntile + 1) / 2, splits_c);
   psi2_bwd_cells_kernel<QM, TILE>
       <<<grid_c, TILE * TILE, smem_rows_psi2(QM), stream>>>(
-      mu, s, w, z, alpha, sf2, n, m, q, (n + splits_c - 1) / splits_c, ntile,
-      a_part);
+      mu, s, ls, w, z, alpha, sf2, n, m, q, (n + splits_c - 1) / splits_c,
+      ntile, a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem_m = smem_rows_psi1(QM, d);
   err = allow_smem(psi1_bwd_m_kernel<QM>, smem_m);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_m(splits_m, (m + 127) / 128);
-  psi1_bwd_m_kernel<QM><<<grid_m, 128, smem_m, stream>>>(
-      mu, s, y, w, z, alpha, sf2, r1, n, m, q, d,
-      (n + splits_m - 1) / splits_m, b_part);
-  return (int)cudaGetLastError();
+  const int rows_m = std::min((n + splits_m - 1) / splits_m, kPsi1RowsMax);
+  // One launch unless the partials' budget lowered splits_m below
+  // n / kPsi1RowsMax: each further launch adds the next rows_m rows a split.
+  for (int n0 = 0; n0 < n; n0 += splits_m * rows_m) {
+    psi1_bwd_m_kernel<QM><<<grid_m, 128, smem_m, stream>>>(
+        mu, s, ls, y, ys, w, z, alpha, sf2, r1, n0, n, m, q, d, rows_m,
+        b_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace gparml
 
 // Launch plan of gparml_psi_bwd: plan = (splits_c, splits_m, the largest
 // dynamic shared memory of its blocks in bytes, the device's limit for it).
+// Each grid's float64 partials take at most partial_bytes.
 extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
-                                   int* plan) {
+                                   size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
   if (qm == 0) return (int)cudaErrorInvalidValue;
-  const size_t cap = kCellPartialElems / ((size_t)q * m * m);
-  plan[0] = std::max(1, (int)std::min(
-      (size_t)n_splits(n, tri_tiles(m, kCellTile), kRowsPsi2, num_sms), cap));
-  plan[1] = n_splits(n, (m + 127) / 128, kRowsPsi1, num_sms);
-  plan[2] = smem_bytes(
-      std::max({smem_z(m, qm), smem_rows_psi2(qm), smem_rows_psi1(qm, d)}));
+  plan[0] = cap_splits(n_splits(n, tri_tiles(m, kCellTile), kRowsPsi2,
+                                kCellRowsMax, num_sms),
+                       (size_t)q * m * m * sizeof(double), partial_bytes);
+  plan[1] = cap_splits(
+      n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
+      (size_t)q * m * sizeof(double), partial_bytes);
+  plan[2] = smem_bytes(std::max(
+      {smem_z(m, qm), smem_rows_psi2(qm), smem_rows_psi1(qm, d)}));
   return (int)smem_limit(plan);
 }
 
 // kmat: (M, M) = mult * sym(dPsi2) (upper triangle read); e0: (M, M);
-// r1 = dPsi1Y: (M, D). Writes dmu, ds, dal (N, Q), dy (N, D),
-// a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M).
-// Returns cudaGetLastError.
+// r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
+// qn = 1: (Q, N) and (D, N). Writes dmu, ds, dal, dy and the float64
+// a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). Returns
+// cudaGetLastError.
 extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* kmat, const float* e0,
                               const float* r1, int n, int m, int q, int d,
-                              int splits_c, int splits_m, float* dmu,
-                              float* ds, float* dal, float* dy, float* a_part,
-                              float* b_part, void* stream) {
+                              int qn, int splits_c, int splits_m, float* dmu,
+                              float* ds, float* dal, float* dy, double* a_part,
+                              double* b_part, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_bwd, mu, s, y, w, z, alpha, sf2, kmat,
-                   e0, r1, n, m, q, d, splits_c, splits_m, dmu, ds, dal, dy,
-                   a_part, b_part, static_cast<cudaStream_t>(stream));
+                   e0, r1, n, m, q, d, qn, splits_c, splits_m, dmu, ds, dal,
+                   dy, a_part, b_part, static_cast<cudaStream_t>(stream));
 }

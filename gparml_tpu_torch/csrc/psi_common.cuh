@@ -20,6 +20,14 @@
 // Launch geometry (tile sizes, N-splits, shared memory) is decided here and
 // in the launchers only; the Python wrapper asks for it through the
 // gparml_psi_{fwd,bwd}_plan entry points and allocates what they report.
+//
+// Two storage layouts of the N-sized arrays share one set of kernels: nq
+// keeps mu, s (N, Q) and Y (N, D) row-major; qn keeps them transposed,
+// mu^T, s^T (Q, N) and Y^T (D, N) (GPLVMConfig layout='qn', y_layout='dn').
+// The kernels take the layout as element strides (Strides below), read only
+// where rows are staged or a row's prologue and epilogue run, never in the
+// (n, cell) loops; the values staged, and so every sum, are the same in
+// both layouts.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +43,10 @@ constexpr int kRowsPsi2 = 64;
 // Rows per chunk in the inducing-point-major Psi1 kernels (per-thread
 // register arrays of this length).
 constexpr int kRowsPsi1 = 32;
+// Most rows of one N-split in the Psi1 kernels (in one launch, for the
+// backward's inducing-point pass, whose registers sum them): 64 chunk sums
+// into a Psi1^T Y partial row, a running sum of 2048 rows in the backward's.
+constexpr int kPsi1RowsMax = 64 * kRowsPsi1;
 
 __host__ __device__ inline int qm_for(int q) {
   if (q <= 2) return 2;
@@ -66,10 +78,25 @@ inline int smem_bytes(size_t bytes) {
 }
 
 // Number of N-splits of a grid with blocks_per_split blocks per split:
-// about eight resident blocks per SM, and at least rows_min rows a split.
-inline int n_splits(int n, int blocks_per_split, int rows_min, int num_sms) {
+// about eight resident blocks per SM and at least rows_min rows a split,
+// but at most rows_max rows a split, so that a large N gives a grid many
+// waves deep whose last wave is nearly full (on an H100 at N=1e7, M=500 the
+// forward's Psi2 kernel took 2568 ms in 8 splits, 2278 ms in 153).
+inline int n_splits(int n, int blocks_per_split, int rows_min, int rows_max,
+                    int num_sms) {
   const int sp = (8 * num_sms + blocks_per_split - 1) / blocks_per_split;
-  return std::max(1, std::min(sp, (n + rows_min - 1) / rows_min));
+  const int fewest = (n + rows_max - 1) / rows_max;
+  return std::max({1, fewest, std::min(sp, (n + rows_min - 1) / rows_min)});
+}
+
+// splits, lowered so that the float64 partials (bytes_per_split each) take
+// at most budget bytes. The kernels add a split's rows into its partial in
+// float32 pieces of bounded length (a chunk of rows, a flush, or one launch
+// of a grid that the launcher repeats over N), so a lowered split count
+// costs time, never accuracy.
+inline int cap_splits(int splits, size_t bytes_per_split, size_t budget) {
+  const size_t cap = budget / bytes_per_split;
+  return std::max(1, (int)std::min((size_t)splits, cap));
 }
 
 // Upper-triangle tiles of an m x m matrix in tile x tile blocks.
@@ -87,26 +114,57 @@ inline cudaError_t smem_limit(int* plan) {
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
+// Where element (n, k) of an N-sized array lies: at n * n_ + k * k_.
+// (n_, k_) = (width, 1) in the nq layout, (1, N) in qn. Offsets are size_t:
+// k * N reaches 6.4e8 at Q = 64, N = 1e7.
+struct Strides {
+  size_t n_, k_;
+  __host__ __device__ size_t at(int n, int k) const {
+    return (size_t)n * n_ + (size_t)k * k_;
+  }
+  // Row-major (each row contiguous), or transposed (each column).
+  __host__ __device__ bool rows_contiguous() const { return k_ == 1; }
+};
+
+// The strides of an (n, width) array in the nq (qn = 0) or qn layout.
+inline Strides strides_of(int qn, int n, int width) {
+  return qn ? Strides{1, (size_t)n} : Strides{(size_t)width, 1};
+}
+
+// Entry i of a block's NB x W staging loop as (row r, column k): neighbouring
+// threads take neighbouring k of one row where rows are contiguous, and
+// neighbouring rows of one k where columns are, so the loads coalesce in
+// both layouts.
+template <int NB>
+__device__ inline void stage_index(int i, int width, bool by_row, int* r,
+                                   int* k) {
+  *r = by_row ? i / width : i % NB;
+  *k = by_row ? i % width : i / NB;
+}
+
 // Stage data rows [n0, min(n0 + NB, hi)) into shared memory:
 //   s_mc[r * QM + k] = (mu_nk, c_nk)   (zero for k >= q and rows >= hi)
 //   s_lw[r]          = (lc_n, w_n)     (w = 0 for rows >= hi)
 // kden = 2, ksf = 2 gives the Psi2 terms; kden = 1, ksf = 1 the Psi1 terms.
 template <int QM, int NB>
 __device__ inline void stage_rows(const float* __restrict__ mu,
-                                  const float* __restrict__ s,
+                                  const float* __restrict__ s, Strides ls,
                                   const float* __restrict__ w,
                                   const float* __restrict__ alpha,
                                   float logsf2, float kden, float ksf, int q,
                                   int n0, int hi, float2* s_mc, float2* s_lw) {
+  const bool by_row = ls.rows_contiguous();
   for (int i = threadIdx.x; i < NB * QM; i += blockDim.x) {
-    const int r = i / QM, k = i % QM, n = n0 + r;
+    int r, k;
+    stage_index<NB>(i, QM, by_row, &r, &k);
+    const int n = n0 + r;
     float mv = 0.f, c = 0.f;
     if (n < hi && k < q) {
       const float a = alpha[k];
-      mv = mu[(size_t)n * q + k];
-      c = a / (kden * a * s[(size_t)n * q + k] + 1.f);
+      mv = mu[ls.at(n, k)];
+      c = a / (kden * a * s[ls.at(n, k)] + 1.f);
     }
-    s_mc[i] = make_float2(mv, c);
+    s_mc[r * QM + k] = make_float2(mv, c);
   }
   for (int r = threadIdx.x; r < NB; r += blockDim.x) {
     const int n = n0 + r;
@@ -114,11 +172,25 @@ __device__ inline void stage_rows(const float* __restrict__ mu,
     if (n < hi) {
       float acc = 0.f;
       for (int k = 0; k < q; ++k)
-        acc += logf(kden * alpha[k] * s[(size_t)n * q + k] + 1.f);
+        acc += logf(kden * alpha[k] * s[ls.at(n, k)] + 1.f);
       lc = ksf * logsf2 - 0.5f * acc;
       wn = w[n];
     }
     s_lw[r] = make_float2(lc, wn);
+  }
+}
+
+// Stage rows [n0, min(n0 + NB, hi)) of Y (N x D in strides ys) as
+// s_y[r * d + j], zero past hi: the same shared layout in nq and qn.
+template <int NB>
+__device__ inline void stage_y(const float* __restrict__ y, Strides ys,
+                               int d, int n0, int hi, float* s_y) {
+  const bool by_row = ys.rows_contiguous();
+  for (int i = threadIdx.x; i < NB * d; i += blockDim.x) {
+    int r, j;
+    stage_index<NB>(i, d, by_row, &r, &j);
+    const int nn = n0 + r;
+    s_y[r * d + j] = nn < hi ? y[ys.at(nn, j)] : 0.f;
   }
 }
 

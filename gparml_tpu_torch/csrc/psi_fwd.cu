@@ -1,22 +1,28 @@
 // Psi-statistics forward on Hopper: Psi1^T (w Y) (M, D) and
 // sum_n w_n Psi2_n (M, M), float32.
 //
-// Replaces the TPU kernel gparml_tpu/ops/psi_pallas.py `_fwd_kernel_flat`
-// (launched by `_call_fwd_flat`), which carried both sums across a
-// sequential grid over N and multiplied bf16 hi/lo rungs on the MXU. Here:
+// Replaces the TPU kernels gparml_tpu/ops/psi_pallas.py `_fwd_kernel_flat`
+// (:634, launched by `_call_fwd_flat`) and its (Q, N)-layout twin
+// `_fwd_kernel_flat_t` (:671, launched by `_call_fwd_flat_t`), which carried
+// both sums across a sequential grid over N and multiplied bf16 hi/lo rungs
+// on the MXU. One set of kernels serves both layouts through the Strides of
+// psi_common.cuh (the qn twin reads mu^T, s^T (Q, N) and Y^T (D, N)). Here:
 //
 //  * psi2_fwd_kernel: one grid axis over upper-triangle TILE x TILE tiles of
 //    (m, m') cells, one over N-splits. Each thread owns CPT cells of one
 //    tile row and keeps their zb vectors and E0 in registers; the block
 //    stages 64 data rows of (mu, c) and (lc, w) at a time in shared memory
 //    and every thread walks all of them, summing each such chunk apart
-//    before adding it to the cell's total. Each split writes its own
-//    (M, M) partial, mirrored to both triangles in the kernel; the wrapper
-//    sums the partials (deterministic, no atomics).
+//    before adding it to the cell's float32 total (at most 1024 chunk sums:
+//    a launch gives a split at most kFwdRowsMax rows). Each split writes
+//    its totals into its own float64 (M, M) partial, in both triangles; the
+//    wrapper sums the partials (deterministic, no atomics). When the
+//    partials' memory budget lowers the split count, the launcher runs the
+//    grid again for each further kFwdRowsMax rows a split, adding in.
 //  * psi1y_fwd_kernel: one thread per inducing point m, grid over
 //    (N-splits, m-blocks); per staged chunk of 32 rows it forms
 //    w_n Psi1[n, m] in registers and adds their products with the staged
-//    Y rows into its split's (M, D) partial row.
+//    Y rows into its split's (M, D) float64 partial row.
 //
 // What bounds it on an H100: exp and FMA issue, not bytes. Each (n, cell)
 // pair costs ~3 FMA-pipe operations per latent dimension plus one expf, and
@@ -29,13 +35,18 @@
 
 namespace gparml {
 
+// Most rows of one N-split of the Psi2 kernel in one launch: 1024 chunk
+// sums into a cell's float32 total.
+constexpr int kFwdRowsMax = 1024 * kRowsPsi2;
+
 template <int QM, int TILE, int CPT>
 __global__ void __launch_bounds__(TILE * TILE / CPT)
 psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                const float* __restrict__ w, const float* __restrict__ z,
+                Strides ls, const float* __restrict__ w,
+                const float* __restrict__ z,
                 const float* __restrict__ alpha, const float* __restrict__ sf2,
-                int n, int m, int q, int rows_per_split, int ntile,
-                float* __restrict__ out) {
+                int n_begin, int n, int m, int q, int rows_per_split,
+                int ntile, double* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* s_mc = reinterpret_cast<float2*>(smem4);
   float2* s_lw = s_mc + kRowsPsi2 * QM;
@@ -46,7 +57,7 @@ psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   const int mi = ti * TILE + threadIdx.x / TPR;
   const int col0 = tj * TILE + threadIdx.x % TPR;
 
-  float zb[CPT][QM], e0[CPT], acc[CPT];
+  float zb[CPT][QM], e0[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int mj = col0 + c * TPR;
@@ -60,16 +71,18 @@ psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
       if (k < q) e = fmaf(alpha[k] * dz, dz, e);
     }
     e0[c] = -0.25f * e;
-    acc[c] = 0.f;
   }
 
   const float logsf2 = logf(*sf2);
-  const int lo = blockIdx.y * rows_per_split;
+  const int lo = n_begin + blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
+  float acc[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
   for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
     __syncthreads();
-    stage_rows<QM, kRowsPsi2>(mu, s, w, alpha, logsf2, 2.f, 2.f, q, n0, hi,
-                              s_mc, s_lw);
+    stage_rows<QM, kRowsPsi2>(mu, s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0,
+                              hi, s_mc, s_lw);
     __syncthreads();
     const int nr = min(kRowsPsi2, hi - n0);
     // Each chunk of rows is summed on its own and then added to acc, so no
@@ -104,15 +117,23 @@ psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     for (int c = 0; c < CPT; ++c) acc[c] += part[c];
   }
 
-  float* o = out + (size_t)blockIdx.y * m * m;
+  // out: (splits, M, M): the grid's first launch writes it, a further one
+  // adds to it. On a diagonal tile every cell has its own thread (mirrored
+  // cells are computed twice, bitwise equal: zb and (z_m - z_m')^2 are
+  // symmetric); off it the thread also sets the mirrored cell, which no
+  // other thread touches.
+  double* o = out + (size_t)blockIdx.y * m * m;
+  const bool first = n_begin == 0;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int mj = col0 + c * TPR;
     if (mi < m && mj < m) {
-      // Cells are bitwise symmetric (zb and (z_m - z_m')^2 are), so the two
-      // writes of a diagonal tile's mirrored cells agree.
-      o[(size_t)mi * m + mj] = acc[c];
-      o[(size_t)mj * m + mi] = acc[c];
+      double* up = o + (size_t)mi * m + mj;
+      *up = first ? acc[c] : *up + acc[c];
+      if (ti != tj) {
+        double* mirror = o + (size_t)mj * m + mi;
+        *mirror = first ? acc[c] : *mirror + acc[c];
+      }
     }
   }
 }
@@ -120,10 +141,11 @@ psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
 template <int QM>
 __global__ void __launch_bounds__(128)
 psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                 const float* __restrict__ y, const float* __restrict__ w,
+                 Strides ls, const float* __restrict__ y, Strides ys,
+                 const float* __restrict__ w,
                  const float* __restrict__ z, const float* __restrict__ alpha,
                  const float* __restrict__ sf2, int n, int m, int q, int d,
-                 int rows_per_split, float* __restrict__ out) {
+                 int rows_per_split, double* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float2* s_mc = reinterpret_cast<float2*>(smem4);
   float2* s_lw = s_mc + kRowsPsi1 * QM;
@@ -139,15 +161,12 @@ psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   const float logsf2 = logf(*sf2);
   const int lo = blockIdx.x * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  float* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
+  double* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
   for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
     __syncthreads();
-    stage_rows<QM, kRowsPsi1>(mu, s, w, alpha, logsf2, 1.f, 1.f, q, n0, hi,
-                              s_mc, s_lw);
-    for (int i = threadIdx.x; i < kRowsPsi1 * d; i += blockDim.x) {
-      const int nn = n0 + i / d;
-      s_y[i] = nn < hi ? y[(size_t)nn * d + i % d] : 0.f;
-    }
+    stage_rows<QM, kRowsPsi1>(mu, s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0,
+                              hi, s_mc, s_lw);
+    stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
     __syncthreads();
     float p[kRowsPsi1];
 #pragma unroll
@@ -183,19 +202,24 @@ constexpr int fwd_cpt(int qm) { return qm <= 16 ? 4 : 1; }
 template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
-               const float* sf2, int n, int m, int q, int d, int splits2,
-               int splits1, float* p2_part, float* p1y_part,
+               const float* sf2, int n, int m, int q, int d, int qn,
+               int splits2, int splits1, double* p2_part, double* p1y_part,
                cudaStream_t stream) {
   constexpr int TILE = fwd_tile(QM);
   constexpr int CPT = fwd_cpt(QM);
+  const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int ntile = (m + TILE - 1) / TILE;
-  const int rows2 = (n + splits2 - 1) / splits2;
+  const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
   dim3 grid2(ntile * (ntile + 1) / 2, splits2);
-  psi2_fwd_kernel<QM, TILE, CPT>
-      <<<grid2, TILE * TILE / CPT, smem_rows_psi2(QM), stream>>>(
-          mu, s, w, z, alpha, sf2, n, m, q, rows2, ntile, p2_part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  // One launch unless the partials' budget lowered splits2 below
+  // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
+  for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
+    psi2_fwd_kernel<QM, TILE, CPT>
+        <<<grid2, TILE * TILE / CPT, smem_rows_psi2(QM), stream>>>(
+            mu, s, ls, w, z, alpha, sf2, n0, n, m, q, rows2, ntile, p2_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
   const int rows1 = (n + splits1 - 1) / splits1;
   const size_t smem1 = smem_rows_psi1(QM, d);
@@ -203,7 +227,7 @@ int launch_fwd(const float* mu, const float* s, const float* y,
   if (err != cudaSuccess) return (int)err;
   dim3 grid1(splits1, (m + 127) / 128);
   psi1y_fwd_kernel<QM><<<grid1, 128, smem1, stream>>>(
-      mu, s, y, w, z, alpha, sf2, n, m, q, d, rows1, p1y_part);
+      mu, s, ls, y, ys, w, z, alpha, sf2, n, m, q, d, rows1, p1y_part);
   return (int)cudaGetLastError();
 }
 
@@ -211,25 +235,33 @@ int launch_fwd(const float* mu, const float* s, const float* y,
 
 // Launch plan of gparml_psi_fwd: plan = (splits2, splits1, the largest
 // dynamic shared memory of its blocks in bytes, the device's limit for it).
+// Each grid's float64 partials take at most partial_bytes.
 extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
-                                   int* plan) {
+                                   size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
   if (qm == 0) return (int)cudaErrorInvalidValue;
-  plan[0] = n_splits(n, tri_tiles(m, fwd_tile(qm)), kRowsPsi2, num_sms);
-  plan[1] = n_splits(n, (m + 127) / 128, kRowsPsi1, num_sms);
+  plan[0] = cap_splits(n_splits(n, tri_tiles(m, fwd_tile(qm)), kRowsPsi2,
+                                kFwdRowsMax, num_sms),
+                       (size_t)m * m * sizeof(double), partial_bytes);
+  plan[1] = cap_splits(
+      n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
+      (size_t)m * d * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(std::max(smem_rows_psi2(qm), smem_rows_psi1(qm, d)));
   return (int)smem_limit(plan);
 }
 
-// p2_part: (splits2, M, M), every element written. p1y_part: (splits1, M, D),
-// zero-filled by the caller (accumulated in place). Returns cudaGetLastError.
+// qn = 0: mu, s (N, Q) and y (N, D); qn = 1: mu, s (Q, N) and y (D, N).
+// p2_part: (splits2, M, M) float64, every element written. p1y_part:
+// (splits1, M, D) float64, zero-filled by the caller (accumulated in place).
+// Returns cudaGetLastError.
 extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2, int n,
-                              int m, int q, int d, int splits2, int splits1,
-                              float* p2_part, float* p1y_part, void* stream) {
+                              int m, int q, int d, int qn, int splits2,
+                              int splits1, double* p2_part, double* p1y_part,
+                              void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, mu, s, y, w, z, alpha, sf2, n, m,
-                   q, d, splits2, splits1, p2_part, p1y_part,
+                   q, d, qn, splits2, splits1, p2_part, p1y_part,
                    static_cast<cudaStream_t>(stream));
 }

@@ -3,11 +3,13 @@
 Counterpart of ``gparml_tpu/models/gplvm.py``: ``GPLVMConfig``,
 ``FitResult``, ``init_params``, ``suff_stats``, ``log_bound``,
 ``neg_bound_value_and_grad`` and ``fit`` with SCG. Latents q(x_n) =
-N(mu_n, diag(s_n)) are (N, Q) leaves optimized jointly with the globals.
+N(mu_n, diag(s_n)) are (N, Q) leaves, or (Q, N) under ``layout='qn'``,
+optimized jointly with the globals; Y is (N, D), or (D, N) under
+``y_layout='dn'``.
 
-Not ported yet (they raise NotImplementedError; see ROADMAP.md):
-``layout='qn'``, ``y_layout='dn'``, a ``mesh``, the Adam/GD optimizers,
-``infer_latents``, ``predict_observed`` and ``reconstruct``.
+Not ported yet (they raise NotImplementedError; see ROADMAP.md): a
+``mesh``, the Adam/GD optimizers, ``infer_latents``, ``predict_observed``
+and ``reconstruct``.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import torch
 
 from gparml_tpu_torch.models import params as P
 from gparml_tpu_torch.ops import bound as bound_ops
-from gparml_tpu_torch.ops import psi
+from gparml_tpu_torch.ops import psi, psi_cuda
 from gparml_tpu_torch.opt import scg
 from gparml_tpu_torch.parallel.stats import suff_stats_auto
 from gparml_tpu_torch.utils import init as init_utils
+from gparml_tpu_torch.utils import transforms
 
 
 @dataclass(frozen=True)
@@ -41,8 +44,9 @@ class GPLVMConfig:
                                      # tensors, plain engine for CPU tensors
     pallas_tile: int = 64            # no-op: a Pallas tiling hint
     init: str = "pca"                # reference --init {PCA, random}
-    layout: str = "nq"               # only 'nq' is ported
-    y_layout: str = "nd"             # only 'nd' is ported
+    layout: str = "nq"               # latent storage: 'nq' (N, Q) | 'qn'
+                                     # transposed (Q, N), single device
+    y_layout: str = "nd"             # observations: 'nd' (N, D) | 'dn' (D, N)
     s0: float = 0.5                  # initial variational variance
     fixed_embeddings: bool = False   # reference --fixed_embeddings
     fixed_beta: bool = False         # reference --fixed_beta
@@ -62,10 +66,13 @@ class FitResult(NamedTuple):
 
 
 def _check_config(config: GPLVMConfig) -> None:
-    if config.layout != "nq" or config.y_layout != "nd":
-        raise NotImplementedError(
-            f"layout={config.layout!r}, y_layout={config.y_layout!r} are not "
-            "ported yet; only 'nq'/'nd' (ROADMAP.md Queue 1)")
+    if config.layout not in ("nq", "qn") or config.y_layout not in ("nd", "dn"):
+        raise ValueError(
+            f"layout must be 'nq' or 'qn' and y_layout 'nd' or 'dn'; got "
+            f"{config.layout!r}, {config.y_layout!r}")
+    if config.stats_impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown stats impl {config.stats_impl!r}; "
+                         "options: auto, xla, pallas")
     if config.scg_mode not in ("auto", "fused", "stepped"):
         raise ValueError(
             f"scg_mode must be 'fused', 'stepped' or 'auto'; got {config.scg_mode!r}")
@@ -81,25 +88,68 @@ def init_params(
 ) -> P.GPLVMParams:
     """PCA (or random) latent init; Z by farthest-point sampling of the
     initialized latents; hypers default to sf2=1, alpha=1, beta=10/var(Y).
-    ``gen`` draws the random parts; the params live on y's device."""
+    ``gen`` draws the random parts; the params live on y's device. Y is
+    (D, N) under ``y_layout='dn'``."""
     _check_config(config)
-    mu, s = init_utils.init_latents(gen, y, config.q, method=config.init, s0=config.s0)
-    z = init_utils.init_inducing(gen, mu, config.num_inducing)
     if alpha is None:
         alpha = torch.ones(config.q, dtype=y.dtype, device=y.device)
     if beta is None:
         beta = 10.0 / torch.clamp(torch.var(y, correction=0), min=1e-6)
+    if config.layout == "qn" and config.y_layout == "dn" and config.init == "random":
+        # (Q, N)-native init: random latents are N(0, 1), so Z is drawn from
+        # that distribution directly and no (N, Q) array is made.
+        n = y.shape[1]
+        mu_t = init_utils.randn(gen, (config.q, n), y)
+        z = init_utils.randn(gen, (config.num_inducing, config.q), y)
+        z = z + 1e-2 * init_utils.randn(gen, z.shape, y)
+        glob = P.make_global(z, sf2, alpha, beta, bijector=config.bijector)
+        s_t = torch.full_like(mu_t, config.s0)
+        u_s_t = transforms.get(config.bijector).inverse(s_t)
+        return P.GPLVMParams(glob=glob, lat=P.LatentParams(mu=mu_t, u_s=u_s_t))
+    if config.y_layout == "dn":
+        y = y.T   # a view: PCA and FPS read rows
+    mu, s = init_utils.init_latents(gen, y, config.q, method=config.init, s0=config.s0)
+    z = init_utils.init_inducing(gen, mu, config.num_inducing)
     glob = P.make_global(z, sf2, alpha, beta, bijector=config.bijector)
     lat = P.make_latents(mu, s, bijector=config.bijector, layout=config.layout)
     return P.GPLVMParams(glob=glob, lat=lat)
 
 
+def _d_of(y, config: GPLVMConfig) -> int:
+    return y.shape[0] if config.y_layout == "dn" else y.shape[1]
+
+
+def _qn_native(config: GPLVMConfig, mesh, cuda: bool) -> bool:
+    """The (Q, N)-layout kernel route: qn storage, no mesh, and the
+    'pallas' engine ('auto' resolves to it for CUDA tensors, as in
+    ``parallel.stats``). On CUDA tensors the kernels raise ValueError for a
+    shape they do not take (Q > 64, M or D past shared memory), as in nq.
+    Other qn configurations take the plain transposed engine
+    ``psi.suff_stats_t``."""
+    if config.layout != "qn" or mesh is not None:
+        return False
+    impl = config.stats_impl
+    if impl == "auto":
+        impl = "pallas" if cuda else "xla"
+    return impl == "pallas"
+
+
 def _stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None, weights=None):
     _check_config(config)
     z, sf2, alpha, _ = P.constrain(p.glob, config.bijector)
+    if config.layout == "qn" and mesh is None:
+        mu_t, s_t = P.constrain_latents(p.lat, config.bijector, "qn", native=True)
+        # the kernels take a contiguous (D, N) Y: one copy when Y is (N, D)
+        y_t = y if config.y_layout == "dn" else y.T.contiguous()
+        engine = (psi_cuda.suff_stats_t if _qn_native(config, mesh, y.is_cuda)
+                  else psi.suff_stats_t)
+        return engine(y_t, mu_t, s_t, z, sf2, alpha, block=config.block,
+                      weights=weights)
     mu, s = P.constrain_latents(p.lat, config.bijector, config.layout)
+    # the kernels take a contiguous (N, D) Y: one copy when Y is (D, N)
+    y_nd = y.T.contiguous() if config.y_layout == "dn" else y
     return suff_stats_auto(
-        y, mu, s, z, sf2, alpha, mesh=mesh, block=config.block,
+        y_nd, mu, s, z, sf2, alpha, mesh=mesh, block=config.block,
         weights=weights, impl=config.stats_impl,
     )
 
@@ -115,7 +165,7 @@ def log_bound(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None,
     z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
     stats = _stats(p, y, config, mesh=mesh, weights=weights)
     return bound_ops.bound_from_stats(
-        stats, z, sf2, alpha, beta, d=y.shape[1], jitter=config.jitter)
+        stats, z, sf2, alpha, beta, d=_d_of(y, config), jitter=config.jitter)
 
 
 def neg_bound_value_and_grad(p: P.GPLVMParams, y, config: GPLVMConfig,
@@ -132,9 +182,14 @@ def neg_bound_value_and_grad(p: P.GPLVMParams, y, config: GPLVMConfig,
 def _check(p: P.GPLVMParams, y, config: GPLVMConfig):
     if y.ndim != 2:
         raise ValueError(f"Y must be 2-D; got {tuple(y.shape)}")
-    n, q = p.lat.mu.shape
-    if y.shape[0] != n:
-        raise ValueError(f"Y has N={y.shape[0]} but latents have N={n}")
+    if config.layout == "qn":
+        q, n = p.lat.mu.shape
+    else:
+        n, q = p.lat.mu.shape
+    y_n = y.shape[1] if config.y_layout == "dn" else y.shape[0]
+    if y_n != n:
+        raise ValueError(
+            f"Y has N={y_n} (layout {config.y_layout!r}) but latents have N={n}")
     if q != config.q:
         raise ValueError(f"latents have Q={q} but config.q={config.q}")
     if tuple(p.glob.z.shape) != (config.num_inducing, config.q):
@@ -169,6 +224,10 @@ def fit(
     """Maximize the bound over all unmasked leaves with SCG."""
     _check_config(config)
     _check(p0, y, config)
+    if mesh is not None and config.layout == "qn":
+        raise ValueError(
+            "layout='qn' is the single-device large-N layout; under a mesh "
+            "the latents shard over (N, Q) rows: use layout='nq'")
     if optimizer in ("adam", "gd"):
         raise NotImplementedError(
             f"optimizer={optimizer!r} is not ported yet (ROADMAP.md Queue 1, item 9)")

@@ -8,7 +8,8 @@ Counterpart of ``gparml_tpu/models/params.py``. ``GPLVMParams`` holds a
 optimizer works on the list of those leaves (``leaves`` / ``from_leaves``);
 the ``tree_*`` helpers act on such lists.
 
-Only the ``nq`` latent layout is ported; ``qn`` raises (see ROADMAP.md).
+Latent leaves are (N, Q) in the ``nq`` layout or transposed (Q, N) in
+``qn`` (``LatentParams``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,8 @@ from gparml_tpu_torch.utils import transforms
 
 
 def _check_layout(layout: str) -> None:
-    if layout != "nq":
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet; only 'nq' (ROADMAP.md Queue 1)")
+    if layout not in ("nq", "qn"):
+        raise ValueError(f"unknown latent layout {layout!r}; options: nq, qn")
 
 
 class GlobalParams(nn.Module):
@@ -40,13 +40,19 @@ class GlobalParams(nn.Module):
 
 
 class LatentParams(nn.Module):
-    """Per-data-point variational parameters q(x_n) = N(mu_n, diag(s_n)),
-    (N, Q) leaves."""
+    """Per-data-point variational parameters q(x_n) = N(mu_n, diag(s_n)).
+
+    Leaves are (N, Q) in the default layout, or transposed (Q, N) under
+    ``layout='qn'`` (GPLVMConfig), the JAX package's single-device large-N
+    storage. On the TPU that layout avoids the (8, 128) lane padding of
+    (N, small) arrays; a GPU pads nothing, and the port keeps the layout
+    because the API and the JAX package's parameters come in it and because
+    (Q, N) is the layout in which the kernels' per-row reads coalesce."""
 
     def __init__(self, mu, u_s):
         super().__init__()
-        self.mu = nn.Parameter(torch.as_tensor(mu).detach())    # (N, Q)
-        self.u_s = nn.Parameter(torch.as_tensor(u_s).detach())  # (N, Q)
+        self.mu = nn.Parameter(torch.as_tensor(mu).detach())    # (N, Q) or (Q, N)
+        self.u_s = nn.Parameter(torch.as_tensor(u_s).detach())  # same layout
 
 
 class GPLVMParams(nn.Module):
@@ -76,10 +82,16 @@ def constrain(g: GlobalParams, bijector: str = "exp"):
     return g.z, bij.forward(g.u_sf2), bij.forward(g.u_alpha), bij.forward(g.u_beta)
 
 
-def constrain_latents(l: LatentParams, bijector: str = "exp", layout: str = "nq"):
-    """Unconstrained LatentParams -> (mu, s) in natural space, (N, Q)."""
+def constrain_latents(l: LatentParams, bijector: str = "exp",
+                      layout: str = "nq", native: bool = False):
+    """Unconstrained LatentParams -> (mu, s) in natural space, returned
+    (N, Q) by default (transposed views out of the ``qn`` storage);
+    ``native=True`` keeps the storage layout, so qn gives (Q, N)."""
     _check_layout(layout)
-    return l.mu, transforms.get(bijector).forward(l.u_s)
+    mu, u_s = l.mu, l.u_s
+    if layout == "qn" and not native:
+        mu, u_s = mu.T, u_s.T
+    return mu, transforms.get(bijector).forward(u_s)
 
 
 def make_global(z, sf2, alpha, beta, bijector: str = "exp") -> GlobalParams:
@@ -96,10 +108,16 @@ def make_global(z, sf2, alpha, beta, bijector: str = "exp") -> GlobalParams:
 
 
 def make_latents(mu, s, bijector: str = "exp", layout: str = "nq") -> LatentParams:
-    """Build LatentParams from natural-space (N, Q) values."""
+    """Build LatentParams from natural-space (N, Q) values; ``layout='qn'``
+    stores them transposed, (Q, N). The JAX package transposes on the host
+    there so that the lane-padded (N, Q) form never reaches the TPU; on a
+    GPU that padding does not exist and this is one transposed copy on the
+    values' own device."""
     _check_layout(layout)
     mu = torch.as_tensor(mu)
     s = torch.as_tensor(s, dtype=mu.dtype, device=mu.device)
+    if layout == "qn":
+        mu, s = mu.T.contiguous(), s.T.contiguous()
     return LatentParams(mu=mu, u_s=transforms.get(bijector).inverse(s))
 
 
@@ -168,10 +186,16 @@ class GPLVMArrays(NamedTuple):
     lat: LatentArrays
 
 
-def from_numpy(arrays, device=None, dtype=None) -> GPLVMParams:
+def from_numpy(arrays, device=torch.device("cuda"), dtype=None) -> GPLVMParams:
     """Port params from ``jax.tree.map(np.asarray, p)`` of a JAX GPLVMParams
     (or a ``GPLVMArrays``): any object with ``.glob.{z,u_sf2,u_alpha,u_beta}``
-    and ``.lat.{mu,u_s}``."""
+    and ``.lat.{mu,u_s}``. Leaves keep their shapes, so (Q, N) latents of a
+    qn model stay (Q, N). The params go to the GPU unless ``device`` says
+    otherwise (``device="cpu"``); without a GPU the default raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "from_numpy: no CUDA device; pass device='cpu' for CPU tensors")
     t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
     g, l = arrays.glob, arrays.lat
     return GPLVMParams(

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``gparml_tpu_torch/csrc``).
 
 No JAX counterpart (Pallas compiled the TPU kernels inside ``pallas_call``).
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface for Hopper (``sm_90a``), without fast math. The
+At first use, one ``nvcc`` for each ``csrc/*.cu``, all started together,
+compiles it for Hopper (``sm_90a``) without fast math, and a last ``nvcc``
+links the objects into one shared library with a plain C interface. The
 library lands in ``build/gparml_tpu_torch/<hash>/`` beside the package, keyed
 by a hash of the sources and flags, and is loaded with ``ctypes``: every
 pointer and the stream pass as ``c_void_p``, and each entry point returns
@@ -25,20 +26,23 @@ _SRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "gparml_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_SZ = ctypes.c_size_t
 # name -> argument types, in the order of the extern "C" signatures
 _ENTRY_POINTS = {
-    # n m q d num_sms | plan (int[4]): N-splits, shared memory need, limit
-    "gparml_psi_fwd_plan": [_I] * 5 + [_IP],
-    "gparml_psi_bwd_plan": [_I] * 5 + [_IP],
-    # mu s y w z alpha sf2 | n m q d splits2 splits1 | p2_part p1y_part stream
-    "gparml_psi_fwd": [_P] * 7 + [_I] * 6 + [_P] * 3,
-    # mu s y w z alpha sf2 kmat e0 r1 | n m q d splits_c splits_m |
+    # n m q d num_sms | partial_bytes | plan (int[4]): N-splits, shared
+    # memory need, limit
+    "gparml_psi_fwd_plan": [_I] * 5 + [_SZ, _IP],
+    "gparml_psi_bwd_plan": [_I] * 5 + [_SZ, _IP],
+    # mu s y w z alpha sf2 | n m q d qn splits2 splits1 |
+    # p2_part p1y_part stream
+    "gparml_psi_fwd": [_P] * 7 + [_I] * 7 + [_P] * 3,
+    # mu s y w z alpha sf2 kmat e0 r1 | n m q d qn splits_c splits_m |
     # dmu ds dal dy a_part b_part stream
-    "gparml_psi_bwd": [_P] * 10 + [_I] * 6 + [_P] * 7,
+    "gparml_psi_bwd": [_P] * 10 + [_I] * 7 + [_P] * 7,
 }
 
 # Seconds the last ``load()`` spent compiling (0.0 when the library was
@@ -77,15 +81,31 @@ def build() -> Path:
         last_build_seconds = 0.0
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [lib.parent / f".{p.stem}.{tag}.o" for p in srcs]
+    tmp = lib.with_name(f".{lib.name}.{tag}")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]   # waits for every one
+    failed = [(p.name, proc.returncode, log)
+              for p, proc, log in zip(srcs, procs, logs) if proc.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(("link", res.returncode, logs[-1]))
     last_build_seconds = time.perf_counter() - t0
-    (lib.parent / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    (lib.parent / "nvcc.log").write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        name, rc, log = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{log[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -13,8 +13,9 @@ kernels in ``psi_cuda.py``. With q(x_n) = N(mu_n, diag(s_n)):
 
 Derivatives come from autograd. The blocked form runs the per-block body
 under ``torch.utils.checkpoint`` so memory stays O(block * M^2) at any N.
-The SGPR ``s=None`` branch and ``suff_stats_t`` are not ported yet
-(ROADMAP.md Queue 1).
+``suff_stats_t`` takes the transposed (Q, N) / (D, N) storage of
+GPLVMConfig(layout='qn', y_layout='dn'). The SGPR ``s=None`` branch is not
+ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -154,3 +155,30 @@ def suff_stats(
         p1y = p1y_b if p1y is None else p1y + p1y_b
         p2 = p2_b if p2 is None else p2 + p2_b
     return SufficientStats(psi0, p1y, p2, yy, kl, n_f)
+
+
+def suff_stats_t(
+    y_t: torch.Tensor,
+    mu_t: torch.Tensor,
+    s_t: Optional[torch.Tensor],
+    z: torch.Tensor,
+    sf2,
+    alpha,
+    block: Optional[int] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> SufficientStats:
+    """``suff_stats`` from the transposed storage: y_t (D, N), mu_t and s_t
+    (Q, N); the gradients come back in that layout.
+
+    The JAX engine transposes one (Q, block) slab per scan step because
+    XLA:TPU pads (N, small) arrays in memory. PyTorch has no such padding
+    and a transpose is a view, so this hands (N, Q) / (N, D) views of the
+    same storage to ``suff_stats``: each block of its blocked form slices
+    columns of the (Q, N) arrays and reuses ``psi1`` / ``psi2_sum``, and no
+    transposed copy exists. ``block`` must divide N.
+    """
+    if s_t is None:
+        raise NotImplementedError(
+            "the SGPR (s=None) statistics are not ported yet (ROADMAP.md Queue 1)")
+    return suff_stats(y_t.T, mu_t.T, s_t.T, z, sf2, alpha, block=block,
+                      weights=weights)

@@ -1,26 +1,44 @@
 """Fused Psi-statistics through the hand-written CUDA kernels.
 
-Counterpart of ``gparml_tpu/ops/psi_pallas.py``: ``psi_fused`` (the
-``jax.custom_vjp`` there) becomes the ``torch.autograd.Function``
-``PsiFused``; ``psi_fwd`` / ``psi_bwd`` are the kernel wrappers that replace
-``_call_fwd_flat`` / ``_call_bwd_flat``; ``suff_stats`` mirrors the Pallas
-``suff_stats`` (psi0, yy and KL are plain tensor sums).
+Counterpart of ``gparml_tpu/ops/psi_pallas.py``: ``psi_fused`` and
+``psi_fused_t`` (the ``jax.custom_vjp``s there) become the
+``torch.autograd.Function``s ``PsiFused`` and ``PsiFusedT``; ``psi_fwd`` /
+``psi_bwd`` are the kernel wrappers that replace ``_call_fwd_flat`` /
+``_call_bwd_flat``, and ``psi_fwd_t`` / ``psi_bwd_t`` replace their
+(Q, N)-layout twins ``_call_fwd_flat_t`` / ``_call_bwd_flat_t``;
+``suff_stats`` and ``suff_stats_t`` mirror the Pallas entry points (psi0, yy
+and KL are plain tensor sums).
+
+The two layouts run the same kernels (``csrc/psi_fwd.cu``,
+``csrc/psi_bwd.cu``), told the layout by a flag that sets their element
+strides: nq takes mu, s (N, Q) and Y (N, D); qn takes mu^T, s^T (Q, N) and
+Y^T (D, N) and gives the cotangents of those back in (Q, N) / (D, N). The
+kernels sum in the same order in both, so qn gives the nq results on
+transposed inputs, bit for bit.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors go to the
-kernels (``csrc/psi_fwd.cu``, ``csrc/psi_bwd.cu``) and must be float32 and
-contiguous, or the wrapper raises; CPU tensors go to the plain versions
-``psi_fused_fwd_reference`` / ``psi_fused_bwd_reference`` beside them. There
-is no fallback from a failed build or launch.
+kernels and must be float32 and contiguous, or the wrapper raises; CPU
+tensors go to the plain versions ``psi_fused{,_t}_{fwd,bwd}_reference``
+beside them. There is no fallback from a failed build or launch.
 
 The TPU-only machinery (bf16 hi/lo rungs, VMEM tile ladders, per-call N
-caps and chunking, M/lane padding) has no counterpart. The kernels take any
-N and Q up to 64. M and D are bounded by the card's shared memory per block
-(227 KB on an H100): the backward's row passes stage Z as M x QM floats
-(QM the Q bucket of ``csrc/psi_common.cuh``), and the Psi1 kernels stage 32
-rows of Y. On an H100 that is M <= 908 at Q > 32 and M <= 5811 at Q <= 10,
-and D <= 1686 at Q > 32. The wrappers raise ValueError past these limits,
-which the kernels' launch plan reports (``gparml_psi_{fwd,bwd}_plan``); the
-launch geometry itself lives in the CUDA sources only.
+caps and chunking such as ``_psi_fused_t_chunked`` and ``_chunk_plan``, M
+and lane padding, the qn path's M window ``qn_native_ok``) has no
+counterpart. The kernels take any N and Q up to 64. M and D are bounded by
+the card's shared memory per block (227 KB on an H100): the backward's row
+passes stage Z as M x QM floats (QM the Q bucket of
+``csrc/psi_common.cuh``), and the Psi1 kernels stage 32 rows of Y. On an
+H100 that is M <= 908 at Q > 32 and M <= 5811 at Q <= 10, and D <= 1686 at
+Q > 32. The wrappers raise ValueError past these limits, which the kernels'
+launch plan reports (``gparml_psi_{fwd,bwd}_plan``); the launch geometry
+itself lives in the CUDA sources only.
+
+Each grid splits N and writes one float64 partial per split, which the
+wrapper sums; ``PARTIAL_BYTES`` bounds each grid's partials, and the plan
+lowers the split count to fit. The kernels add a split's rows into its
+partial in float32 pieces of bounded length (the launcher repeats a grid
+over N where a kernel's registers would otherwise sum a longer split), so
+the split count changes the time, not the accuracy.
 """
 
 from __future__ import annotations
@@ -36,7 +54,10 @@ from gparml_tpu_torch.ops.psi import SufficientStats, kl_qp
 from gparml_tpu_torch.ops import psi as psi_plain
 
 # Kernel launches per wrapper: each successful kernel call adds one.
-LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0}
+
+# Most bytes of one grid's float64 per-split partials.
+PARTIAL_BYTES = 1 << 29
 
 _MAX_Q = 64
 
@@ -49,14 +70,34 @@ def psi_fused_fwd_reference(mu, s, z, sf2, alpha, y, w, block: Optional[int] = N
     return st.psi1_y, st.psi2
 
 
+def psi_fused_t_fwd_reference(mu_t, s_t, z, sf2, alpha, y_t, w,
+                              block: Optional[int] = None):
+    """The same from mu^T, s^T (Q, N) and Y^T (D, N)."""
+    st = psi_plain.suff_stats_t(y_t, mu_t, s_t, z, sf2, alpha, block=block,
+                                weights=w)
+    return st.psi1_y, st.psi2
+
+
+def _vjp(fwd, mu, s, z, sf2, alpha, y, w, dp1y, dp2, block):
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in (mu, s, z, sf2, alpha, y)]
+        out = fwd(*xs[:5], xs[5], w, block=block)
+        return torch.autograd.grad(out, xs, grad_outputs=(dp1y, dp2))
+
+
 def psi_fused_bwd_reference(mu, s, z, sf2, alpha, y, w, dp1y, dp2,
                             block: Optional[int] = None):
     """(dmu, ds, dz, dsf2, dalpha, dy): autograd of the plain forward
     against the cotangents (dp1y, dp2)."""
-    with torch.enable_grad():
-        xs = [t.detach().requires_grad_(True) for t in (mu, s, z, sf2, alpha, y)]
-        out = psi_fused_fwd_reference(*xs[:5], xs[5], w, block=block)
-        return torch.autograd.grad(out, xs, grad_outputs=(dp1y, dp2))
+    return _vjp(psi_fused_fwd_reference, mu, s, z, sf2, alpha, y, w, dp1y,
+                dp2, block)
+
+
+def psi_fused_t_bwd_reference(mu_t, s_t, z, sf2, alpha, y_t, w, dp1y, dp2,
+                              block: Optional[int] = None):
+    """(dmu^T, ds^T, dz, dsf2, dalpha, dy^T): the same in the qn layout."""
+    return _vjp(psi_fused_t_fwd_reference, mu_t, s_t, z, sf2, alpha, y_t, w,
+                dp1y, dp2, block)
 
 
 # --- kernel wrappers --------------------------------------------------------
@@ -82,30 +123,42 @@ def _check_kernel_inputs(named: dict, shapes: dict) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
 
 
-def _shapes(mu, z, y):
-    n, q = mu.shape
-    m, d = z.shape[0], y.shape[1]
+def _shapes(layout: str, mu, z, y):
+    """(n, m, q, d, expected shapes) of kernel inputs in ``layout``."""
+    if layout == "nq":
+        (n, q), d = mu.shape, y.shape[1]
+        lat, obs = (n, q), (n, d)
+    else:
+        (q, n), d = mu.shape, y.shape[0]
+        lat, obs = (q, n), (d, n)
     if q > _MAX_Q:
         raise ValueError(f"the CUDA kernels take Q <= {_MAX_Q}; got Q={q}")
+    m = z.shape[0]
     return n, m, q, d, {
-        "mu": (n, q), "s": (n, q), "z": (m, q), "sf2": (), "alpha": (q,),
-        "y": (n, d), "w": (n,), "p1y": (m, d), "p2": (m, m),
+        "mu": lat, "s": lat, "z": (m, q), "sf2": (), "alpha": (q,),
+        "y": obs, "w": (n,), "p1y": (m, d), "p2": (m, m),
         "dp1y": (m, d), "dp2": (m, m),
     }
 
 
-@functools.lru_cache(maxsize=64)
 def _plan(n: int, m: int, q: int, d: int, device: torch.device):
     """(splits2, splits1, splits_c, splits_m): the N-splits of the forward's
-    and the backward's grids, from the kernels' own launch plan. Raises
-    ValueError when a block would need more shared memory than the card
-    gives one."""
+    and the backward's grids, from the kernels' own launch plan (the same in
+    both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a block
+    would need more shared memory than the card gives one."""
+    return _plan_for(n, m, q, d, device, PARTIAL_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_for(n, m, q, d, device, partial_bytes):
     lib = _build.load()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fwd, bwd = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        _build.check(lib.gparml_psi_fwd_plan(n, m, q, d, sms, fwd), "psi_fwd_plan")
-        _build.check(lib.gparml_psi_bwd_plan(n, m, q, d, sms, bwd), "psi_bwd_plan")
+        _build.check(lib.gparml_psi_fwd_plan(n, m, q, d, sms, partial_bytes, fwd),
+                     "psi_fwd_plan")
+        _build.check(lib.gparml_psi_bwd_plan(n, m, q, d, sms, partial_bytes, bwd),
+                     "psi_bwd_plan")
     need, limit = max(fwd[2], bwd[2]), fwd[3]
     if need > limit:
         raise ValueError(
@@ -116,41 +169,35 @@ def _plan(n: int, m: int, q: int, d: int, device: torch.device):
     return fwd[0], fwd[1], bwd[0], bwd[1]
 
 
-def psi_fwd(mu, s, z, sf2, alpha, y, w, block: Optional[int] = None):
-    """Forward wrapper: (Psi1^T (w Y), sum_n w_n Psi2_n). Launches the
-    forward kernels for CUDA tensors; ``block`` applies to the plain version
-    only."""
+# layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
+_LAYOUTS = {"nq": (0, "fwd", "bwd"), "qn": (1, "fwd_t", "bwd_t")}
+
+
+def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     args = dict(mu=mu, s=s, z=z, sf2=sf2, alpha=alpha, y=y, w=w)
-    if not _on_cuda(args.values()):
-        return psi_fused_fwd_reference(mu, s, z, sf2, alpha, y, w, block=block)
-    n, m, q, d, shapes = _shapes(mu, z, y)
+    n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
+    qn, key, _ = _LAYOUTS[layout]
     splits2, splits1, _, _ = _plan(n, m, q, d, mu.device)
-    p2_part = torch.empty((splits2, m, m), dtype=mu.dtype, device=mu.device)
-    p1y_part = torch.zeros((splits1, m, d), dtype=mu.dtype, device=mu.device)
+    f64 = dict(dtype=torch.float64, device=mu.device)
+    p2_part = torch.empty((splits2, m, m), **f64)
+    p1y_part = torch.zeros((splits1, m, d), **f64)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2)),
-            n, m, q, d, splits2, splits1, p2_part.data_ptr(), p1y_part.data_ptr(),
-            torch.cuda.current_stream(mu.device).cuda_stream)
+            n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
+            p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
-    LAUNCHES["fwd"] += 1
-    return p1y_part.sum(0), p2_part.sum(0)
+    LAUNCHES[key] += 1
+    return p1y_part.sum(0).to(mu.dtype), p2_part.sum(0).to(mu.dtype)
 
 
-def psi_bwd(mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2,
-            block: Optional[int] = None):
-    """Backward wrapper: (dmu, ds, dz, dsf2, dalpha, dy) from the forward's
-    inputs and outputs (p1y, p2) and the cotangents (dp1y, dp2). Launches
-    the backward kernels for CUDA tensors; ``block`` applies to the plain
-    version only."""
+def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     args = dict(mu=mu, s=s, z=z, sf2=sf2, alpha=alpha, y=y, w=w,
                 p1y=p1y, p2=p2, dp1y=dp1y, dp2=dp2)
-    if not _on_cuda(args.values()):
-        return psi_fused_bwd_reference(mu, s, z, sf2, alpha, y, w, dp1y, dp2,
-                                       block=block)
-    n, m, q, d, shapes = _shapes(mu, z, y)
+    n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
+    qn, _, key = _LAYOUTS[layout]
     _, _, splits_c, splits_m = _plan(n, m, q, d, mu.device)
     f32 = dict(dtype=mu.dtype, device=mu.device)
     # Psi2 is symmetric, so only the symmetric part of its cotangent acts;
@@ -159,28 +206,68 @@ def psi_bwd(mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2,
     kmat = (sym * (2.0 - torch.eye(m, **f32))).contiguous()
     dz2 = (z[:, None, :] - z[None, :, :]) ** 2                    # (M, M, Q)
     e0 = (-0.25 * torch.sum(alpha * dz2, dim=-1)).contiguous()
-    dmu = torch.empty((n, q), **f32)
-    ds = torch.empty((n, q), **f32)
-    dal = torch.empty((n, q), **f32)
-    dy = torch.empty((n, d), **f32)
-    a_part = torch.empty((splits_c, q, m, m), **f32)
-    b_part = torch.empty((splits_m, q, m), **f32)
+    dmu, ds, dal = (torch.empty(mu.shape, **f32) for _ in range(3))
+    dy = torch.empty(y.shape, **f32)
+    f64 = dict(dtype=torch.float64, device=mu.device)
+    a_part = torch.empty((splits_c, q, m, m), **f64)
+    b_part = torch.empty((splits_m, q, m), **f64)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, kmat, e0, dp1y)),
-            n, m, q, d, splits_c, splits_m,
+            n, m, q, d, qn, splits_c, splits_m,
             *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part)),
             torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_bwd")
-    LAUNCHES["bwd"] += 1
-    dz, dsf2, dalpha = _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2,
-                                     dal, a_part.sum(0), b_part.sum(0))
+    LAUNCHES[key] += 1
+    dal_sum = dal.sum(0 if layout == "nq" else 1)
+    dz, dsf2, dalpha = _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal_sum,
+                                     a_part.sum(0).to(mu.dtype),
+                                     b_part.sum(0).to(mu.dtype))
     return dmu, ds, dz, dsf2, dalpha, dy
 
 
-def _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal, a, b):
-    """(dz, dsf2, dalpha) from the backward kernels' reductions: ``dal``
-    (N, Q) the row passes' dalpha shares, ``a`` (Q, M, M) the centred cell
+def psi_fwd(mu, s, z, sf2, alpha, y, w, block: Optional[int] = None):
+    """Forward wrapper: (Psi1^T (w Y), sum_n w_n Psi2_n) from mu, s (N, Q)
+    and y (N, D). Launches the forward kernels for CUDA tensors; ``block``
+    applies to the plain version only."""
+    if not _on_cuda((mu, s, z, sf2, alpha, y, w)):
+        return psi_fused_fwd_reference(mu, s, z, sf2, alpha, y, w, block=block)
+    return _launch_fwd("nq", mu, s, z, sf2, alpha, y, w)
+
+
+def psi_fwd_t(mu_t, s_t, z, sf2, alpha, y_t, w, block: Optional[int] = None):
+    """``psi_fwd`` from mu^T, s^T (Q, N) and y^T (D, N)."""
+    if not _on_cuda((mu_t, s_t, z, sf2, alpha, y_t, w)):
+        return psi_fused_t_fwd_reference(mu_t, s_t, z, sf2, alpha, y_t, w,
+                                         block=block)
+    return _launch_fwd("qn", mu_t, s_t, z, sf2, alpha, y_t, w)
+
+
+def psi_bwd(mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2,
+            block: Optional[int] = None):
+    """Backward wrapper: (dmu, ds, dz, dsf2, dalpha, dy) from the forward's
+    inputs and outputs (p1y, p2) and the cotangents (dp1y, dp2). Launches
+    the backward kernels for CUDA tensors; ``block`` applies to the plain
+    version only."""
+    if not _on_cuda((mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2)):
+        return psi_fused_bwd_reference(mu, s, z, sf2, alpha, y, w, dp1y, dp2,
+                                       block=block)
+    return _launch_bwd("nq", mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2)
+
+
+def psi_bwd_t(mu_t, s_t, z, sf2, alpha, y_t, w, p1y, p2, dp1y, dp2,
+              block: Optional[int] = None):
+    """``psi_bwd`` in the qn layout: (dmu^T, ds^T, dz, dsf2, dalpha, dy^T)."""
+    if not _on_cuda((mu_t, s_t, z, sf2, alpha, y_t, w, p1y, p2, dp1y, dp2)):
+        return psi_fused_t_bwd_reference(mu_t, s_t, z, sf2, alpha, y_t, w,
+                                         dp1y, dp2, block=block)
+    return _launch_bwd("qn", mu_t, s_t, z, sf2, alpha, y_t, w, p1y, p2,
+                       dp1y, dp2)
+
+
+def _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal_sum, a, b):
+    """(dz, dsf2, dalpha) from the backward kernels' reductions: ``dal_sum``
+    (Q,) the sum of the row passes' dalpha shares, ``a`` (Q, M, M) the centred cell
     sums sum_n w e c (mu - zb), ``b`` (Q, M) the centred inducing-point sums
     sum_n h c1 (mu - z); ``sym`` = sym(dPsi2), ``dz2`` (M, M, Q) the squared
     coordinate differences of z."""
@@ -191,33 +278,49 @@ def _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal, a, b):
         (sym * a).sum(-1)
         - 0.5 * alpha[:, None] * (zt * sp2.sum(-1) - (sp2 @ z).T)
     ) + b
-    dalpha = dal.sum(0) - 0.25 * torch.einsum("mp,mpq->q", sp2, dz2)
+    dalpha = dal_sum - 0.25 * torch.einsum("mp,mpq->q", sp2, dz2)
     dlogsf2 = 2.0 * torch.sum(sp2) + torch.sum(dp1y * p1y)
     return dz_t.T, dlogsf2 / sf2, dalpha
 
 
-class PsiFused(torch.autograd.Function):
-    """(Psi1^T (w Y), sum_n w_n Psi2_n), differentiable in (mu, s, z, sf2,
-    alpha, y); the weights w are data (no gradient)."""
+def _fused_function(name: str, fwd, bwd, doc: str):
+    """A ``torch.autograd.Function`` over the wrapper pair (fwd, bwd)."""
 
-    @staticmethod
     def forward(ctx, mu, s, z, sf2, alpha, y, w, block):
-        p1y, p2 = psi_fwd(mu, s, z, sf2, alpha, y, w, block=block)
+        p1y, p2 = fwd(mu, s, z, sf2, alpha, y, w, block=block)
         ctx.save_for_backward(mu, s, z, sf2, alpha, y, w, p1y, p2)
         ctx.block = block
         return p1y, p2
 
-    @staticmethod
     def backward(ctx, dp1y, dp2):
         mu, s, z, sf2, alpha, y, w, p1y, p2 = ctx.saved_tensors
-        grads = psi_bwd(mu, s, z, sf2, alpha, y, w, p1y, p2,
-                        dp1y.contiguous(), dp2.contiguous(), block=ctx.block)
+        grads = bwd(mu, s, z, sf2, alpha, y, w, p1y, p2,
+                    dp1y.contiguous(), dp2.contiguous(), block=ctx.block)
         return (*grads, None, None)
+
+    return type(name, (torch.autograd.Function,), {
+        "__doc__": doc, "__module__": __name__,
+        "forward": staticmethod(forward), "backward": staticmethod(backward)})
+
+
+PsiFused = _fused_function(
+    "PsiFused", psi_fwd, psi_bwd,
+    """(Psi1^T (w Y), sum_n w_n Psi2_n), differentiable in (mu, s, z, sf2,
+    alpha, y); the weights w are data (no gradient).""")
+PsiFusedT = _fused_function(
+    "PsiFusedT", psi_fwd_t, psi_bwd_t,
+    """``PsiFused`` in the qn layout: mu^T, s^T (Q, N) and y^T (D, N), whose
+    gradients come back (Q, N) and (D, N).""")
 
 
 def psi_fused(mu, s, z, sf2, alpha, y, w, block: Optional[int] = None):
     """Fused (Psi1^T (w Y) (M, D), sum_n w_n Psi2_n (M, M))."""
     return PsiFused.apply(mu, s, z, sf2, alpha, y, w, block)
+
+
+def psi_fused_t(mu_t, s_t, z, sf2, alpha, y_t, w, block: Optional[int] = None):
+    """``psi_fused`` from mu^T, s^T (Q, N) and y^T (D, N)."""
+    return PsiFusedT.apply(mu_t, s_t, z, sf2, alpha, y_t, w, block)
 
 
 def suff_stats(y, mu, s, z, sf2, alpha, weights=None,
@@ -233,4 +336,22 @@ def suff_stats(y, mu, s, z, sf2, alpha, weights=None,
     psi0 = n_f * sf2
     kl = kl_qp(mu, s, weights)
     p1y, p2 = psi_fused(mu, s, z, sf2, alpha, y, w, block=block)
+    return SufficientStats(psi0, p1y, p2, yy, kl, n_f)
+
+
+def suff_stats_t(y_t, mu_t, s_t, z, sf2, alpha, weights=None,
+                 block: Optional[int] = None) -> SufficientStats:
+    """``suff_stats`` in the (Q, N) / (D, N) storage layout (GPLVMConfig
+    layout='qn'), with the heavy statistics from ``psi_fused_t``: y_t (D, N),
+    mu_t and s_t (Q, N)."""
+    if s_t is None:
+        raise ValueError(
+            "SGPR (s=None) statistics are plain matmuls; use psi.suff_stats_t")
+    n = y_t.shape[1]
+    w = torch.ones(n, dtype=y_t.dtype, device=y_t.device) if weights is None else weights
+    n_f = torch.sum(w)
+    yy = torch.sum((y_t * y_t) * w[None, :])
+    psi0 = n_f * sf2
+    kl = kl_qp(mu_t.T, s_t.T, weights)
+    p1y, p2 = psi_fused_t(mu_t, s_t, z, sf2, alpha, y_t, w, block=block)
     return SufficientStats(psi0, p1y, p2, yy, kl, n_f)

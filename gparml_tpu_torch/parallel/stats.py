@@ -9,6 +9,12 @@ so one config means the same thing in both packages:
   'xla'    -> the plain PyTorch engine (``ops/psi.py``),
   'auto'   -> 'pallas' for CUDA tensors, 'xla' for CPU tensors.
 
+This is the entry point of the (N, Q) / (N, D) layout. The single-device
+transposed layout (GPLVMConfig layout='qn') does not come through here, as
+in the JAX package: ``models.gplvm`` sends it to ``psi_cuda.suff_stats_t``
+(the kernels, given 'pallas', or 'auto' on CUDA tensors) or to
+``psi.suff_stats_t`` (the plain engine).
+
 The TPU engine's M limit (``PALLAS_M_LIMIT``, a VMEM budget) has no
 counterpart. Data-parallel statistics over a mesh are not ported yet
 (ROADMAP.md Queue 1).

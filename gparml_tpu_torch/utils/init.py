@@ -23,7 +23,7 @@ def pca(y: torch.Tensor, q: int) -> torch.Tensor:
     return (yc @ top) / torch.sqrt(torch.clamp(top_vals, min=1e-12))
 
 
-def _randn(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
+def randn(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
     """Normal draws from ``gen`` (on its own device), moved to ``like``'s."""
     return torch.randn(shape, generator=gen, dtype=like.dtype,
                        device=gen.device).to(like.device)
@@ -35,7 +35,7 @@ def init_latents(gen: torch.Generator, y: torch.Tensor, q: int,
     if method == "pca":
         mu = pca(y, q)
     elif method == "random":
-        mu = _randn(gen, (y.shape[0], q), y)
+        mu = randn(gen, (y.shape[0], q), y)
     else:
         raise ValueError(f"unknown init method {method!r}; options: pca, random")
     return mu, torch.full((y.shape[0], q), s0, dtype=y.dtype, device=y.device)
@@ -70,4 +70,4 @@ def init_inducing(gen: torch.Generator, x: torch.Tensor, m: int,
         i0 = int(torch.randint(n, (), generator=gen, device=gen.device))
         z = x[fps_indices(x, m, i0)]
     scale = noise * torch.clamp(torch.std(x, dim=0, correction=0), min=1e-6)
-    return z + scale * _randn(gen, z.shape, x)
+    return z + scale * randn(gen, z.shape, x)

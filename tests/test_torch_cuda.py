@@ -1,6 +1,7 @@
 """Kernel parity on an NVIDIA GPU: the CUDA Psi-statistics kernels against
-their plain PyTorch versions (the cases of chip_smoke.py phase 3), and the
-kernel wrappers' input checks. Skipped without a CUDA device."""
+their plain PyTorch versions (the cases of chip_smoke.py phase 3) in both
+layouts, nq (mu, s (N, Q), Y (N, D)) and qn (mu^T, s^T (Q, N), Y^T (D, N)),
+and the kernel wrappers' input checks. Skipped without a CUDA device."""
 
 import numpy as np
 import pytest
@@ -28,9 +29,45 @@ def _inputs(device, n=40, m=30, q=4, d=5, dtype=torch.float32):
             t(rng.standard_normal((n, d))), t(np.ones(n)))
 
 
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
 @pytest.mark.parametrize("case", chip_smoke.PARITY_CASES, ids=str)
-def test_kernel_parity(cuda, case):
-    chip_smoke.parity_case(*case, device=cuda)
+def test_kernel_parity(cuda, case, layout):
+    before = len(chip_smoke.FAILURES)
+    res = chip_smoke.parity_case(*case, device=cuda, layout=layout)
+    assert len(chip_smoke.FAILURES) == before, res
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+def test_one_split_a_grid_matches_plain(cuda, layout):
+    """A partial budget of one byte puts every grid in one N-split of
+    70 000 rows: the launcher then runs the forward's Psi2 grid twice and
+    the inducing-point pass 35 times, the cell pass flushes 69 times into
+    its float64 partial, and the results must still meet the plain
+    versions."""
+    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1)
+    before = len(chip_smoke.FAILURES)
+    with chip_smoke.partial_budget(1):
+        res = chip_smoke.parity_case(70_000, 40, 3, 5, 0, device=cuda, layout=layout)
+    assert len(chip_smoke.FAILURES) == before, res
+
+
+def test_qn_kernels_equal_nq_kernels_on_transposed_inputs(cuda):
+    """Both layouts run the same sums in the same order: bitwise equal,
+    except dalpha, whose row shares the wrapper sums over dim 0 of (N, Q)
+    in nq and over dim 1 of (Q, N) in qn."""
+    xs = _inputs(cuda, n=300, m=70, q=10, d=12)
+    ts = [t.T.contiguous() if i in (0, 1, 5) else t for i, t in enumerate(xs)]
+    p1y, p2 = psi_cuda.psi_fwd(*xs)
+    p1y_t, p2_t = psi_cuda.psi_fwd_t(*ts)
+    assert torch.equal(p1y, p1y_t) and torch.equal(p2, p2_t)
+    cot = (torch.ones_like(p1y), torch.ones_like(p2))
+    g = psi_cuda.psi_bwd(*xs, p1y, p2, *cot)
+    g_t = psi_cuda.psi_bwd_t(*ts, p1y, p2, *cot)
+    for i, (a, b) in enumerate(zip(g, g_t)):
+        if i == 4:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a, b.T if i in (0, 1, 5) else b), i
 
 
 def test_wrappers_count_launches(cuda):
@@ -41,6 +78,20 @@ def test_wrappers_count_launches(cuda):
     torch.cuda.synchronize()
     assert psi_cuda.LAUNCHES["fwd"] == before["fwd"] + 1
     assert psi_cuda.LAUNCHES["bwd"] == before["bwd"] + 1
+    assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"]
+
+
+def test_qn_wrappers_count_launches(cuda):
+    xs = [t.T.contiguous() if i in (0, 1, 5) else t for i, t in enumerate(_inputs(cuda))]
+    before = dict(psi_cuda.LAUNCHES)
+    p1y, p2 = psi_cuda.psi_fwd_t(*xs)
+    psi_cuda.psi_bwd_t(*xs, p1y, p2, torch.ones_like(p1y), torch.ones_like(p2))
+    torch.cuda.synchronize()
+    assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"] + 1
+    assert psi_cuda.LAUNCHES["bwd_t"] == before["bwd_t"] + 1
+    assert psi_cuda.LAUNCHES["fwd"] == before["fwd"]
+    with pytest.raises(ValueError, match="shape"):
+        psi_cuda.psi_fwd_t(*_inputs(cuda))
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
@@ -53,6 +104,16 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         psi_cuda.psi_fwd(*xs[:6], xs[6][:-1])
     with pytest.raises(ValueError, match="one CUDA device"):
         psi_cuda.psi_fwd(xs[0].cpu(), *xs[1:])
+
+
+def test_m_limit_at_q_over_32(cuda):
+    """Z staged as M x 64 floats is the largest block at Q > 32: M=908 fits
+    an H100's 227 KB, M=909 does not."""
+    if torch.cuda.get_device_properties(cuda).major != 9:
+        pytest.skip("the limit is an H100's")
+    psi_cuda._plan(8, 908, 44, 4, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        psi_cuda._plan(8, 909, 44, 4, cuda)
 
 
 # Z staged as M x 64 floats (1 MB), and 32 rows of Y as 32 x D floats

@@ -29,7 +29,7 @@ def _setup(n, q, m, d, dtype, seed=0, alpha=None, **cfg):
     if alpha is not None:
         alpha = jnp.full((q,), alpha, dtype)
     jp = jg.init_params(jax.random.PRNGKey(seed), jnp.asarray(y), jcfg, alpha=alpha)
-    tp = TP.from_numpy(jax.tree.map(np.asarray, jp))
+    tp = TP.from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return y, jcfg, jp, tp
 
 
@@ -190,6 +190,8 @@ def test_fit_improves_bound_on_cpu():
 @pytest.mark.parametrize("case", ["adam", "gd", "qn", "dn", "mesh", "predict",
                                   "infer", "reconstruct"])
 def test_outside_slice_raises_not_implemented(case):
+    """What is not ported raises. The qn and dn layouts are ported; what
+    stays outside for them is a mesh (the data-parallel statistics)."""
     y = torch.zeros(6, 3, dtype=torch.float64)
     cfg = tg.GPLVMConfig(q=2, num_inducing=3)
     p = tg.init_params(torch.Generator().manual_seed(0), torch.randn(6, 3, dtype=torch.float64), cfg)
@@ -197,9 +199,12 @@ def test_outside_slice_raises_not_implemented(case):
         if case in ("adam", "gd"):
             tg.fit(p, y, cfg, optimizer=case)
         elif case == "qn":
-            tg.log_bound(p, y, tg.GPLVMConfig(q=2, num_inducing=3, layout="qn"))
+            cfg_qn = tg.GPLVMConfig(q=2, num_inducing=3, layout="qn", y_layout="dn")
+            p_qn = tg.init_params(torch.Generator().manual_seed(0), y.T, cfg_qn)
+            tg.log_bound(p_qn, y.T, cfg_qn, mesh=object())
         elif case == "dn":
-            tg.log_bound(p, y, tg.GPLVMConfig(q=2, num_inducing=3, y_layout="dn"))
+            tg.log_bound(p, y.T, tg.GPLVMConfig(q=2, num_inducing=3, y_layout="dn"),
+                         mesh=object())
         elif case == "mesh":
             tg.log_bound(p, y, cfg, mesh=object())
         elif case == "predict":

@@ -5,10 +5,12 @@ Drives gparml_tpu_torch's neg_bound_value_and_grad (stats_impl="auto", the
 CUDA kernels) at the slice shape (default N=1e6, Q=10, M=200, D=12,
 float32), then traces `--reps` evaluations with torch.profiler and prints
 the device time per kernel or operator, the device busy share of the traced
-window, and the card's name and power limit.
+window, and the card's name and power limit. `--layout qn` runs
+GPLVMConfig(layout='qn', y_layout='dn'): latents (Q, N) and Y (D, N).
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_slice_profile.py [--n 1000000 --m 200 --q 10 --d 12]
+    python3 tools/torch_slice_profile.py --layout qn --n 10000000 --m 500 --reps 1
 """
 
 import argparse
@@ -26,10 +28,12 @@ def main() -> int:
     ap.add_argument("--m", type=int, default=200)
     ap.add_argument("--q", type=int, default=10)
     ap.add_argument("--d", type=int, default=12)
+    ap.add_argument("--layout", choices=("nq", "qn"), default="nq")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rows", type=int, default=20, help="table rows to print")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,8 +48,12 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     y_np, _ = data.oil_flow_like(n=args.n, d=args.d)
-    y = torch.tensor(y_np, dtype=torch.float32, device=dev)
-    cfg = gplvm.GPLVMConfig(q=args.q, num_inducing=args.m, stats_impl="auto")
+    if args.layout == "qn":
+        y_np = y_np.T
+    y = torch.tensor(np.ascontiguousarray(y_np, dtype=np.float32), device=dev)
+    cfg = gplvm.GPLVMConfig(q=args.q, num_inducing=args.m, stats_impl="auto",
+                            layout=args.layout,
+                            y_layout="dn" if args.layout == "qn" else "nd")
     p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y, cfg)
     gplvm.neg_bound_value_and_grad(p, y, cfg)   # build + warm-up
     torch.cuda.synchronize()
@@ -66,7 +74,8 @@ def main() -> int:
     rows = sorted(((us, count, name) for name, (us, count) in per_name.items()),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"N={args.n} M={args.m} Q={args.q} D={args.d}: {wall / args.reps:.4f} s/eval "
+    print(f"{args.layout} N={args.n} M={args.m} Q={args.q} D={args.d}: "
+          f"{wall / args.reps:.4f} s/eval "
           f"traced; device busy {busy / wall:.1%} of the window")
     print(f"kernel time {busy / args.reps * 1e3:.3f} ms/eval")
     print(f"{'device ms/eval':>15} {'calls/eval':>10}  name")
