@@ -36,6 +36,18 @@
 //    The wrapper sums the partials and assembles dZ, dalpha's cell share and
 //    dsf2 with small tensor operations (gparml_tpu_torch/ops/psi_cuda.py).
 //
+// Past Q = 64 (any Q) the four passes have chunked twins (the *_chunked
+// kernels below), which replace the TPU's `_bwd_kernel_stair` (:409) and
+// `_bwd_kernel` (:249), launched by `_psi_fused_bwd` outside the flat
+// window; the Q <= 64 kernels take the rest of those windows. They keep no
+// Q-long vector in registers: each walks the latent dimensions in chunks of
+// kQChunk twice, first to sum the exponents of a group (kGroup cells or
+// inducing points of one data row, or a staged chunk of rows of one cell or
+// inducing point, held in the thread's own column of shared memory) before
+// expf, then for the per-dimension sums of that group, which it adds into
+// float64: the row passes into a (2, Q, N) scratch of the row's totals t_q
+// and u_q, the column passes into their partials.
+//
 // What bounds it on an H100: exp and FMA issue, as in the forward; the
 // backward sweeps the N * M^2 / 2 (n, cell) pairs twice (rows, cells). Row
 // passes read each cell's K, E0 and z_m' as warp-wide broadcasts (every
@@ -420,6 +432,511 @@ psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
 constexpr int kCellTile = 16;
 constexpr int kCellRowsMax = 256 * kFlushRows;
 
+// Shared memory of a chunked row pass: a group's cells (inducing points)
+// of one chunk, and each thread's exponents of that group in its own
+// column (s_g[c * kRowThreads + threadIdx.x]).
+constexpr size_t kRowGroupSmem = (size_t)kGroup * (kQChunk + kRowThreads) * sizeof(float);
+
+// psi2_bwd_rows_kernel for any Q. The row's cells are walked in groups of
+// up to kGroup cells of one row mi of cells; per group the exponents are
+// summed over the dimension chunks (in the thread's column of shared
+// memory), then the chunks are walked again for t_q, u_q, whose group sums
+// are added into the row's float64 totals tu[0][q][n], tu[1][q][n] (zero
+// on entry; zeroed again on exit for psi1_bwd_rows_chunked_kernel). The
+// cells' midpoints come from shared memory, the row's own (mu, c) chunk
+// from device memory into registers.
+__global__ void __launch_bounds__(kRowThreads)
+psi2_bwd_rows_chunked_kernel(const float* __restrict__ mu,
+                             const float* __restrict__ s, Strides ls,
+                             const float* __restrict__ w,
+                             const float* __restrict__ z,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ sf2,
+                             const float* __restrict__ kmat,
+                             const float* __restrict__ e0, int n, int m,
+                             int q, float* __restrict__ dmu,
+                             float* __restrict__ ds, float* __restrict__ dal,
+                             double* __restrict__ tu) {
+  extern __shared__ float4 smem4[];
+  float* s_zb = reinterpret_cast<float*>(smem4);
+  float* s_g = s_zb + kGroup * kQChunk + threadIdx.x;
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = row < n;  // every thread takes part in the staging
+
+  double lsum = 0.0;  // over Q, in double as stage_lw's sums
+  if (live)
+    for (int k = 0; k < q; ++k) lsum += logf(2.f * alpha[k] * s[ls.at(row, k)] + 1.f);
+  const float lc = 2.f * logf(*sf2) - 0.5f * (float)lsum;
+  const float wn = live ? w[row] : 0.f;
+  double* tt = tu + row;
+  double* uu = tu + (size_t)q * n + row;
+
+  float gsum = 0.f;
+  for (int mi = 0; mi < m; ++mi) {
+    const float* krow = kmat + (size_t)mi * m;
+    const float* erow = e0 + (size_t)mi * m;
+    float gp = 0.f;
+    for (int mj0 = mi; mj0 < m; mj0 += kGroup) {
+      const int nc = min(kGroup, m - mj0);
+      for (int k0 = 0; k0 < q; k0 += kQChunk) {
+        __syncthreads();
+        stage_group(z, m, q, mi, mj0, k0, true, s_zb);
+        __syncthreads();
+        float mv[kQChunk], cc[kQChunk];
+        load_row_chunk(mu, s, ls, alpha, 2.f, q, row, live, k0, mv, cc);
+#pragma unroll 2
+        for (int c = 0; c < nc; ++c) {
+          const float4* zb = reinterpret_cast<const float4*>(s_zb + c * kQChunk);
+          float qd = k0 == 0 ? 0.f : s_g[c * kRowThreads];
+#pragma unroll
+          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
+            const float4 v = zb[k4];
+            const float d0 = v.x - mv[4 * k4], d1 = v.y - mv[4 * k4 + 1];
+            const float d2 = v.z - mv[4 * k4 + 2], d3 = v.w - mv[4 * k4 + 3];
+            qd = fmaf(cc[4 * k4] * d0, d0, qd);
+            qd = fmaf(cc[4 * k4 + 1] * d1, d1, qd);
+            qd = fmaf(cc[4 * k4 + 2] * d2, d2, qd);
+            qd = fmaf(cc[4 * k4 + 3] * d3, d3, qd);
+          }
+          s_g[c * kRowThreads] = qd;
+        }
+      }
+      for (int c = 0; c < nc; ++c) {
+        const int mj = mj0 + c;
+        const float g = __ldg(krow + mj) * wn *
+                        expf(lc + __ldg(erow + mj) - s_g[c * kRowThreads]);
+        s_g[c * kRowThreads] = g;
+        gp += g;
+      }
+      for (int k0 = 0; k0 < q; k0 += kQChunk) {
+        __syncthreads();
+        stage_group(z, m, q, mi, mj0, k0, true, s_zb);
+        __syncthreads();
+        float mv[kQChunk], cc[kQChunk], tp[kQChunk], up[kQChunk];
+        load_row_chunk(mu, s, ls, alpha, 2.f, q, row, live, k0, mv, cc);
+#pragma unroll
+        for (int k = 0; k < kQChunk; ++k) {
+          tp[k] = 0.f;
+          up[k] = 0.f;
+        }
+#pragma unroll 2
+        for (int c = 0; c < nc; ++c) {
+          const float4* zb = reinterpret_cast<const float4*>(s_zb + c * kQChunk);
+          const float g = s_g[c * kRowThreads];
+#pragma unroll
+          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
+            const float4 v = zb[k4];
+            const float dv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int k = 4 * k4 + j;
+              const float dd = dv[j] - mv[k];
+              const float gd = g * dd;
+              tp[k] += gd;
+              up[k] = fmaf(gd, dd, up[k]);
+            }
+          }
+        }
+        if (live) {
+#pragma unroll
+          for (int k = 0; k < kQChunk; ++k) {
+            if (k0 + k < q) {
+              tt[(size_t)(k0 + k) * n] += tp[k];
+              uu[(size_t)(k0 + k) * n] += up[k];
+            }
+          }
+        }
+      }
+    }
+    gsum += gp;
+  }
+
+  if (!live) return;
+  for (int k = 0; k < q; ++k) {
+    const size_t i = ls.at(row, k);
+    const float a = alpha[k];
+    const float den = 2.f * a * s[i] + 1.f;
+    const float c = a / den;
+    const float t = (float)tt[(size_t)k * n], u = (float)uu[(size_t)k * n];
+    dmu[i] = 2.f * c * t;
+    ds[i] = -c * gsum + 2.f * c * c * u;
+    dal[i] = -(s[i] / den) * gsum - u / (den * den);
+    tt[(size_t)k * n] = 0.0;
+    uu[(size_t)k * n] = 0.0;
+  }
+}
+
+// psi1_bwd_rows_kernel for any Q: the inducing points in groups of kGroup,
+// each walked over the dimension chunks twice as in
+// psi2_bwd_rows_chunked_kernel, with the same float64 totals tu.
+__global__ void __launch_bounds__(kRowThreads)
+psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
+                             const float* __restrict__ s, Strides ls,
+                             const float* __restrict__ y, Strides ys,
+                             const float* __restrict__ w,
+                             const float* __restrict__ z,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ sf2,
+                             const float* __restrict__ r1, int n, int m,
+                             int q, int d, float* __restrict__ dmu,
+                             float* __restrict__ ds, float* __restrict__ dal,
+                             float* __restrict__ dy,
+                             double* __restrict__ tu) {
+  extern __shared__ float4 smem4[];
+  float* s_z = reinterpret_cast<float*>(smem4);
+  float* s_h = s_z + kGroup * kQChunk + threadIdx.x;
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = row < n;
+
+  double lsum = 0.0;  // over Q, in double as stage_lw's sums
+  if (live)
+    for (int k = 0; k < q; ++k) lsum += logf(alpha[k] * s[ls.at(row, k)] + 1.f);
+  const float l1 = logf(*sf2) - 0.5f * (float)lsum;
+  const float wn = live ? w[row] : 0.f;
+  double* tt = tu + row;
+  double* uu = tu + (size_t)q * n + row;
+  float hsum = 0.f;
+
+  // h is linear in y_n . dPsi1Y_m, so D is walked in chunks of kDChunk as
+  // in psi1_bwd_rows_kernel.
+  for (int d0 = 0; d0 < d; d0 += kDChunk) {
+    float yv[kDChunk], gy[kDChunk];
+#pragma unroll
+    for (int j = 0; j < kDChunk; ++j) {
+      yv[j] = live && d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
+      gy[j] = 0.f;
+    }
+    for (int m0 = 0; m0 < m; m0 += kGroup) {
+      const int nc = min(kGroup, m - m0);
+      for (int k0 = 0; k0 < q; k0 += kQChunk) {
+        __syncthreads();
+        stage_group(z, m, q, 0, m0, k0, false, s_z);
+        __syncthreads();
+        float mv[kQChunk], cc[kQChunk];
+        load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
+#pragma unroll 2
+        for (int c = 0; c < nc; ++c) {
+          const float4* zc = reinterpret_cast<const float4*>(s_z + c * kQChunk);
+          float qd = k0 == 0 ? 0.f : s_h[c * kRowThreads];
+#pragma unroll
+          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
+            const float4 v = zc[k4];
+            const float e0_ = mv[4 * k4] - v.x, e1 = mv[4 * k4 + 1] - v.y;
+            const float e2 = mv[4 * k4 + 2] - v.z, e3 = mv[4 * k4 + 3] - v.w;
+            qd = fmaf(cc[4 * k4] * e0_, e0_, qd);
+            qd = fmaf(cc[4 * k4 + 1] * e1, e1, qd);
+            qd = fmaf(cc[4 * k4 + 2] * e2, e2, qd);
+            qd = fmaf(cc[4 * k4 + 3] * e3, e3, qd);
+          }
+          s_h[c * kRowThreads] = qd;
+        }
+      }
+      for (int c = 0; c < nc; ++c) {
+        const float p = wn * expf(l1 - 0.5f * s_h[c * kRowThreads]);
+        const float* rr = r1 + (size_t)(m0 + c) * d + d0;
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < kDChunk; ++j) {
+          if (d0 + j < d) {
+            const float rv = __ldg(rr + j);
+            dot = fmaf(yv[j], rv, dot);
+            gy[j] = fmaf(p, rv, gy[j]);
+          }
+        }
+        const float h = p * dot;
+        s_h[c * kRowThreads] = h;
+        hsum += h;
+      }
+      for (int k0 = 0; k0 < q; k0 += kQChunk) {
+        __syncthreads();
+        stage_group(z, m, q, 0, m0, k0, false, s_z);
+        __syncthreads();
+        float mv[kQChunk], cc[kQChunk], tp[kQChunk], up[kQChunk];
+        load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
+#pragma unroll
+        for (int k = 0; k < kQChunk; ++k) {
+          tp[k] = 0.f;
+          up[k] = 0.f;
+        }
+#pragma unroll 2
+        for (int c = 0; c < nc; ++c) {
+          const float4* zc = reinterpret_cast<const float4*>(s_z + c * kQChunk);
+          const float h = s_h[c * kRowThreads];
+#pragma unroll
+          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
+            const float4 v = zc[k4];
+            const float dv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int k = 4 * k4 + j;
+              const float dd = mv[k] - dv[j];
+              const float hd = h * dd;
+              tp[k] += hd;
+              up[k] = fmaf(hd, dd, up[k]);
+            }
+          }
+        }
+        if (live) {
+#pragma unroll
+          for (int k = 0; k < kQChunk; ++k) {
+            if (k0 + k < q) {
+              tt[(size_t)(k0 + k) * n] += tp[k];
+              uu[(size_t)(k0 + k) * n] += up[k];
+            }
+          }
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kDChunk; ++j)
+        if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
+    }
+  }
+
+  if (!live) return;
+  for (int k = 0; k < q; ++k) {
+    const size_t i = ls.at(row, k);
+    const float a = alpha[k];
+    const float den = a * s[i] + 1.f;
+    const float c = a / den;
+    const float t = (float)tt[(size_t)k * n], u = (float)uu[(size_t)k * n];
+    dmu[i] += -c * t;
+    ds[i] += -0.5f * c * hsum + 0.5f * c * c * u;
+    dal[i] += -0.5f * (s[i] / den) * hsum - 0.5f * u / (den * den);
+  }
+}
+
+// Shared memory of the chunked cell pass: a staged chunk of kRowsPsi2 rows
+// and the exponents of those rows for each thread's cell, in the thread's
+// own column.
+constexpr size_t kCellChunkSmem =
+    smem_rows_chunk(kRowsPsi2, 0) + (size_t)kRowsPsi2 * kCellTile * kCellTile * sizeof(float);
+
+// psi2_bwd_cells_kernel for any Q: per staged chunk of kRowsPsi2 rows the
+// cell's exponents are summed over the dimension chunks (in the thread's
+// column of shared memory), then the chunks are walked again and each
+// chunk's centred sums A_q over those rows are added into the cell's
+// float64 partial.
+__global__ void __launch_bounds__(kCellTile * kCellTile)
+psi2_bwd_cells_chunked_kernel(const float* __restrict__ mu,
+                              const float* __restrict__ s, Strides ls,
+                              const float* __restrict__ w,
+                              const float* __restrict__ z,
+                              const float* __restrict__ alpha,
+                              const float* __restrict__ sf2, int n, int m,
+                              int q, int rows_per_split, int ntile,
+                              double* __restrict__ out) {
+  constexpr int kThreads = kCellTile * kCellTile;
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi2 * kQChunk;
+  float* s_ev = reinterpret_cast<float*>(s_lw + kRowsPsi2) + threadIdx.x;
+
+  int ti, tj;
+  upper_tile(blockIdx.x, ntile, &ti, &tj);
+  const int mi = ti * kCellTile + threadIdx.x / kCellTile;
+  const int mj = tj * kCellTile + threadIdx.x % kCellTile;
+  const bool own = mi < m && mj < m;
+  const float* zi = z + (size_t)(own ? mi : 0) * q;
+  const float* zj = z + (size_t)(own ? mj : 0) * q;
+  double e = 0.0;  // over Q, in double as stage_lw's sums
+  for (int k = 0; k < q; ++k) {
+    const float dz = zi[k] - zj[k];
+    e += alpha[k] * dz * dz;
+  }
+  const float e0 = (float)(-0.25 * e);
+
+  // out: (splits, q, M, M), as psi2_bwd_cells_kernel's
+  const size_t mm = (size_t)m * m;
+  double* o = out + (size_t)blockIdx.y * q * mm + (own ? (size_t)mi * m + mj : 0);
+  if (own)
+    for (int k = 0; k < q; ++k) o[k * mm] = 0.0;
+
+  const float logsf2 = logf(*sf2);
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
+    const int nr = min(kRowsPsi2, hi - n0);
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
+      if (k0 == 0)
+        stage_lw<kRowsPsi2, double>(s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0, hi, s_lw);
+      float zb[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k)
+        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+        float qd = k0 == 0 ? 0.f : s_ev[r * kThreads];
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];
+          const float t0 = zb[2 * k2] - v.x;
+          const float t1 = zb[2 * k2 + 1] - v.z;
+          qd = fmaf(v.y * t0, t0, qd);
+          qd = fmaf(v.w * t1, t1, qd);
+        }
+        s_ev[r * kThreads] = qd;
+      }
+    }
+    for (int r = 0; r < nr; ++r) {
+      const float2 lw = s_lw[r];
+      s_ev[r * kThreads] = lw.y * expf(lw.x + e0 - s_ev[r * kThreads]);
+    }
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
+      float zb[kQChunk], acc[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k) {
+        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
+        acc[k] = 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < nr; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+        const float ev = s_ev[r * kThreads];
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];
+          acc[2 * k2] = fmaf(ev * v.y, v.x - zb[2 * k2], acc[2 * k2]);
+          acc[2 * k2 + 1] = fmaf(ev * v.w, v.z - zb[2 * k2 + 1], acc[2 * k2 + 1]);
+        }
+      }
+      if (own) {
+#pragma unroll
+        for (int k = 0; k < kQChunk; ++k)
+          if (k0 + k < q) o[(k0 + k) * mm] += acc[k];
+      }
+    }
+  }
+
+  if (own && ti != tj) {
+    double* lower = o - ((size_t)mi * m + mj) + (size_t)mj * m + mi;
+    for (int k = 0; k < q; ++k) lower[k * mm] = o[k * mm];
+  }
+}
+
+// Shared memory of the chunked inducing-point pass with D columns of Y:
+// a staged chunk of kRowsPsi1 rows and Y rows, and each thread's h of
+// those rows in its own column.
+constexpr size_t psi1_m_chunk_smem(int d) {
+  return smem_rows_chunk(kRowsPsi1, d) + (size_t)kRowsPsi1 * 128 * sizeof(float);
+}
+
+// psi1_bwd_m_kernel for any Q: per staged chunk of kRowsPsi1 rows the
+// exponents are summed over the dimension chunks (in the thread's column of
+// shared memory), then the chunks are walked again and each chunk's
+// centred sums B_q over those rows are added into the split's float64
+// partial.
+__global__ void __launch_bounds__(128)
+psi1_bwd_m_chunked_kernel(const float* __restrict__ mu,
+                          const float* __restrict__ s, Strides ls,
+                          const float* __restrict__ y, Strides ys,
+                          const float* __restrict__ w,
+                          const float* __restrict__ z,
+                          const float* __restrict__ alpha,
+                          const float* __restrict__ sf2,
+                          const float* __restrict__ r1, int n_begin, int n,
+                          int m, int q, int d, int rows_per_split,
+                          double* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi1 * kQChunk;
+  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
+  float* s_hr = s_y + kRowsPsi1 * d + threadIdx.x;
+
+  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool active = mi < m;
+  const float* zm = z + (size_t)(active ? mi : 0) * q;
+  const float* rm = r1 + (size_t)(active ? mi : 0) * d;
+  // out: (splits, q, M) float64: the grid's first launch zeroes it
+  double* o = out + (size_t)blockIdx.x * q * m + (active ? mi : 0);
+  if (active && n_begin == 0)
+    for (int k = 0; k < q; ++k) o[(size_t)k * m] = 0.0;
+
+  const float logsf2 = logf(*sf2);
+  const int lo = n_begin + blockIdx.x * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
+    const int nr = min(kRowsPsi1, hi - n0);
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
+      if (k0 == 0) {
+        stage_lw<kRowsPsi1, double>(s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0, hi, s_lw);
+        stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
+      }
+      float zc[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k) zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+        float qd = k0 == 0 ? 0.f : s_hr[r * 128];
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];
+          const float t0 = v.x - zc[2 * k2];
+          const float t1 = v.z - zc[2 * k2 + 1];
+          qd = fmaf(v.y * t0, t0, qd);
+          qd = fmaf(v.w * t1, t1, qd);
+        }
+        s_hr[r * 128] = qd;
+      }
+    }
+    // y_n . dPsi1Y_m, one load of dPsi1Y_m's entry for all the rows
+    float dot[kRowsPsi1];
+#pragma unroll
+    for (int r = 0; r < kRowsPsi1; ++r) dot[r] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      const float rv = __ldg(rm + k);
+#pragma unroll
+      for (int r = 0; r < kRowsPsi1; ++r) dot[r] = fmaf(s_y[r * d + k], rv, dot[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPsi1; ++r) {
+      if (r < nr) {
+        const float2 lw = s_lw[r];
+        s_hr[r * 128] = lw.y * expf(lw.x - 0.5f * s_hr[r * 128]) * dot[r];
+      }
+    }
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
+      float zc[kQChunk], acc[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k) {
+        zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
+        acc[k] = 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < nr; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+        const float hr = s_hr[r * 128];
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];
+          acc[2 * k2] = fmaf(hr * v.y, v.x - zc[2 * k2], acc[2 * k2]);
+          acc[2 * k2 + 1] = fmaf(hr * v.w, v.z - zc[2 * k2 + 1], acc[2 * k2 + 1]);
+        }
+      }
+      if (active) {
+#pragma unroll
+        for (int k = 0; k < kQChunk; ++k)
+          if (k0 + k < q) o[(size_t)(k0 + k) * m] += acc[k];
+      }
+    }
+  }
+}
+
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
@@ -427,6 +944,7 @@ int launch_bwd(const float* mu, const float* s, const float* y,
                const float* r1, int n, int m, int q, int d, int qn,
                int splits_c, int splits_m, float* dmu, float* ds, float* dal,
                float* dy, double* a_part, double* b_part,
+               double* /* row scratch: the chunked kernels' only */,
                cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const size_t smem_zm = smem_z(m, QM);
@@ -468,32 +986,81 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   return (int)cudaSuccess;
 }
 
+// launch_bwd for Q > 64: the chunked kernels, the same grids and partials,
+// and the float64 row totals tu (2, Q, N), zero-filled by the caller.
+inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
+                              const float* w, const float* z,
+                              const float* alpha, const float* sf2,
+                              const float* kmat, const float* e0,
+                              const float* r1, int n, int m, int q, int d,
+                              int qn, int splits_c, int splits_m, float* dmu,
+                              float* ds, float* dal, float* dy,
+                              double* a_part, double* b_part, double* tu,
+                              cudaStream_t stream) {
+  const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
+  const int nblk = (n + kRowThreads - 1) / kRowThreads;
+  psi2_bwd_rows_chunked_kernel<<<nblk, kRowThreads, kRowGroupSmem, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, kmat, e0, n, m, q, dmu, ds, dal, tu);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  psi1_bwd_rows_chunked_kernel<<<nblk, kRowThreads, kRowGroupSmem, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy, tu);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int ntile = (m + kCellTile - 1) / kCellTile;
+  dim3 grid_c(ntile * (ntile + 1) / 2, splits_c);
+  err = allow_smem(psi2_bwd_cells_chunked_kernel, kCellChunkSmem);
+  if (err != cudaSuccess) return (int)err;
+  psi2_bwd_cells_chunked_kernel<<<grid_c, kCellTile * kCellTile,
+                                  kCellChunkSmem, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, n, m, q, (n + splits_c - 1) / splits_c,
+      ntile, a_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const size_t smem_m = psi1_m_chunk_smem(d);
+  err = allow_smem(psi1_bwd_m_chunked_kernel, smem_m);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_m(splits_m, (m + 127) / 128);
+  const int rows_m = std::min((n + splits_m - 1) / splits_m, kPsi1RowsMax);
+  for (int n0 = 0; n0 < n; n0 += splits_m * rows_m) {
+    psi1_bwd_m_chunked_kernel<<<grid_m, 128, smem_m, stream>>>(
+        mu, s, ls, y, ys, w, z, alpha, sf2, r1, n0, n, m, q, d, rows_m,
+        b_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace gparml
 
 // Launch plan of gparml_psi_bwd: plan = (splits_c, splits_m, the largest
-// dynamic shared memory of its blocks in bytes, the device's limit for it).
-// Each grid's float64 partials take at most partial_bytes.
+// dynamic shared memory of its blocks in bytes, the device's limit for it,
+// the float64 scratch gparml_psi_bwd takes per data row: 2 Q for the
+// chunked kernels, else 0). Each grid's float64 partials take at most
+// partial_bytes.
 extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  if (qm == 0) return (int)cudaErrorInvalidValue;
   plan[0] = cap_splits(n_splits(n, tri_tiles(m, kCellTile), kRowsPsi2,
                                 kCellRowsMax, num_sms),
                        (size_t)q * m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)q * m * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(std::max(
-      {smem_z(m, qm), smem_rows_psi2(qm), smem_rows_psi1(qm, d)}));
+  plan[2] = smem_bytes(
+      qm == 0 ? std::max({kRowGroupSmem, kCellChunkSmem, psi1_m_chunk_smem(d)})
+              : std::max({smem_z(m, qm), smem_rows_psi2(qm), smem_rows_psi1(qm, d)}));
+  plan[4] = qm == 0 ? 2 * q : 0;
   return (int)smem_limit(plan);
 }
 
 // kmat: (M, M) = mult * sym(dPsi2) (upper triangle read); e0: (M, M);
 // r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
 // qn = 1: (Q, N) and (D, N). Writes dmu, ds, dal, dy and the float64
-// a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). Returns
-// cudaGetLastError.
+// a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). row_scratch: the
+// plan's float64 scratch (plan[4] per data row, zero-filled; unused when
+// that is 0). Returns cudaGetLastError.
 extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
@@ -501,8 +1068,10 @@ extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* r1, int n, int m, int q, int d,
                               int qn, int splits_c, int splits_m, float* dmu,
                               float* ds, float* dal, float* dy, double* a_part,
-                              double* b_part, void* stream) {
-  GPARML_QM_SWITCH(q, gparml::launch_bwd, mu, s, y, w, z, alpha, sf2, kmat,
-                   e0, r1, n, m, q, d, qn, splits_c, splits_m, dmu, ds, dal,
-                   dy, a_part, b_part, static_cast<cudaStream_t>(stream));
+                              double* b_part, double* row_scratch,
+                              void* stream) {
+  GPARML_QM_SWITCH(q, gparml::launch_bwd, gparml::launch_bwd_chunked, mu, s,
+                   y, w, z, alpha, sf2, kmat, e0, r1, n, m, q, d, qn,
+                   splits_c, splits_m, dmu, ds, dal, dy, a_part, b_part,
+                   row_scratch, static_cast<cudaStream_t>(stream));
 }

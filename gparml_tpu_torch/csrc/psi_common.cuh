@@ -12,10 +12,15 @@
 // Everything is float32 in the direct-difference form on the CUDA cores
 // (plain FMA, accurate expf/logf: the build does not use fast math).
 //
-// The latent width Q is a template bucket QM >= Q (2, 4, 10, 16, 32, 64)
-// so per-thread vectors live in registers; entries q >= Q are zero (c = 0,
-// mu = 0, z = 0) and contribute exactly nothing. Each bucket has a parity
-// case on the card (chip_smoke.py PARITY_CASES).
+// Up to Q = 64 the latent width is a template bucket QM >= Q (2, 4, 10, 16,
+// 32, 64) so per-thread vectors live in registers; entries q >= Q are zero
+// (c = 0, mu = 0, z = 0) and contribute exactly nothing. Past Q = 64 the
+// chunked kernels take any Q: they walk the latent dimensions in chunks of
+// kQChunk staged in shared memory, sum each exponent over the chunks (in
+// the thread's own column of shared memory, or registers) before expf,
+// and (backward) walk the chunks a second time for the per-dimension sums,
+// so registers, shared memory and the M limit do not grow with Q. Each bucket, and the chunked kernels, have parity cases
+// on the card (chip_smoke.py PARITY_CASES).
 //
 // Launch geometry (tile sizes, N-splits, shared memory) is decided here and
 // in the launchers only; the Python wrapper asks for it through the
@@ -48,6 +53,13 @@ constexpr int kRowsPsi1 = 32;
 // into a Psi1^T Y partial row, a running sum of 2048 rows in the backward's.
 constexpr int kPsi1RowsMax = 64 * kRowsPsi1;
 
+// Latent dimensions per chunk of the chunked kernels (Q > 64), and the
+// cells (inducing points) whose exponents a row-pass thread of those
+// kernels holds between its two walks over the chunks.
+constexpr int kQChunk = 16;
+constexpr int kGroup = 64;
+
+// The Q bucket of q, or 0: the chunked kernels.
 __host__ __device__ inline int qm_for(int q) {
   if (q <= 2) return 2;
   if (q <= 4) return 4;
@@ -70,6 +82,12 @@ constexpr size_t smem_rows_psi1(int qm, int d) {
 }
 constexpr size_t smem_z(int m, int qm) {
   return (size_t)m * qm * sizeof(float);
+}
+// The chunked kernels' staging: nb rows of one chunk of (mu, c) and of
+// (lc, w), plus nb rows of Y (d = 0 without).
+constexpr size_t smem_rows_chunk(int nb, int d) {
+  return (size_t)nb * (kQChunk + 1) * sizeof(float2) +
+         (size_t)nb * d * sizeof(float);
 }
 
 // A shared-memory size as a plan entry (saturated, so it never wraps).
@@ -142,6 +160,30 @@ __device__ inline void stage_index(int i, int width, bool by_row, int* r,
   *k = by_row ? i % width : i / NB;
 }
 
+// Stage (lc_n, w_n) of rows [n0, min(n0 + NB, hi)) as s_lw[r] (w = 0 past
+// hi); lc sums log den over all q in Acc. The chunked kernels (Q > 64) sum
+// in double: at their init (s = 0.5, alpha = 1) the Q terms are equal, and
+// one float32 running sum of 100 of them put every output 2.8e-5 off.
+template <int NB, typename Acc = float>
+__device__ inline void stage_lw(const float* __restrict__ s, Strides ls,
+                                const float* __restrict__ w,
+                                const float* __restrict__ alpha, float logsf2,
+                                float kden, float ksf, int q, int n0, int hi,
+                                float2* s_lw) {
+  for (int r = threadIdx.x; r < NB; r += blockDim.x) {
+    const int n = n0 + r;
+    float lc = 0.f, wn = 0.f;
+    if (n < hi) {
+      Acc acc = 0;
+      for (int k = 0; k < q; ++k)
+        acc += logf(kden * alpha[k] * s[ls.at(n, k)] + 1.f);
+      lc = ksf * logsf2 - 0.5f * (float)acc;
+      wn = w[n];
+    }
+    s_lw[r] = make_float2(lc, wn);
+  }
+}
+
 // Stage data rows [n0, min(n0 + NB, hi)) into shared memory:
 //   s_mc[r * QM + k] = (mu_nk, c_nk)   (zero for k >= q and rows >= hi)
 //   s_lw[r]          = (lc_n, w_n)     (w = 0 for rows >= hi)
@@ -166,17 +208,69 @@ __device__ inline void stage_rows(const float* __restrict__ mu,
     }
     s_mc[r * QM + k] = make_float2(mv, c);
   }
-  for (int r = threadIdx.x; r < NB; r += blockDim.x) {
-    const int n = n0 + r;
-    float lc = 0.f, wn = 0.f;
-    if (n < hi) {
-      float acc = 0.f;
-      for (int k = 0; k < q; ++k)
-        acc += logf(kden * alpha[k] * s[ls.at(n, k)] + 1.f);
-      lc = ksf * logsf2 - 0.5f * acc;
-      wn = w[n];
+  stage_lw<NB>(s, ls, w, alpha, logsf2, kden, ksf, q, n0, hi, s_lw);
+}
+
+// The chunked kernels' staging: (mu, c) of rows [n0, min(n0 + NB, hi)) and
+// latent dimensions [k0, k0 + kQChunk) as s_mc[r * kQChunk + k], zero for
+// k0 + k >= q and rows >= hi.
+template <int NB>
+__device__ inline void stage_rows_chunk(const float* __restrict__ mu,
+                                        const float* __restrict__ s,
+                                        Strides ls,
+                                        const float* __restrict__ alpha,
+                                        float kden, int q, int k0, int n0,
+                                        int hi, float2* s_mc) {
+  const bool by_row = ls.rows_contiguous();
+  for (int i = threadIdx.x; i < NB * kQChunk; i += blockDim.x) {
+    int r, k;
+    stage_index<NB>(i, kQChunk, by_row, &r, &k);
+    const int n = n0 + r, kk = k0 + k;
+    float mv = 0.f, c = 0.f;
+    if (n < hi && kk < q) {
+      const float a = alpha[kk];
+      mv = mu[ls.at(n, kk)];
+      c = a / (kden * a * s[ls.at(n, kk)] + 1.f);
     }
-    s_lw[r] = make_float2(lc, wn);
+    s_mc[r * kQChunk + k] = make_float2(mv, c);
+  }
+}
+
+// One thread's own row: (mu, c) of latent dimensions [k0, k0 + kQChunk) into
+// registers (zero past q, or for a row that does not exist).
+__device__ inline void load_row_chunk(const float* __restrict__ mu,
+                                      const float* __restrict__ s, Strides ls,
+                                      const float* __restrict__ alpha,
+                                      float kden, int q, int row, bool live,
+                                      int k0, float* mv, float* c) {
+#pragma unroll
+  for (int k = 0; k < kQChunk; ++k) {
+    const int kk = k0 + k;
+    mv[k] = 0.f;
+    c[k] = 0.f;
+    if (live && kk < q) {
+      const float a = alpha[kk];
+      mv[k] = mu[ls.at(row, kk)];
+      c[k] = a / (kden * a * s[ls.at(row, kk)] + 1.f);
+    }
+  }
+}
+
+// Stage latent dimensions [k0, k0 + kQChunk) of the kGroup cells (mi, mj0 +
+// c) as their midpoints 0.5 (z_mi + z_mj) (half = true), or of the inducing
+// points mj0 + c as z_mj (half = false), into s_z[c * kQChunk + k]; zero
+// for mj0 + c >= m or k0 + k >= q.
+__device__ inline void stage_group(const float* __restrict__ z, int m, int q,
+                                   int mi, int mj0, int k0, bool half,
+                                   float* s_z) {
+  for (int i = threadIdx.x; i < kGroup * kQChunk; i += blockDim.x) {
+    const int mj = mj0 + i / kQChunk, kk = k0 + i % kQChunk;
+    float v = 0.f;
+    if (mj < m && kk < q) {
+      const float zj = z[(size_t)mj * q + kk];
+      v = half ? 0.5f * (z[(size_t)mi * q + kk] + zj) : zj;
+    }
+    s_z[i] = v;
   }
 }
 
@@ -226,8 +320,9 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace gparml
 
-// Dispatch a host launcher template F<QM>(...) on the Q bucket.
-#define GPARML_QM_SWITCH(q, F, ...)                   \
+// Dispatch a host launcher template F<QM>(...) on the Q bucket, and Q > 64
+// to the chunked launcher FC(...).
+#define GPARML_QM_SWITCH(q, F, FC, ...)               \
   switch (::gparml::qm_for(q)) {                      \
     case 2: return F<2>(__VA_ARGS__);                 \
     case 4: return F<4>(__VA_ARGS__);                 \
@@ -235,5 +330,5 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
     case 16: return F<16>(__VA_ARGS__);               \
     case 32: return F<32>(__VA_ARGS__);               \
     case 64: return F<64>(__VA_ARGS__);               \
-    default: return (int)cudaErrorInvalidValue;       \
+    default: return FC(__VA_ARGS__);                  \
   }

@@ -24,6 +24,16 @@
 //    w_n Psi1[n, m] in registers and adds their products with the staged
 //    Y rows into its split's (M, D) float64 partial row.
 //
+// Past Q = 64 (any Q) the chunked twins psi2_fwd_chunked_kernel and
+// psi1y_fwd_chunked_kernel replace the TPU's `_fwd_kernel` (:225, launched
+// by `_call_fwd`, which took the shapes outside the flat window) there: a
+// thread holds the exponents of a staged chunk of rows (in its own column
+// of shared memory, or in registers for Psi1), adds each chunk of kQChunk
+// latent dimensions into them (staged in shared memory, Z's chunk in
+// registers), and applies expf once all are in. The
+// Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128, and
+// 512 < M <= 640) as they take the flat window.
+//
 // What bounds it on an H100: exp and FMA issue, not bytes. Each (n, cell)
 // pair costs ~3 FMA-pipe operations per latent dimension plus one expf, and
 // reads nothing from device memory (the rows come from shared memory as
@@ -195,6 +205,164 @@ psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 }
 
+// Tile edge of psi2_fwd_chunked_kernel (one cell a thread), and its
+// shared memory: a staged chunk of kRowsPsi2 rows and the exponents of
+// those rows for each thread's cell, in the thread's own column.
+constexpr int kChunkTile = 16;
+constexpr size_t kFwdChunkSmem =
+    smem_rows_chunk(kRowsPsi2, 0) + (size_t)kRowsPsi2 * kChunkTile * kChunkTile * sizeof(float);
+
+// psi2_fwd_kernel for any Q: the same grid, partials and flushes, with one
+// cell a thread and the latent dimensions in chunks of kQChunk.
+__global__ void __launch_bounds__(kChunkTile * kChunkTile)
+psi2_fwd_chunked_kernel(const float* __restrict__ mu,
+                        const float* __restrict__ s, Strides ls,
+                        const float* __restrict__ w,
+                        const float* __restrict__ z,
+                        const float* __restrict__ alpha,
+                        const float* __restrict__ sf2, int n_begin, int n,
+                        int m, int q, int rows_per_split, int ntile,
+                        double* __restrict__ out) {
+  constexpr int kThreads = kChunkTile * kChunkTile;
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi2 * kQChunk;
+  float* s_qd = reinterpret_cast<float*>(s_lw + kRowsPsi2) + threadIdx.x;
+
+  int ti, tj;
+  upper_tile(blockIdx.x, ntile, &ti, &tj);
+  const int mi = ti * kChunkTile + threadIdx.x / kChunkTile;
+  const int mj = tj * kChunkTile + threadIdx.x % kChunkTile;
+  const bool own = mi < m && mj < m;
+  const float* zi = z + (size_t)(own ? mi : 0) * q;
+  const float* zj = z + (size_t)(own ? mj : 0) * q;
+  double e = 0.0;  // over Q, in double as stage_lw's sums
+  for (int k = 0; k < q; ++k) {
+    const float dz = zi[k] - zj[k];
+    e += alpha[k] * dz * dz;
+  }
+  const float e0 = (float)(-0.25 * e);
+
+  const float logsf2 = logf(*sf2);
+  const int lo = n_begin + blockIdx.y * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  float acc = 0.f;
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
+    const int nr = min(kRowsPsi2, hi - n0);
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
+      if (k0 == 0)
+        stage_lw<kRowsPsi2, double>(s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0, hi, s_lw);
+      float zb[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k)
+        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
+      __syncthreads();
+      // s_qd[r]: the exponent sum over the chunks so far of staged row r
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+        float qd = k0 == 0 ? 0.f : s_qd[r * kThreads];
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];  // (mu_k, c_k, mu_k+1, c_k+1)
+          const float t0 = zb[2 * k2] - v.x;
+          const float t1 = zb[2 * k2 + 1] - v.z;
+          qd = fmaf(v.y * t0, t0, qd);
+          qd = fmaf(v.w * t1, t1, qd);
+        }
+        s_qd[r * kThreads] = qd;
+      }
+    }
+    float part = 0.f;
+    for (int r = 0; r < nr; ++r) {
+      const float2 lw = s_lw[r];
+      part = fmaf(lw.y, expf(lw.x + e0 - s_qd[r * kThreads]), part);
+    }
+    acc += part;
+  }
+
+  // out as psi2_fwd_kernel's (a diagonal tile's threads each own a cell)
+  double* o = out + (size_t)blockIdx.y * m * m;
+  const bool first = n_begin == 0;
+  if (own) {
+    double* up = o + (size_t)mi * m + mj;
+    *up = first ? acc : *up + acc;
+    if (ti != tj) {
+      double* mirror = o + (size_t)mj * m + mi;
+      *mirror = first ? acc : *mirror + acc;
+    }
+  }
+}
+
+// psi1y_fwd_kernel for any Q, the latent dimensions in chunks of kQChunk.
+__global__ void __launch_bounds__(128)
+psi1y_fwd_chunked_kernel(const float* __restrict__ mu,
+                         const float* __restrict__ s, Strides ls,
+                         const float* __restrict__ y, Strides ys,
+                         const float* __restrict__ w,
+                         const float* __restrict__ z,
+                         const float* __restrict__ alpha,
+                         const float* __restrict__ sf2, int n, int m, int q,
+                         int d, int rows_per_split, double* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float2* s_mc = reinterpret_cast<float2*>(smem4);
+  float2* s_lw = s_mc + kRowsPsi1 * kQChunk;
+  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
+
+  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool active = mi < m;
+  const float* zm = z + (size_t)(active ? mi : 0) * q;
+
+  const float logsf2 = logf(*sf2);
+  const int lo = blockIdx.x * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  double* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
+  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
+    float p[kRowsPsi1];
+#pragma unroll
+    for (int r = 0; r < kRowsPsi1; ++r) p[r] = 0.f;
+    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+      __syncthreads();
+      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
+      if (k0 == 0) {
+        stage_lw<kRowsPsi1, double>(s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0, hi, s_lw);
+        stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
+      }
+      float zc[kQChunk];
+#pragma unroll
+      for (int k = 0; k < kQChunk; ++k) zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kRowsPsi1; ++r) {
+        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
+#pragma unroll
+        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
+          const float4 v = mc[k2];
+          const float t0 = v.x - zc[2 * k2];
+          const float t1 = v.z - zc[2 * k2 + 1];
+          p[r] = fmaf(v.y * t0, t0, p[r]);
+          p[r] = fmaf(v.w * t1, t1, p[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPsi1; ++r) {
+      const float2 lw = s_lw[r];
+      p[r] = lw.y * expf(lw.x - 0.5f * p[r]);
+    }
+    if (active) {
+      for (int k = 0; k < d; ++k) {
+        float a = 0.f;
+#pragma unroll
+        for (int r = 0; r < kRowsPsi1; ++r) a = fmaf(p[r], s_y[r * d + k], a);
+        o[k] += a;
+      }
+    }
+  }
+}
+
 // Psi2 tile edge and cells per thread of a Q bucket.
 constexpr int fwd_tile(int qm) { return qm <= 16 ? 32 : 16; }
 constexpr int fwd_cpt(int qm) { return qm <= 16 ? 4 : 1; }
@@ -231,6 +399,36 @@ int launch_fwd(const float* mu, const float* s, const float* y,
   return (int)cudaGetLastError();
 }
 
+// launch_fwd for Q > 64: the chunked kernels, the same grids and partials.
+inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
+                              const float* w, const float* z,
+                              const float* alpha, const float* sf2, int n,
+                              int m, int q, int d, int qn, int splits2,
+                              int splits1, double* p2_part, double* p1y_part,
+                              cudaStream_t stream) {
+  const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
+  const int ntile = (m + kChunkTile - 1) / kChunkTile;
+  const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
+  dim3 grid2(ntile * (ntile + 1) / 2, splits2);
+  cudaError_t err = allow_smem(psi2_fwd_chunked_kernel, kFwdChunkSmem);
+  if (err != cudaSuccess) return (int)err;
+  for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
+    psi2_fwd_chunked_kernel<<<grid2, kChunkTile * kChunkTile, kFwdChunkSmem,
+                              stream>>>(
+        mu, s, ls, w, z, alpha, sf2, n0, n, m, q, rows2, ntile, p2_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+
+  const size_t smem1 = smem_rows_chunk(kRowsPsi1, d);
+  err = allow_smem(psi1y_fwd_chunked_kernel, smem1);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid1(splits1, (m + 127) / 128);
+  psi1y_fwd_chunked_kernel<<<grid1, 128, smem1, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, n, m, q, d,
+      (n + splits1 - 1) / splits1, p1y_part);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace gparml
 
 // Launch plan of gparml_psi_fwd: plan = (splits2, splits1, the largest
@@ -240,14 +438,16 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  if (qm == 0) return (int)cudaErrorInvalidValue;
-  plan[0] = cap_splits(n_splits(n, tri_tiles(m, fwd_tile(qm)), kRowsPsi2,
+  const int tile = qm == 0 ? kChunkTile : fwd_tile(qm);
+  plan[0] = cap_splits(n_splits(n, tri_tiles(m, tile), kRowsPsi2,
                                 kFwdRowsMax, num_sms),
                        (size_t)m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)m * d * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(std::max(smem_rows_psi2(qm), smem_rows_psi1(qm, d)));
+  plan[2] = smem_bytes(
+      qm == 0 ? std::max(kFwdChunkSmem, smem_rows_chunk(kRowsPsi1, d))
+              : std::max(smem_rows_psi2(qm), smem_rows_psi1(qm, d)));
   return (int)smem_limit(plan);
 }
 
@@ -261,7 +461,7 @@ extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               int m, int q, int d, int qn, int splits2,
                               int splits1, double* p2_part, double* p1y_part,
                               void* stream) {
-  GPARML_QM_SWITCH(q, gparml::launch_fwd, mu, s, y, w, z, alpha, sf2, n, m,
-                   q, d, qn, splits2, splits1, p2_part, p1y_part,
-                   static_cast<cudaStream_t>(stream));
+  GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
+                   y, w, z, alpha, sf2, n, m, q, d, qn, splits2, splits1,
+                   p2_part, p1y_part, static_cast<cudaStream_t>(stream));
 }

@@ -2,14 +2,13 @@
 
 Counterpart of ``gparml_tpu/models/gplvm.py``: ``GPLVMConfig``,
 ``FitResult``, ``init_params``, ``suff_stats``, ``log_bound``,
-``neg_bound_value_and_grad`` and ``fit`` with SCG. Latents q(x_n) =
-N(mu_n, diag(s_n)) are (N, Q) leaves, or (Q, N) under ``layout='qn'``,
-optimized jointly with the globals; Y is (N, D), or (D, N) under
-``y_layout='dn'``.
+``neg_bound_value_and_grad``, ``fit`` with SCG, Adam or GD, and
+``latents``. Latents q(x_n) = N(mu_n, diag(s_n)) are (N, Q) leaves, or
+(Q, N) under ``layout='qn'``, optimized jointly with the globals; Y is
+(N, D), or (D, N) under ``y_layout='dn'``.
 
 Not ported yet (they raise NotImplementedError; see ROADMAP.md): a
-``mesh``, the Adam/GD optimizers, ``infer_latents``, ``predict_observed``
-and ``reconstruct``.
+``mesh``, ``infer_latents``, ``predict_observed`` and ``reconstruct``.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import torch
 from gparml_tpu_torch.models import params as P
 from gparml_tpu_torch.ops import bound as bound_ops
 from gparml_tpu_torch.ops import psi, psi_cuda
-from gparml_tpu_torch.opt import scg
+from gparml_tpu_torch.opt import optax_adapter, scg
 from gparml_tpu_torch.parallel.stats import suff_stats_auto
 from gparml_tpu_torch.utils import init as init_utils
 from gparml_tpu_torch.utils import transforms
@@ -60,7 +59,8 @@ class GPLVMConfig:
 class FitResult(NamedTuple):
     params: P.GPLVMParams
     bound: float
-    history: np.ndarray           # per-iteration bound (nan past the end)
+    history: np.ndarray           # per-iteration bound (SCG: nan past the end;
+                                  # Adam/GD: before each step)
     n_evals: int
     trace: Optional[dict] = None  # SCG per-iteration {bound, gnorm2, lambda, alpha, accepted}
 
@@ -221,17 +221,15 @@ def fit(
     mesh=None,
     weights=None,
 ) -> FitResult:
-    """Maximize the bound over all unmasked leaves with SCG."""
+    """Maximize the bound over all unmasked leaves with SCG ('scg'), Adam
+    ('adam') or gradient descent ('gd', at ``learning_rate``)."""
     _check_config(config)
     _check(p0, y, config)
     if mesh is not None and config.layout == "qn":
         raise ValueError(
             "layout='qn' is the single-device large-N layout; under a mesh "
             "the latents shard over (N, Q) rows: use layout='nq'")
-    if optimizer in ("adam", "gd"):
-        raise NotImplementedError(
-            f"optimizer={optimizer!r} is not ported yet (ROADMAP.md Queue 1, item 9)")
-    if optimizer != "scg":
+    if optimizer not in ("scg", "adam", "gd"):
         raise ValueError(f"unknown optimizer {optimizer!r}; options: scg, adam, gd")
     mask = P.grad_mask(
         p0,
@@ -245,9 +243,19 @@ def fit(
         return neg_bound_value_and_grad(P.from_leaves(leaves), y, config, mask,
                                         mesh=mesh, weights=weights)
 
+    if optimizer != "scg":
+        res = optax_adapter.minimize(vg, P.leaves(p0), iters, optimizer=optimizer,
+                                     learning_rate=learning_rate)
+        return FitResult(P.from_leaves(res.x), -res.f_now, -res.history, res.n_evals)
     st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters))
     return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f,
                      st.n_evals, scg_trace(st))
+
+
+def latents(p: P.GPLVMParams, config: GPLVMConfig):
+    """The learned latent embedding (mu, s) in natural space, (N, Q) (views
+    of the (Q, N) storage under layout='qn')."""
+    return P.constrain_latents(p.lat, config.bijector, config.layout)
 
 
 def _not_ported(name: str):

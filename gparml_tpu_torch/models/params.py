@@ -107,17 +107,24 @@ def make_global(z, sf2, alpha, beta, bijector: str = "exp") -> GlobalParams:
     )
 
 
-def make_latents(mu, s, bijector: str = "exp", layout: str = "nq") -> LatentParams:
+def make_latents(mu, s, bijector: str = "exp", layout: str = "nq",
+                 device=None) -> LatentParams:
     """Build LatentParams from natural-space (N, Q) values; ``layout='qn'``
-    stores them transposed, (Q, N). The JAX package transposes on the host
-    there so that the lane-padded (N, Q) form never reaches the TPU; on a
-    GPU that padding does not exist and this is one transposed copy on the
-    values' own device."""
+    stores them transposed, (Q, N). Tensors are transposed on their own
+    device. numpy arrays (the CLI's ``--load``) are transposed on the host,
+    as the JAX package's host branch does, and copied to ``device`` (None:
+    the CPU) once, in their stored layout."""
     _check_layout(layout)
-    mu = torch.as_tensor(mu)
-    s = torch.as_tensor(s, dtype=mu.dtype, device=mu.device)
-    if layout == "qn":
-        mu, s = mu.T.contiguous(), s.T.contiguous()
+    if isinstance(mu, np.ndarray):
+        s = np.asarray(s, dtype=mu.dtype)
+        if layout == "qn":
+            mu, s = np.ascontiguousarray(mu.T), np.ascontiguousarray(s.T)
+        mu, s = torch.tensor(mu, device=device), torch.tensor(s, device=device)
+    else:
+        mu = torch.as_tensor(mu)
+        s = torch.as_tensor(s, dtype=mu.dtype, device=mu.device)
+        if layout == "qn":
+            mu, s = mu.T.contiguous(), s.T.contiguous()
     return LatentParams(mu=mu, u_s=transforms.get(bijector).inverse(s))
 
 

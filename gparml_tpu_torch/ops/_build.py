@@ -33,16 +33,16 @@ _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SZ = ctypes.c_size_t
 # name -> argument types, in the order of the extern "C" signatures
 _ENTRY_POINTS = {
-    # n m q d num_sms | partial_bytes | plan (int[4]): N-splits, shared
-    # memory need, limit
+    # n m q d num_sms | partial_bytes | plan (int[5]): N-splits, shared
+    # memory need, limit, the backward's float64 scratch per data row
     "gparml_psi_fwd_plan": [_I] * 5 + [_SZ, _IP],
     "gparml_psi_bwd_plan": [_I] * 5 + [_SZ, _IP],
     # mu s y w z alpha sf2 | n m q d qn splits2 splits1 |
     # p2_part p1y_part stream
     "gparml_psi_fwd": [_P] * 7 + [_I] * 7 + [_P] * 3,
     # mu s y w z alpha sf2 kmat e0 r1 | n m q d qn splits_c splits_m |
-    # dmu ds dal dy a_part b_part stream
-    "gparml_psi_bwd": [_P] * 10 + [_I] * 7 + [_P] * 7,
+    # dmu ds dal dy a_part b_part row_scratch stream
+    "gparml_psi_bwd": [_P] * 10 + [_I] * 7 + [_P] * 8,
 }
 
 # Seconds the last ``load()`` spent compiling (0.0 when the library was

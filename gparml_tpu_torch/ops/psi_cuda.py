@@ -23,15 +23,21 @@ beside them. There is no fallback from a failed build or launch.
 
 The TPU-only machinery (bf16 hi/lo rungs, VMEM tile ladders, per-call N
 caps and chunking such as ``_psi_fused_t_chunked`` and ``_chunk_plan``, M
-and lane padding, the qn path's M window ``qn_native_ok``) has no
-counterpart. The kernels take any N and Q up to 64. M and D are bounded by
-the card's shared memory per block (227 KB on an H100): the backward's row
-passes stage Z as M x QM floats (QM the Q bucket of
-``csrc/psi_common.cuh``), and the Psi1 kernels stage 32 rows of Y. On an
-H100 that is M <= 908 at Q > 32 and M <= 5811 at Q <= 10, and D <= 1686 at
-Q > 32. The wrappers raise ValueError past these limits, which the kernels'
-launch plan reports (``gparml_psi_{fwd,bwd}_plan``); the launch geometry
-itself lives in the CUDA sources only.
+and lane padding, the qn path's M window ``qn_native_ok``, the choice
+between the flat, staircase and lane-chunked kernels) has no counterpart:
+the same wrappers take every shape the Pallas kernels took. The kernels
+take any N and any Q: up to Q = 64 through the register buckets of
+``csrc/psi_common.cuh``, past it through the chunked kernels, which walk
+the latent dimensions in chunks and keep a float64 (2, Q, N) scratch of
+the backward row passes' totals (the plan's fifth entry). M and D are
+bounded by the card's shared memory per block (227 KB on an H100): up to
+Q = 64 the backward's row passes stage Z as M x QM floats (QM the Q
+bucket), and the Psi1 kernels stage 32 rows of Y. On an H100 that is
+M <= 908 at 32 < Q <= 64 and M <= 5811 at Q <= 10, and D <= 1686 at
+32 < Q <= 64; past Q = 64 nothing staged grows with M or Q (D <= 1782).
+The wrappers raise ValueError past these limits, which the kernels' launch
+plan reports (``gparml_psi_{fwd,bwd}_plan``); the launch geometry itself
+lives in the CUDA sources only.
 
 Each grid splits N and writes one float64 partial per split, which the
 wrapper sums; ``PARTIAL_BYTES`` bounds each grid's partials, and the plan
@@ -58,8 +64,6 @@ LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0}
 
 # Most bytes of one grid's float64 per-split partials.
 PARTIAL_BYTES = 1 << 29
-
-_MAX_Q = 64
 
 
 # --- plain versions ---------------------------------------------------------
@@ -131,8 +135,6 @@ def _shapes(layout: str, mu, z, y):
     else:
         (q, n), d = mu.shape, y.shape[0]
         lat, obs = (q, n), (d, n)
-    if q > _MAX_Q:
-        raise ValueError(f"the CUDA kernels take Q <= {_MAX_Q}; got Q={q}")
     m = z.shape[0]
     return n, m, q, d, {
         "mu": lat, "s": lat, "z": (m, q), "sf2": (), "alpha": (q,),
@@ -142,10 +144,12 @@ def _shapes(layout: str, mu, z, y):
 
 
 def _plan(n: int, m: int, q: int, d: int, device: torch.device):
-    """(splits2, splits1, splits_c, splits_m): the N-splits of the forward's
-    and the backward's grids, from the kernels' own launch plan (the same in
-    both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a block
-    would need more shared memory than the card gives one."""
+    """(splits2, splits1, splits_c, splits_m, scratch): the N-splits of the
+    forward's and the backward's grids, from the kernels' own launch plan
+    (the same in both layouts) under ``PARTIAL_BYTES``, and the float64
+    scratch the backward takes per data row (0 up to Q = 64). Raises
+    ValueError when a block would need more shared memory than the card
+    gives one."""
     return _plan_for(n, m, q, d, device, PARTIAL_BYTES)
 
 
@@ -153,7 +157,7 @@ def _plan(n: int, m: int, q: int, d: int, device: torch.device):
 def _plan_for(n, m, q, d, device, partial_bytes):
     lib = _build.load()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fwd, bwd = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+    fwd, bwd = (ctypes.c_int * 5)(), (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         _build.check(lib.gparml_psi_fwd_plan(n, m, q, d, sms, partial_bytes, fwd),
                      "psi_fwd_plan")
@@ -164,9 +168,9 @@ def _plan_for(n, m, q, d, device, partial_bytes):
         raise ValueError(
             f"the CUDA kernels need {need} bytes of shared memory per block at "
             f"M={m}, Q={q}, D={d}, and this card gives {limit}: Z is staged "
-            f"as M x (Q bucket) floats and 32 rows of Y as 32 x D floats; "
-            f"lower M or D")
-    return fwd[0], fwd[1], bwd[0], bwd[1]
+            f"as M x (Q bucket) floats up to Q=64 and 32 rows of Y as "
+            f"32 x D floats; lower M or D")
+    return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
 # layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
@@ -178,7 +182,7 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
     qn, key, _ = _LAYOUTS[layout]
-    splits2, splits1, _, _ = _plan(n, m, q, d, mu.device)
+    splits2, splits1, _, _, _ = _plan(n, m, q, d, mu.device)
     f64 = dict(dtype=torch.float64, device=mu.device)
     p2_part = torch.empty((splits2, m, m), **f64)
     p1y_part = torch.zeros((splits1, m, d), **f64)
@@ -198,7 +202,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
     qn, _, key = _LAYOUTS[layout]
-    _, _, splits_c, splits_m = _plan(n, m, q, d, mu.device)
+    _, _, splits_c, splits_m, scratch = _plan(n, m, q, d, mu.device)
     f32 = dict(dtype=mu.dtype, device=mu.device)
     # Psi2 is symmetric, so only the symmetric part of its cotangent acts;
     # the row pass walks the upper triangle with off-diagonal cells doubled.
@@ -211,11 +215,12 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     f64 = dict(dtype=torch.float64, device=mu.device)
     a_part = torch.empty((splits_c, q, m, m), **f64)
     b_part = torch.empty((splits_m, q, m), **f64)
+    row_scratch = torch.zeros((scratch, n), **f64)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, kmat, e0, dp1y)),
             n, m, q, d, qn, splits_c, splits_m,
-            *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part)),
+            *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
             torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_bwd")
     LAUNCHES[key] += 1

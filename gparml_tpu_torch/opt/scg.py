@@ -8,8 +8,12 @@ scalars; each objective evaluation is one PyTorch value-and-gradient call
 whose scalars are read back to the host. The parameter "vector" is a list
 of tensors (``models/params.leaves``).
 
-Not ported: the fused ``while_loop`` form and its ``scg_mode`` choice,
-``bucket_iters`` (XLA trace-time costs) and ``trace_timing``.
+With ``trace_timing`` the loop stamps ``utils.logging.stamp_iteration``
+after the first evaluation (-1) and after each iteration, whose scalars it
+has read back by then, as the JAX package's io_callback stamps do.
+
+Not ported: the fused ``while_loop`` form and its ``scg_mode`` choice, and
+``bucket_iters`` (XLA trace-time costs).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from gparml_tpu_torch.models.params import tree_axpy, tree_dot, tree_neg
+from gparml_tpu_torch.utils import logging as glog
 
 
 class SCGOptions(NamedTuple):
@@ -32,7 +37,7 @@ class SCGOptions(NamedTuple):
     lam_min: float = 1e-15
     lam_max: float = 1e100
     display: bool = False     # print one line per iteration
-    trace_timing: bool = False  # not ported: raises
+    trace_timing: bool = False  # stamp real per-iteration wall times
 
 
 class SCGHistory(NamedTuple):
@@ -184,15 +189,16 @@ def minimize(
     Returns the final SCGState; ``state.x`` are the optimized leaves and
     ``state.history`` the per-iteration trace.
     """
-    if options.trace_timing:
-        raise NotImplementedError(
-            "SCG trace_timing is not ported yet (ROADMAP.md Queue 1, item 11)")
     with np.errstate(all="ignore"):
         nparams = sum(t.numel() for t in x0)
         f0, g0 = value_and_grad_fn(x0)
         options = _resolve_options(options, f0.dtype)
         kappa_floor = 1e-300 if f0.dtype == torch.float64 else 1e-30
         state = _initial_state(list(x0), np.float64(float(f0)), list(g0), options)
+        if options.trace_timing and options.max_iters > 0:
+            glog.stamp_iteration(-1)
         while state.iteration < options.max_iters and not state.done:
             state = _step(value_and_grad_fn, state, options, nparams, kappa_floor)
+            if options.trace_timing:
+                glog.stamp_iteration(state.iteration - 1)
     return state

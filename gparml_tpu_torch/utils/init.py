@@ -1,13 +1,16 @@
 """Initialization helpers: PCA embedding init and inducing-point selection.
 
-Counterpart of ``gparml_tpu/utils/init.py`` (``pca``, ``init_latents``,
-``init_inducing``). Randomness comes from a ``torch.Generator``; it gives
-other numbers than ``jax.random`` from the same seed, so parity tests hand
-both packages the same start index (``fps_indices``).
+Counterpart of ``gparml_tpu/utils/init.py`` (``pca``,
+``host_candidate_rows``, ``init_latents``, ``init_inducing``). Randomness
+comes from a ``torch.Generator``; it gives other numbers than ``jax.random``
+from the same seed, so parity tests hand both packages the same start index
+(``fps_indices``). ``host_candidate_rows`` is numpy on both sides and picks
+the same rows.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,6 +24,21 @@ def pca(y: torch.Tensor, q: int) -> torch.Tensor:
     top = torch.flip(evecs[:, -q:], dims=[1])
     top_vals = torch.flip(evals[-q:], dims=[0])
     return (yc @ top) / torch.sqrt(torch.clamp(top_vals, min=1e-12))
+
+
+def host_candidate_rows(x_np, m: int, seed: int = 0, factor: int = 16,
+                        floor: int = 4096):
+    """Host-side (numpy) candidate subset for :func:`init_inducing`: at most
+    ``max(factor*m, floor)`` rows sampled uniformly without replacement, in
+    row order, so farthest-point sampling runs over a (C, Q) block instead
+    of all N rows. FPS over a uniform candidate set this much larger than M
+    still yields well-separated inducing points."""
+    n = x_np.shape[0]
+    c = min(n, max(factor * m, floor))
+    if c >= n:
+        return np.ascontiguousarray(x_np)
+    idx = np.sort(np.random.default_rng(seed).choice(n, size=c, replace=False))
+    return np.ascontiguousarray(x_np[idx])
 
 
 def randn(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,149 @@
+"""Structured per-iteration metrics.
+
+Counterpart of ``gparml_tpu/utils/logging.py``: ``write_history`` persists a
+per-iteration history as JSONL or CSV, ``iteration_timer`` collects the real
+per-iteration wall times that an SCG fit with ``trace_timing=True`` stamps
+through ``stamp_iteration``, ``Timer`` times sections, and ``trace`` records
+a ``torch.profiler`` trace (the JAX package's ``jax.profiler`` trace). The
+port's SCG is a host loop that reads each iteration's scalars back, so a
+stamp follows the device work of its iteration.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import json
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+
+def write_history(
+    path: str,
+    history,
+    fmt: Optional[str] = None,
+    extra: Optional[Dict] = None,
+) -> None:
+    """Persist a per-iteration history as JSONL or CSV.
+
+    ``history`` is either a nan-padded (T,) bound array or a dict of named
+    (T,) columns (e.g. an SCG trace: bound, gnorm2, lambda, alpha, accepted).
+    Rows where the bound is nan (loop already converged) are dropped.
+    ``fmt`` defaults from the file extension (.jsonl / .csv)."""
+    if not isinstance(history, dict):
+        history = {"bound": history}
+    cols = {k: np.asarray(v) for k, v in history.items()}
+    valid = np.isfinite(cols.get("bound", next(iter(cols.values()))))
+    if fmt is None:
+        fmt = "csv" if path.endswith(".csv") else "jsonl"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def _py(v):
+        return bool(v) if v.dtype == np.bool_ else float(v)
+
+    rows = [
+        {"iteration": int(i), **{k: _py(v[i]) for k, v in cols.items()},
+         **(extra or {})}
+        for i in np.nonzero(valid)[0]
+    ]
+    if fmt == "csv":
+        with open(path, "w", newline="") as f:
+            if rows:
+                writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+                writer.writeheader()
+                writer.writerows(rows)
+    else:
+        with open(path, "w") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+
+
+# The live iteration_timer instances, innermost last: stamps go to the
+# innermost one.
+_ACTIVE_TIMERS: list = []
+
+
+def stamp_iteration(i) -> None:
+    """Record that SCG iteration ``i`` ended (-1: the loop started), for the
+    innermost live iteration_timer; dropped when none is live."""
+    if _ACTIVE_TIMERS:
+        _ACTIVE_TIMERS[-1].stamps.append((int(i), time.perf_counter()))
+
+
+class iteration_timer:
+    """Collect real per-iteration wall times from a fit whose optimizer ran
+    with ``trace_timing=True``. Usage::
+
+        with logging.iteration_timer() as it:
+            result = fit(..., scg_options=SCGOptions(trace_timing=True))
+        wall = it.wall_seconds()   # {iteration: seconds}
+
+    The optimizer stamps once at loop entry (iteration -1, after the first
+    evaluation) and once per executed iteration; deltas between consecutive
+    stamps are the per-iteration wall times."""
+
+    def __init__(self):
+        self.stamps: list = []
+
+    def __enter__(self):
+        self.stamps = []
+        _ACTIVE_TIMERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self in _ACTIVE_TIMERS:
+            _ACTIVE_TIMERS.remove(self)
+        return False
+
+    def wall_seconds(self) -> Dict[int, float]:
+        out: Dict[int, float] = {}
+        prev_t = None
+        for i, t in self.stamps:
+            if prev_t is not None and i >= 0:
+                out[i] = t - prev_t
+            prev_t = t
+        return out
+
+
+class Timer:
+    """Wall-clock section timer for fit loops and benchmark harnesses."""
+
+    def __init__(self):
+        self.sections: Dict[str, float] = {}
+        self._start: Dict[str, float] = {}
+
+    def start(self, name: str):
+        self._start[name] = time.perf_counter()
+
+    def stop(self, name: str) -> float:
+        dt = time.perf_counter() - self._start.pop(name)
+        self.sections[name] = self.sections.get(name, 0.0) + dt
+        return dt
+
+    def summary(self) -> Dict[str, float]:
+        return dict(self.sections)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Context manager: a ``torch.profiler`` trace of the block, the CPU
+    and, where PyTorch sees a card, the CUDA activity, written to
+    ``log_dir/trace.json`` (Chrome trace format, opens in Perfetto).
+
+    Usage::
+        with logging.trace('/tmp/trace'):
+            fit(...)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -44,11 +44,26 @@ def test_one_split_a_grid_matches_plain(cuda, layout):
     the inducing-point pass 35 times, the cell pass flushes 69 times into
     its float64 partial, and the results must still meet the plain
     versions."""
-    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1)
+    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1, 0)
     before = len(chip_smoke.FAILURES)
     with chip_smoke.partial_budget(1):
         res = chip_smoke.parity_case(70_000, 40, 3, 5, 0, device=cuda, layout=layout)
     assert len(chip_smoke.FAILURES) == before, res
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("q", [65, 100])
+def test_chunked_kernels_match_plain(cuda, layout, q):
+    """Past Q = 64 the chunked kernels, forward and backward, against their
+    plain versions: with the default plan, and with every grid in one
+    N-split of 5000 rows (the inducing-point pass then runs 3 launches).
+    The backward takes a float64 scratch of 2 Q a row."""
+    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 2 * q)
+    before = len(chip_smoke.FAILURES)
+    res = chip_smoke.parity_case(300, 90, q, 6, 7, device=cuda, layout=layout)
+    with chip_smoke.partial_budget(1):
+        res1 = chip_smoke.parity_case(5000, 30, q, 6, 0, device=cuda, layout=layout)
+    assert len(chip_smoke.FAILURES) == before, (res, res1)
 
 
 def test_qn_kernels_equal_nq_kernels_on_transposed_inputs(cuda):
@@ -107,18 +122,22 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
 
 
 def test_m_limit_at_q_over_32(cuda):
-    """Z staged as M x 64 floats is the largest block at Q > 32: M=908 fits
-    an H100's 227 KB, M=909 does not."""
+    """Z staged as M x 64 floats is the largest block at 32 < Q <= 64:
+    M=908 fits an H100's 227 KB, M=909 does not. Past Q = 64 the chunked
+    kernels stage no Z, so M has no such limit."""
     if torch.cuda.get_device_properties(cuda).major != 9:
         pytest.skip("the limit is an H100's")
     psi_cuda._plan(8, 908, 44, 4, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         psi_cuda._plan(8, 909, 44, 4, cuda)
+    psi_cuda._plan(8, 4000, 65, 4, cuda)
+    psi_cuda._plan(8, 4000, 300, 4, cuda)
 
 
 # Z staged as M x 64 floats (1 MB), and 32 rows of Y as 32 x D floats
-# (2.5 MB): both past any card's shared memory per block.
-@pytest.mark.parametrize("m, q, d", [(4000, 64, 4), (40, 10, 20000)])
+# (2.5 MB), also by the chunked kernels: past any card's shared memory per
+# block.
+@pytest.mark.parametrize("m, q, d", [(4000, 64, 4), (40, 10, 20000), (40, 100, 20000)])
 def test_wrappers_reject_shapes_past_shared_memory(cuda, m, q, d):
     xs = _inputs(cuda, n=8, m=m, q=q, d=d)
     before = dict(psi_cuda.LAUNCHES)

@@ -190,14 +190,15 @@ def test_fit_improves_bound_on_cpu():
 @pytest.mark.parametrize("case", ["adam", "gd", "qn", "dn", "mesh", "predict",
                                   "infer", "reconstruct"])
 def test_outside_slice_raises_not_implemented(case):
-    """What is not ported raises. The qn and dn layouts are ported; what
-    stays outside for them is a mesh (the data-parallel statistics)."""
+    """What is not ported raises. The qn and dn layouts and the Adam/GD
+    optimizers are ported; what stays outside for them is a mesh (the
+    data-parallel statistics)."""
     y = torch.zeros(6, 3, dtype=torch.float64)
     cfg = tg.GPLVMConfig(q=2, num_inducing=3)
     p = tg.init_params(torch.Generator().manual_seed(0), torch.randn(6, 3, dtype=torch.float64), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case in ("adam", "gd"):
-            tg.fit(p, y, cfg, optimizer=case)
+            tg.fit(p, y, cfg, iters=1, optimizer=case, mesh=object())
         elif case == "qn":
             cfg_qn = tg.GPLVMConfig(q=2, num_inducing=3, layout="qn", y_layout="dn")
             p_qn = tg.init_params(torch.Generator().manual_seed(0), y.T, cfg_qn)

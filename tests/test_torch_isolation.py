@@ -52,9 +52,34 @@ def test_port_sources_never_name_jax():
                 assert top not in ("jax", "gparml_tpu"), (path, name)
 
 
-@pytest.mark.parametrize("module", ["ops/psi_cuda.py", "ops/_build.py"])
+@pytest.mark.parametrize("module", ["gparml_tpu_torch.cli", "gparml_tpu_torch.checkpoint",
+                                    "gparml_tpu_torch.utils.logging",
+                                    "gparml_tpu_torch.opt.optax_adapter"])
+def test_cli_modules_load_no_jax(module):
+    """Each module of the CLI path, imported alone in a fresh process, loads
+    neither jax nor the JAX package."""
+    code = (
+        f"import sys, importlib; importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gparml_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cli_help_runs_without_jax():
+    res = _run(["-X", "importtime", "-m", "gparml_tpu_torch.cli", "--help"], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout
+    imported = {ln.split("|")[-1].strip().split(".")[0] for ln in res.stderr.splitlines()
+                if ln.startswith("import time:")}
+    assert not imported & {"jax", "gparml_tpu"}
+
+
+@pytest.mark.parametrize("module", ["ops/psi_cuda.py", "ops/_build.py", "cli.py"])
 def test_kernel_paths_have_no_fallback(module):
-    """No try/except around the build or the launch: a failure raises."""
+    """No try/except around the build, the launch or the choice of device:
+    a failure raises."""
     tree = ast.parse((PKG / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 

@@ -223,8 +223,8 @@ def test_qn_scg_trajectory_matches_jax():
 def test_qn_routing(monkeypatch, stats_impl, kernels, q):
     """qn with 'pallas' goes through ``psi_cuda.suff_stats_t`` at any Q;
     'xla', and 'auto' on CPU tensors, through the plain
-    ``psi.suff_stats_t``. Past the kernels' Q = 64 the kernel wrappers
-    raise ValueError for CUDA tensors (their shape check), as in nq."""
+    ``psi.suff_stats_t``. The kernel wrappers take every Q: past Q = 64
+    their shape check hands the same shapes to the chunked kernels."""
     calls = []
 
     def spy(name, fn):
@@ -243,11 +243,9 @@ def test_qn_routing(monkeypatch, stats_impl, kernels, q):
     # on CPU tensors the kernels' wrapper then runs its plain version
     assert calls == (["kernels", "plain"] if kernels else ["plain"])
     mu_t, z = p.lat.mu.detach(), p.glob.z.detach()
-    if q > 64:
-        with pytest.raises(ValueError, match="Q <= 64"):
-            psi_cuda._shapes("qn", mu_t, z, y_t)
-    else:
-        assert psi_cuda._shapes("qn", mu_t, z, y_t)[:4] == (20, 4, q, 3)
+    n, m, q_k, d, shapes = psi_cuda._shapes("qn", mu_t, z, y_t)
+    assert (n, m, q_k, d) == (20, 4, q, 3)
+    assert shapes["mu"] == (q, 20) and shapes["y"] == (3, 20)
 
 
 def test_dn_with_nq_layout_gives_the_nq_result():
