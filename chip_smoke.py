@@ -5,11 +5,14 @@ Phases, one line each or more:
   1. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
   2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
-     (one process per source, all started together);
+     (one process per source, all started together), prints ptxas's
+     registers and spills, and counts the HGMMA instructions of every
+     tensor-core Psi2 kernel (Q <= 64) in the library's SASS (none fails);
   3. kernel parity: the forward and backward kernels against their plain
      PyTorch versions through a scalar probe objective, in float32 and
      against the plain version in float64, in the nq layout (mu, s (N, Q),
-     Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N));
+     Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N)), also
+     with the latents offset by +5 from the origin;
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -46,6 +49,7 @@ Run from the repository root: python3 chip_smoke.py
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -88,9 +92,13 @@ LAYOUT_TOL = 1e-6
 LONG_SUM_TOL = 1e-6
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# float32 on the CUDA cores, and HBM bytes.
+# float32 on the CUDA cores, and HBM bytes; dense TF32 on the tensor cores,
+# and the MUFU's exp2 per clock per SM (the SM count and clock are read
+# from the card).
 F32_PEAK = 67e12
 HBM_RATE = 3.35e12
+TF32_PEAK = 495e12
+MUFU_PER_CLOCK_SM = 16
 
 # (N, M, Q, D, rows with zero weight): the flat-kernel shape of the JAX
 # smoke, a weighted N=1000, the top of the TPU's flat window (M=512), a
@@ -102,7 +110,9 @@ HBM_RATE = 3.35e12
 # `_bwd_kernel`): the CLI's default (M=10, Q=2), the top of Ml=128
 # (M=128), the JAX smoke's lane-chunked shape (M=640), the top of the
 # staircase window (M=512, Q=44); and the chunked kernels (Q > 64), also
-# at M=640 and Q=256.
+# at M=640 and Q=256. Last, for the tensor-core Psi2 exponent (centred on
+# the mean of Z): the latents (mu and Z) offset by +5 at the slice's M, and
+# bucket 64 at a small N with many cells. A sixth entry is that offset.
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
     (1000, 200, 10, 12, 300),
@@ -122,6 +132,8 @@ PARITY_CASES = (
     (24, 256, 100, 16, 5),
     (16, 640, 100, 12, 0),
     (16, 300, 256, 8, 0),
+    (1000, 200, 10, 12, 0, 5.0),
+    (64, 512, 64, 12, 0),
 )
 LAYOUTS = ("nq", "qn")
 # (N, Q, M, D) of phase 4's slice (BASELINE config 4), of phase 5's check
@@ -165,16 +177,17 @@ def _wrappers(layout):
             pc.psi_fused_t_fwd_reference, pc.psi_fused_t_bwd_reference)
 
 
-def parity_case(n, m, q, d, nzero, device="cuda", layout="nq"):
-    """Kernel vs plain version on one shape in one layout; returns a dict
-    of errors and fails the run past the tolerances."""
+def parity_case(n, m, q, d, nzero, offset=0.0, device="cuda", layout="nq"):
+    """Kernel vs plain version on one shape in one layout, the latents (mu
+    and Z) shifted by ``offset``; returns a dict of errors and fails the run
+    past the tolerances."""
     import torch
 
     _, _, fused, fwd_ref, _ = _wrappers(layout)
     rng = np.random.default_rng(m + n)
     host = dict(
-        mu=rng.standard_normal((n, q)), s=0.3 + 0.5 * rng.random((n, q)),
-        z=rng.standard_normal((m, q)), sf2=np.asarray(1.3),
+        mu=rng.standard_normal((n, q)) + offset, s=0.3 + 0.5 * rng.random((n, q)),
+        z=rng.standard_normal((m, q)) + offset, sf2=np.asarray(1.3),
         alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)),
     )
     if q > 64:
@@ -206,7 +219,7 @@ def parity_case(n, m, q, d, nzero, device="cuda", layout="nq"):
     bad += [k for k in ("value_rel",) if out[k] > VALUE_RTOL]
     bad += [f"d{k}" for k in GRAD_NAMES if out[f"d{k}"] > GRAD_TOL_F32]
     bad += [f"d{k}_f64" for k in GRAD_NAMES if out[f"d{k}_f64"] > GRAD_TOL_F64]
-    _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d}: {bad} {out}")
+    _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d} offset={offset}: {bad} {out}")
     return out
 
 
@@ -236,8 +249,8 @@ def _max_abs(a, b):
 
 def _ptxas(log):
     """{kernel: (registers, spill-store bytes)} of the Q-bucket-10
-    instantiations and of the chunked kernels (Q > 64), from nvcc's
-    -Xptxas -v output."""
+    instantiations, of the tensor-core Psi2 kernels' bucket 64 and of the
+    chunked kernels (Q > 64), from nvcc's -Xptxas -v output."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -245,13 +258,93 @@ def _ptxas(log):
             rest = mangled.split("gparml", 1)[1]
             digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
             ident = rest[len(digits):len(digits) + int(digits)]
-            name = ident if "ILi10E" in mangled or "chunked" in ident else None
+            name = (ident + ("<64>" if "ILi64E" in mangled else "")
+                    if "ILi10E" in mangled or "chunked" in ident
+                    or ("_tc_" in ident and "ILi64E" in mangled) else None)
         elif name and "spill stores" in ln:
             spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
         elif name and "Used" in ln and "registers" in ln:
             out[name] = (int(ln.split("Used")[1].split()[0]), spill)
             name = None
     return out
+
+
+def _hgmma_counts(lib_path):
+    """{tensor-core kernel instantiation: HGMMA instructions in its SASS}
+    from ``cuobjdump -sass`` of the built library (every ``*_tc_kernel``)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            mangled = ln.split("Function :")[1].strip()
+            rest = mangled.split("gparml", 1)[-1]
+            digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
+            ident = rest[len(digits):len(digits) + int(digits)] if digits else mangled
+            qm = mangled.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in mangled else ""
+            name = f"{ident}<{qm}>" if "_tc_" in ident else None
+            if name:
+                counts[name] = 0
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
+@functools.lru_cache(maxsize=1)
+def _mufu_rate():
+    """exp2 a second on the card's MUFU: 16 a clock per SM x SMs x the
+    card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return MUFU_PER_CLOCK_SM * sms * mhz * 1e6
+
+
+def _set_bounds(entry, kind, n, m, q, d):
+    """A kernel-table entry's bounds: ``bound_ms`` / ``bound_by``, the FP32
+    direct form (``_bound``), and up to Q = 64, where the Psi2 exponents
+    come from the tensor cores, ``bound_tc_ms`` / ``bound_tc_by``
+    (``_bound_tc``)."""
+    entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
+    if q <= 64:
+        entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate())
+
+
+def _entry_text(k):
+    """A kernel-table entry's times and bounds, for the phase lines."""
+    tc = (f", tensor-core form {k['bound_tc_ms']:.2f} ms by {k['bound_tc_by']}"
+          if "bound_tc_ms" in k else "")
+    return (f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
+            f"{k['bound_ms']:.2f} ms{tc})")
+
+
+def _bound_tc(kind, n, m, q, d, mufu_rate):
+    """(bound ms, what bounds it) of a wrapper call whose Q <= 64 Psi2 work
+    runs on the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
+    on the MUFU; the TF32 products at the tensor cores' rate, 2 FLOP a
+    multiply-add, each counted once: the Psi2 exponent (K = 2Q) and, in the
+    backward, the row sums [zb' | zb'^2 | 1] (2Q + 1) and the cell sums
+    [c mu' | c] (2Q); the float32 operations left on the CUDA cores: a
+    pair's two constant adds and the weighting (forward: w e added, 3;
+    backward: g = K w e and w e, 3), and the Psi1 part as ``_work`` counts
+    it less its exp; and the bytes."""
+    _, nbytes = _work(kind, n, m, q, d)
+    pairs2, pairs1 = n * (m * (m + 1) // 2), n * m
+    k_sum = 2 * q if kind == "fwd" else 2 * q + (2 * q + 1) + 2 * q
+    psi1_ops = (4 * q + 3 + 2 * d) if kind == "fwd" else (10 * q + 5 + 4 * d)
+    times = {
+        "exp (MUFU)": (pairs2 + pairs1) / mufu_rate,
+        "TF32 products": 2 * k_sum * pairs2 / TF32_PEAK,
+        "float32 operations": (5 * pairs2 + psi1_ops * pairs1) / F32_PEAK,
+        "bytes": nbytes / HBM_RATE,
+    }
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def _work(kind, n, m, q, d):
@@ -471,12 +564,11 @@ def phase4(dev, kernels):
          "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=block), 1)},
     ]
     for k, kind in zip(entries, ("fwd", "bwd")):
-        k["bound_ms"], k["bound_by"] = _bound(kind, n, m, q, d)
+        _set_bounds(k, kind, n, m, q, d)
         k["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
     del fwd_k, fwd_in
-    print("phase 4 kernels at the slice shape: " + "; ".join(
-        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
-        f"{k['bound_ms']:.2f} ms)" for k in entries) + "; " + text)
+    print("phase 4 kernels at the slice shape: "
+          + "; ".join(map(_entry_text, entries)) + "; " + text)
 
     # the main path: bound+gradient evaluations and a 5-iteration SCG fit
     psi_cuda.LAUNCHES.update(fwd=0, bwd=0)
@@ -702,12 +794,10 @@ def phase5_config5(dev, kernels):
                  "launches": launches[kind + "_t"],
                  "max_abs_err": max(vs_plain[k][0] for k in names),
                  "ms": _cuda_ms(fn, reps), "plain_ms": pms}
-        entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
+        _set_bounds(entry, kind, n, m, q, d)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         kernels.append(entry)
-    print("phase 5 config 5 kernels: " + "; ".join(
-        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
-        f"{k['bound_ms']:.2f} ms)" for k in kernels[-2:]))
+    print("phase 5 config 5 kernels: " + "; ".join(map(_entry_text, kernels[-2:])))
 
 
 def _window_times(case, dev):
@@ -715,7 +805,7 @@ def _window_times(case, dev):
     at these small N they read launch overhead."""
     import torch
 
-    n, m, q, d, _ = case
+    n, m, q, d = case[:4]
     gen = torch.Generator(dev).manual_seed(n + m)
     r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     xs = (r(n, q), 0.3 + 0.5 * torch.rand(n, q, generator=gen, device=dev), r(m, q),
@@ -785,12 +875,10 @@ def _kernel_entries(label, fwd_in, cot, block, shape, launches, replaces):
                  "replaces": f"gparml_tpu/ops/psi_pallas.py:{line}",
                  "launches": launches[kind], "max_abs_err": err,
                  "ms": _cuda_ms(fn, reps), "plain_ms": _cuda_ms(ref, 1)}
-        entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
+        _set_bounds(entry, kind, n, m, q, d)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         entries.append(entry)
-    print(f"{label} kernels: " + "; ".join(
-        f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
-        f"{k['bound_ms']:.2f} ms)" for k in entries) + "; " + text)
+    print(f"{label} kernels: " + "; ".join(map(_entry_text, entries)) + "; " + text)
     return entries
 
 
@@ -951,9 +1039,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.last_build_seconds:.2f} s); ptxas at Q=10 and Q > 64: " + ", ".join(
+          f"{_build.last_build_seconds:.2f} s); ptxas at Q=10, the tensor-core kernels "
+          f"at Q=64, and Q > 64: " + ", ".join(
               f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
                   (_build.library_path().parent / "nvcc.log").read_text()).items()))
+    hgmma = _hgmma_counts(_build.library_path())
+    _require(len(hgmma) == 18 and min(hgmma.values()) > 0,
+             f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
+    print("phase 2 HGMMA instructions in the SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(hgmma.items())))
 
     # phase 3: kernel parity, both layouts
     t0 = time.perf_counter()

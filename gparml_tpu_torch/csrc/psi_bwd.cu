@@ -12,22 +12,23 @@
 // (M, M), the cotangents reduce over two different axes, so this file has
 // two kinds of pass, each recomputing the exponent:
 //
-//  * row passes, one thread per data row n (reductions over cells):
-//      psi2_bwd_rows_kernel walks the upper-triangle cells (m <= m') with
-//        K = mult * S (mult = 2 off the diagonal) and accumulates
-//        G = sum g, t_q = sum g (zb - mu), u_q = sum g (zb - mu)^2,
-//        g = K w exp(log Psi2); it writes dmu = 2 c t,
-//        ds = -c G + 2 c^2 u and the row's share of dalpha,
-//        -(s/den) G - u / den^2.
+//  * row passes (reductions over cells):
+//      psi2_bwd_rows_tc_kernel (Q <= 64), a block per 64 or 128 data rows,
+//        walks the packed upper-triangle cells (m <= m') in tiles of 64
+//        with K = mult * S (mult = 2 off the diagonal): the tile's
+//        exponents and its sums G = sum g, t_q = sum g (zb - mu),
+//        u_q = sum g (zb - mu)^2 (g = K w Psi2) on the tensor cores
+//        (psi_tc.cuh); it writes dmu = 2 c t, ds = -c G + 2 c^2 u and the
+//        row's share of dalpha, -(s/den) G - u / den^2.
 //      psi1_bwd_rows_kernel walks the inducing points with
 //        h = w Psi1 (y_n . dPsi1Y_m), adds -c1 T, -c1 H/2 + c1^2 U/2 and
 //        -(s/den1) H/2 - U/(2 den1^2) (T, U, H the h-sums as above), and
 //        writes dY = sum_m w Psi1 dPsi1Y_m.
 //  * column passes (reductions over n, one float64 partial per N-split):
-//      psi2_bwd_cells_kernel, per (m, m') cell:
-//        A_q = sum_n w e c_nq (mu_nq - zb_q) with e = Psi2[n, m, m'],
-//        summed kFlushRows rows at a time into the split's partial;
-//      psi1_bwd_m_kernel, per inducing point m:
+//      psi2_bwd_cells_tc_kernel (Q <= 64), per block of packed cells:
+//        A_q = sum_n w e c_nq (mu_nq - zb_q) with e = Psi2[n, m, m'], the
+//        exponents and the sums on the tensor cores, each 64-row tile's
+//        sums added into float64;//      psi1_bwd_m_kernel, per inducing point m:
 //        B_q = sum_n h c1_nq (mu_nq - z_mq), at most kPsi1RowsMax rows a
 //        split in one launch (the launcher runs the grid again for further
 //        rows when the partials' memory budget lowers the split count).
@@ -48,111 +49,138 @@
 // float64: the row passes into a (2, Q, N) scratch of the row's totals t_q
 // and u_q, the column passes into their partials.
 //
-// What bounds it on an H100: exp and FMA issue, as in the forward; the
-// backward sweeps the N * M^2 / 2 (n, cell) pairs twice (rows, cells). Row
-// passes read each cell's K, E0 and z_m' as warp-wide broadcasts (every
-// thread of the grid walks the same cell sequence), so device-memory
-// traffic is O(N (Q + D)); the register accumulators are what limits
-// occupancy at large Q. psi2_bwd_rows_kernel sums each row mi of cells
-// apart and adds it to the row's totals, all in registers: one running sum
-// over all M (M + 1) / 2 cells put dalpha 4e-5 off float64 at M = 500.
-// Totals in shared memory were 1-2% faster on an H100 but took 2 QM + 1
-// floats a thread from Z's room, lowering the M limit.
-#include "psi_common.cuh"
+// What bounds it on an H100: operations. The backward sweeps the
+// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells); the Q <= 64 passes
+// form each tile's exponents and its reductions on the tensor cores and
+// spend a pair's exp2 on the MUFU and a few float32 operations in the
+// epilogue; the per-tile operand builds (the rows' in the cell pass, the
+// cells' in the row pass) are shared by the block's warpgroups. Device
+// memory traffic is O(N (Q + D)): a row pass reads its rows once and every
+// cell's Z and K per tile, a cell pass its cells once and the rows once per
+// cell block (from L2: the grid's x axis, cells, varies fastest, so the
+// blocks of one N-split read the same rows together).
+#include "psi_tc.cuh"
 
 namespace gparml {
 
-// Threads of a row-pass block.
+// Threads of a row-pass block (the direct-form and chunked row passes).
 constexpr int kRowThreads = 128;
 
+// Rows of one block of psi2_bwd_rows_tc_kernel (64 a warpgroup), and its
+// shared memory: the rows' operand, constants and weights, one cell tile's
+// operand and terms, and one region that holds in turn the rows' raw
+// stage, the cell tile's transposed operand [zb' | zb'^2 | 1] and, at the
+// end, the rows' float64 sums (rows x tc_n2_rows).
+__host__ __device__ constexpr int tc_row_rows(int qm) { return tc_wg(qm) * kTcRows; }
+__host__ __device__ constexpr size_t tc_rows_union_bytes(int qm) {
+  return std::max({tc_stage_bytes(tc_row_rows(qm), qm), tc_b2_bytes(tc_n2_rows(qm)),
+                   tc_region((size_t)tc_row_rows(qm) * tc_n2_rows(qm) * sizeof(double))});
+}
+__host__ __device__ constexpr size_t tc_rows_smem(int qm) {
+  return tc_operand_bytes(tc_row_rows(qm), qm) + 2 * tc_region(tc_row_rows(qm) * sizeof(float)) +
+         tc_operand_bytes(kTcRows, qm) + tc_cellterm_bytes(kTcRows) + tc_rows_union_bytes(qm) +
+         tc_scratch_bytes(tc_wg(qm));
+}
+
+// The Psi2 row pass (Q <= 64): a block owns 64 data rows a warpgroup (the
+// rows' operand built once, the rows on the tile's M axis) and walks all
+// packed cells in tiles of 64 (the N axis). Per tile it builds the cells'
+// operand and its transpose [zb' | zb'^2 | 1] once for its warpgroups;
+// each warpgroup forms its rows' exponents on the tensor cores
+// (psi_tc.cuh), turns them in registers into g = K w exp2(L2) (K = mult *
+// sym(dPsi2), 0 past the last cell), and multiplies that tile, still in
+// registers, by the transpose on the tensor cores again (tc_reduce):
+// T1_q = sum g zb'_q, T2_q = sum g zb'_q^2 and G = sum g over the tile's
+// cells, which it adds to float64 registers (no float32 sum spans more than
+// 64 cells; one over a row's 125 250 cells at M = 500 put dalpha 4e-5 off
+// float64). At the end, in float64, t_q = sum g (zb' - mu')_q =
+// T1 - mu' G and u_q = sum g (zb' - mu')_q^2 = T2 - 2 mu' T1 + mu'^2 G
+// (centred on zeta, the expansion keeps float32's accuracy:
+// ops/psi_tc_model.py, form "tc"), and thread (row, half of the latent
+// dimensions) writes dmu = 2 c t, ds = -c G + 2 c^2 u and the row's share
+// of dalpha, -(s/den) G - u/den^2.
 template <int QM>
-__global__ void __launch_bounds__(kRowThreads)
-psi2_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                     Strides ls, const float* __restrict__ w,
-                     const float* __restrict__ z,
-                     const float* __restrict__ alpha,
-                     const float* __restrict__ sf2,
-                     const float* __restrict__ kmat,
-                     const float* __restrict__ e0, int n, int m, int q,
-                     float* __restrict__ dmu, float* __restrict__ ds,
-                     float* __restrict__ dal) {
+__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup)
+psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                        const float* __restrict__ w, const float* __restrict__ z,
+                        const float* __restrict__ alpha, const float* __restrict__ sf2,
+                        const float* __restrict__ zeta, const int2* __restrict__ cells,
+                        const float* __restrict__ ce, const float* __restrict__ kmat, int n,
+                        int m, int q, float* __restrict__ dmu, float* __restrict__ ds,
+                        float* __restrict__ dal) {
+  constexpr int KP = tc_k(QM), QS = QM / 2, R = tc_row_rows(QM), N2 = tc_n2_rows(QM);
   extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);
-  stage_z<QM>(z, m, q, zs);
+  TcCarve cv(smem4);
+  const TcOperand rop = tc_take_operand<KP>(cv, R);
+  float* s_rc = cv.take<float>(R * sizeof(float));
+  float* s_w = cv.take<float>(R * sizeof(float));
+  const TcOperand cop = tc_take_operand<KP>(cv, kTcRows);
+  float* s_ce = cv.take<float>(kTcRows * sizeof(float));
+  float* s_k = cv.take<float>(kTcRows * sizeof(float));
+  int2* s_ij = cv.take<int2>(kTcRows * sizeof(int2));
+  char* uni = cv.take<char>(tc_rows_union_bytes(QM));
+  const int wg = threadIdx.x / kTcWarpgroup;
+  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
+  float* st = reinterpret_cast<float*>(uni);
+  const size_t b2_half = tc_b2_bytes(N2) / 2;
+  const TcOperand b2{reinterpret_cast<float*>(uni), reinterpret_cast<float*>(uni + b2_half)};
+  double* s_tot = reinterpret_cast<double*>(uni);
+
+  const int n0 = blockIdx.x * R;
+  tc_stage_rows<QM, R>(mu, s, ls, w, q, n0, n, st);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  tc_build_rows<QM, KP, R>(st, alpha, zeta, logf(*sf2), q, rop, s_rc, nullptr);
+  for (int r = threadIdx.x; r < R; r += blockDim.x) s_w[r] = st[2 * R * QM + r];
+  __syncthreads();  // the stage's room is the cells' transpose's from here
+
+  const int rw = wg * kTcRows;  // the warpgroup's first row
+  double tot[N2 / 2];
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
+  const int ncell = tri_cells(m);
+  for (int p0 = 0; p0 < ncell; p0 += kTcRows) {
+    tc_build_cells<QM, KP, kTcRows>(z, zeta, cells, ce, kmat, m, q, p0, cop, s_ce, s_ij, &b2,
+                                    s_k);
+    tc_operands_ready();
+    float d[32];
+    tc_tile<KP>(rop.hi + rw * KP, rop.lo + rw * KP, cop.hi, cop.lo, d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int rr = rw + tc_m(i), c = tc_n(i);
+      d[i] = s_k[c] * (s_w[rr] * tc_exp2(d[i] + s_rc[rr] + s_ce[c]));
+    }
+    float d2[N2 / 2];
+    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+    __syncthreads();
+  }
+
+  // the rows' sums through shared memory, then thread (row, half) writes
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) s_tot[(rw + tc_m(e)) * N2 + tc_n(e)] = tot[e];
+  __syncthreads();
+  const int r = threadIdx.x % R, k0 = (threadIdx.x / R) * QS;
+  const int row = n0 + r;
   if (row >= n) return;
-
-  // The row's totals t_k, u_k and G; the sums over one row of cells go
-  // into them.
-  float tt[QM], uu[QM], gsum = 0.f;
-  float mv[QM], c[QM];
-  float lsum = 0.f;
-#pragma unroll
-  for (int k = 0; k < QM; ++k) {
-    mv[k] = 0.f;
-    c[k] = 0.f;
-    tt[k] = 0.f;
-    uu[k] = 0.f;
-    if (k < q) {
-      const float a = alpha[k];
-      const float den = 2.f * a * s[ls.at(row, k)] + 1.f;
-      mv[k] = mu[ls.at(row, k)];
-      c[k] = a / den;
-      lsum += logf(den);
-    }
-  }
-  const float lc = 2.f * logf(*sf2) - 0.5f * lsum;
-  const float wn = w[row];
-
-  // Each row mi of cells is summed apart and then added to the row's
-  // totals, so no float32 running sum is longer than M (a data row meets
-  // M (M + 1) / 2 cells: 125 250 at M = 500).
-  for (int mi = 0; mi < m; ++mi) {
-    float hm[QM], tp[QM], up[QM], gp = 0.f;
-#pragma unroll
-    for (int k = 0; k < QM; ++k) {
-      hm[k] = 0.5f * zs[mi * QM + k];
-      tp[k] = 0.f;
-      up[k] = 0.f;
-    }
-    const float* krow = kmat + (size_t)mi * m;
-    const float* erow = e0 + (size_t)mi * m;
-    for (int mj = mi; mj < m; ++mj) {
-      const float2* zj = reinterpret_cast<const float2*>(zs + mj * QM);
-      float dd[QM];
-      float qd = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float2 v = zj[k2];
-        dd[2 * k2] = fmaf(0.5f, v.x, hm[2 * k2]) - mv[2 * k2];
-        dd[2 * k2 + 1] = fmaf(0.5f, v.y, hm[2 * k2 + 1]) - mv[2 * k2 + 1];
-        qd = fmaf(c[2 * k2] * dd[2 * k2], dd[2 * k2], qd);
-        qd = fmaf(c[2 * k2 + 1] * dd[2 * k2 + 1], dd[2 * k2 + 1], qd);
-      }
-      const float g = __ldg(krow + mj) * wn * expf(lc + __ldg(erow + mj) - qd);
-      gp += g;
-#pragma unroll
-      for (int k = 0; k < QM; ++k) {
-        const float gd = g * dd[k];
-        tp[k] += gd;
-        up[k] = fmaf(gd, dd[k], up[k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < QM; ++k) {
-      tt[k] += tp[k];
-      uu[k] += up[k];
-    }
-    gsum += gp;
-  }
-
-  for (int k = 0; k < q; ++k) {
-    const size_t i = ls.at(row, k);
-    const float den = 2.f * alpha[k] * s[i] + 1.f;
-    dmu[i] = 2.f * c[k] * tt[k];
-    ds[i] = -c[k] * gsum + 2.f * c[k] * c[k] * uu[k];
-    dal[i] = -(s[i] / den) * gsum - uu[k] / (den * den);
+  const double* t_r = s_tot + r * N2;
+  const double g = t_r[2 * QM];
+  const float gs = (float)g;
+  for (int k = 0; k < QS; ++k) {
+    const int kk = k0 + k;
+    if (kk >= q) break;
+    const size_t i = ls.at(row, kk);
+    const double mv = (double)(mu[i] - zeta[kk]);
+    const float t = (float)(t_r[kk] - mv * g);
+    const float u = (float)(t_r[QM + kk] - 2.0 * mv * t_r[kk] + mv * mv * g);
+    const float a = alpha[kk];
+    const float den = 2.f * a * s[i] + 1.f;
+    const float c = a / den;
+    dmu[i] = 2.f * c * t;
+    ds[i] = -c * gs + 2.f * c * c * u;
+    dal[i] = -(s[i] / den) * gs - u / (den * den);
   }
 }
 
@@ -251,99 +279,124 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 }
 
-// Rows summed in registers between two additions into a cell's partial.
-constexpr int kFlushRows = 1024;
-static_assert(kFlushRows % kRowsPsi2 == 0, "flush at a staged-chunk edge");
+// Cells of one block of psi2_bwd_cells_tc_kernel, and its shared memory:
+// the cells' operand and terms (the operand's room holds the cells' float64
+// sums at the end), the rows' operand and constants, the ring of raw row
+// stages, and the rows' transposed operand [c mu' | c].
+__host__ __device__ constexpr int tc_cell_cells(int qm) { return tc_wg(qm) * kTcRows; }
+__host__ __device__ constexpr size_t tc_cells_smem(int qm) {
+  return tc_operand_bytes(tc_cell_cells(qm), qm) + tc_cellterm_bytes(tc_cell_cells(qm)) +
+         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
+         tc_stages(qm) * tc_stage_bytes(kTcRows, qm) + tc_b2_bytes(tc_n2_cells(qm)) +
+         tc_scratch_bytes(tc_wg(qm));
+}
 
-// Up to Q = 10, three resident blocks per SM (80 registers a thread): left
-// to itself ptxas picks 64 registers and spills the flush's live state
-// (44 B), which cost the pass ~3% on an H100.
-template <int QM, int TILE>
-__global__ void __launch_bounds__(TILE * TILE, QM <= 10 ? 3 : 1)
-psi2_bwd_cells_kernel(const float* __restrict__ mu,
-                      const float* __restrict__ s, Strides ls,
-                      const float* __restrict__ w,
-                      const float* __restrict__ z,
-                      const float* __restrict__ alpha,
-                      const float* __restrict__ sf2, int n, int m, int q,
-                      int rows_per_split, int ntile, double* __restrict__ out) {
+// The Psi2 cell pass (Q <= 64): per block of packed cells (grid x: tc_wg
+// warpgroups with a tile of 64 cells each, on the tile's M axis)
+// and N-split (grid y), A_q = sum_n w e c_nq (mu'_nq - zb'_q) with
+// e = Psi2[n, cell], centred on the cell. The rows are walked as in
+// psi2_fwd_tc_kernel (cp.async ring, the row operand built once a row tile
+// for all the block's cell tiles, exponents on the tensor cores), with the
+// rows' transposed operand [c mu' | c] beside it. Each warpgroup turns a
+// tile's exponents in registers into ev = w exp2(L2) (0 past the last
+// cell) and multiplies that tile by the transpose on the tensor cores
+// (tc_reduce): S1_q = sum ev c mu'_q and S2_q = sum ev c_q over the tile's
+// 64 rows, added to float64 registers. At the end, in float64, the centred
+// A_q = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc"); each split
+// writes its cells' A into its float64 (Q, M, M) partial, both triangles.
+// Up to Q = 16, two resident blocks per SM (128 registers a thread).
+template <int QM>
+__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, QM <= 16 ? 2 : 1)
+psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                         const float* __restrict__ w, const float* __restrict__ z,
+                         const float* __restrict__ alpha, const float* __restrict__ sf2,
+                         const float* __restrict__ zeta, const int2* __restrict__ cells,
+                         const float* __restrict__ ce, int n, int m, int q,
+                         int rows_per_split, double* __restrict__ out) {
+  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2;
+  constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM);
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi2 * QM;
+  TcCarve cv(smem4);
+  const TcOperand cop = tc_take_operand<KP>(cv, NC);
+  double* s_tot = reinterpret_cast<double*>(cop.hi);  // at the end: NC x N2 (N2 == KP)
+  float* s_ce = cv.take<float>(NC * sizeof(float));
+  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
+  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
+  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
+  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
+  const TcOperand b2 = tc_take_operand<kTcRows>(cv, N2);
+  const int wg = threadIdx.x / kTcWarpgroup;
+  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
+  __syncthreads();
 
-  int ti, tj;
-  upper_tile(blockIdx.x, ntile, &ti, &tj);
-  const int mi = ti * TILE + threadIdx.x / TILE;
-  const int mj = tj * TILE + threadIdx.x % TILE;
-
-  float zb[QM], acc[QM];
-  float e = 0.f;
+  const int p0 = blockIdx.x * NC;
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
+                             nullptr);
+  const int tile = wg * kTcRows;  // the warpgroup's cells
+  double tot[N2 / 2];
 #pragma unroll
-  for (int k = 0; k < QM; ++k) {
-    const float zi = (mi < m && k < q) ? z[(size_t)mi * q + k] : 0.f;
-    const float zj = (mj < m && k < q) ? z[(size_t)mj * q + k] : 0.f;
-    zb[k] = 0.5f * (zi + zj);
-    const float dz = zi - zj;
-    if (k < q) e = fmaf(alpha[k] * dz, dz, e);
-    acc[k] = 0.f;
-  }
-  const float e0 = -0.25f * e;
-
-  // out: (splits, q, M, M). Each thread owns cell (mi, mj): the whole
-  // of a diagonal tile, the upper triangle elsewhere (mirrored at the end).
-  // The registers hold the sums of kFlushRows rows at a time, which are
-  // added to the cell's float64 partial in `out`, so no float32 running sum
-  // spans a split (~83k rows at N=1e6) and no registers are spent on a
-  // second level.
-  const bool own = mi < m && mj < m;
-  const size_t mm = (size_t)m * m;
-  double* o = out + (size_t)blockIdx.y * q * mm + (size_t)mi * m + mj;
-  if (own)
-    for (int k = 0; k < q; ++k) o[k * mm] = 0.f;
+  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
 
   const float logsf2 = logf(*sf2);
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  for (int f0 = lo; f0 < hi; f0 += kFlushRows) {
-    const int fhi = min(hi, f0 + kFlushRows);
-    for (int n0 = f0; n0 < fhi; n0 += kRowsPsi2) {
-      __syncthreads();
-      stage_rows<QM, kRowsPsi2>(mu, s, ls, w, alpha, logsf2, 2.f, 2.f, q,
-                                n0, fhi, s_mc, s_lw);
-      __syncthreads();
-      const int nr = min(kRowsPsi2, fhi - n0);
-      for (int r = 0; r < nr; ++r) {
-        const float2 lw = s_lw[r];
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
-        float qd = 0.f;
-#pragma unroll
-        for (int k2 = 0; k2 < QM / 2; ++k2) {
-          const float4 v = mc[k2];
-          const float t0 = zb[2 * k2] - v.x;
-          const float t1 = zb[2 * k2 + 1] - v.z;
-          qd = fmaf(v.y * t0, t0, qd);
-          qd = fmaf(v.w * t1, t1, qd);
-        }
-        const float ev = lw.y * expf(lw.x + e0 - qd);
-#pragma unroll
-        for (int k2 = 0; k2 < QM / 2; ++k2) {
-          const float4 v = mc[k2];
-          acc[2 * k2] = fmaf(ev * v.y, v.x - zb[2 * k2], acc[2 * k2]);
-          acc[2 * k2 + 1] =
-              fmaf(ev * v.w, v.z - zb[2 * k2 + 1], acc[2 * k2 + 1]);
-        }
-      }
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const float* st = ring + (t % S) * stage;
+    if (S == 2) {
+      if (t + 1 < ntiles)
+        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
+                                   ring + ((t + 1) % S) * stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, q, rop, s_rc, &b2);
+    tc_operands_ready();
+    const float* st_w = st + 2 * kTcRows * QM;
+    float d[32];
+    tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
 #pragma unroll
-    for (int k = 0; k < QM; ++k) {
-      if (own && k < q) o[k * mm] += acc[k];
-      acc[k] = 0.f;
+    for (int i = 0; i < 32; ++i) {
+      const int c = tc_m(i), r = tc_n(i);
+      d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]) : 0.f;
     }
+    float d2[N2 / 2];
+    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+    __syncthreads();
   }
 
-  if (own && ti != tj) {
-    double* lower = o - ((size_t)mi * m + mj) + (size_t)mj * m + mi;
-    for (int k = 0; k < q; ++k) lower[k * mm] = o[k * mm];
+  // the cells' sums through shared memory (the cells' operand is done with)
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) s_tot[(tile + tc_m(e)) * N2 + tc_n(e)] = tot[e];
+  __syncthreads();
+  // out: (splits, q, M, M), each (cell, dimension) written by one thread
+  const size_t mm = (size_t)m * m;
+  double* o = out + (size_t)blockIdx.y * q * mm;
+  for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
+    const int c = idx % NC, k0 = (idx / NC) * QS;
+    const int2 ij = s_ij[c];
+    if (ij.x < 0) continue;
+    const double* t_c = s_tot + c * N2;
+    for (int k = 0; k < QS; ++k) {
+      const int kk = k0 + k;
+      if (kk >= q) break;
+      const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
+                               (z[(size_t)ij.y * q + kk] - zeta[kk]));
+      const double a = t_c[kk] - (double)zb * t_c[QM + kk];
+      o[kk * mm + (size_t)ij.x * m + ij.y] = a;
+      if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
+    }
   }
 }
 
@@ -427,10 +480,10 @@ psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 }
 
-// Cell-pass tile edge, and the most rows of one of its N-splits (256
-// flushes).
+// The chunked cell pass's tile edge, and the most rows of one N-split of a
+// cell pass.
 constexpr int kCellTile = 16;
-constexpr int kCellRowsMax = 256 * kFlushRows;
+constexpr int kCellRowsMax = 262144;
 
 // Shared memory of a chunked row pass: a group's cells (inducing points)
 // of one chunk, and each thread's exponents of that group in its own
@@ -940,34 +993,39 @@ psi1_bwd_m_chunked_kernel(const float* __restrict__ mu,
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
-               const float* sf2, const float* kmat, const float* e0,
+               const float* sf2, const float* zeta, const int* cells,
+               const float* ce, const float* kmat,
+               const float* /* e0: the chunked kernels' only */,
                const float* r1, int n, int m, int q, int d, int qn,
                int splits_c, int splits_m, float* dmu, float* ds, float* dal,
                float* dy, double* a_part, double* b_part,
                double* /* row scratch: the chunked kernels' only */,
                cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
-  const size_t smem_zm = smem_z(m, QM);
-  const int nblk = (n + kRowThreads - 1) / kRowThreads;
-  cudaError_t err = allow_smem(psi2_bwd_rows_kernel<QM>, smem_zm);
+  const size_t smem_r = tc_rows_smem(QM);
+  cudaError_t err = allow_smem(psi2_bwd_rows_tc_kernel<QM>, smem_r);
   if (err != cudaSuccess) return (int)err;
-  psi2_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, kmat, e0, n, m, q, dmu, ds, dal);
+  const int2* cells2 = reinterpret_cast<const int2*>(cells);
+  constexpr int R = tc_row_rows(QM);
+  psi2_bwd_rows_tc_kernel<QM><<<(n + R - 1) / R, tc_wg(QM) * kTcWarpgroup, smem_r, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, kmat, n, m, q, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  const size_t smem_zm = smem_z(m, QM);
+  const int nblk = (n + kRowThreads - 1) / kRowThreads;
   err = allow_smem(psi1_bwd_rows_kernel<QM>, smem_zm);
   if (err != cudaSuccess) return (int)err;
   psi1_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
       mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  constexpr int TILE = kCellTile;
-  const int ntile = (m + TILE - 1) / TILE;
-  dim3 grid_c(ntile * (ntile + 1) / 2, splits_c);
-  psi2_bwd_cells_kernel<QM, TILE>
-      <<<grid_c, TILE * TILE, smem_rows_psi2(QM), stream>>>(
-      mu, s, ls, w, z, alpha, sf2, n, m, q, (n + splits_c - 1) / splits_c,
-      ntile, a_part);
+  const size_t smem_c = tc_cells_smem(QM);
+  err = allow_smem(psi2_bwd_cells_tc_kernel<QM>, smem_c);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_c(tc_blocks(m, tc_cell_cells(QM)), splits_c);
+  psi2_bwd_cells_tc_kernel<QM><<<grid_c, tc_wg(QM) * kTcWarpgroup, smem_c, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, n, m, q, (n + splits_c - 1) / splits_c,
+      a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem_m = smem_rows_psi1(QM, d);
@@ -991,6 +1049,8 @@ int launch_bwd(const float* mu, const float* s, const float* y,
 inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
+                              const float* /* zeta, cells, ce: the Q <= 64 */,
+                              const int* /* kernels' only */, const float*,
                               const float* kmat, const float* e0,
                               const float* r1, int n, int m, int q, int d,
                               int qn, int splits_c, int splits_m, float* dmu,
@@ -1042,20 +1102,22 @@ extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  plan[0] = cap_splits(n_splits(n, tri_tiles(m, kCellTile), kRowsPsi2,
-                                kCellRowsMax, num_sms),
+  const int tiles = qm == 0 ? tri_tiles(m, kCellTile) : tc_blocks(m, tc_cell_cells(qm));
+  plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kCellRowsMax, num_sms),
                        (size_t)q * m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)q * m * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(
       qm == 0 ? std::max({kRowGroupSmem, kCellChunkSmem, psi1_m_chunk_smem(d)})
-              : std::max({smem_z(m, qm), smem_rows_psi2(qm), smem_rows_psi1(qm, d)}));
+              : std::max({smem_z(m, qm), tc_rows_smem(qm), tc_cells_smem(qm),
+                          smem_rows_psi1(qm, d)}));
   plan[4] = qm == 0 ? 2 * q : 0;
   return (int)smem_limit(plan);
 }
 
-// kmat: (M, M) = mult * sym(dPsi2) (upper triangle read); e0: (M, M);
+// zeta (Q), cells and ce: as gparml_psi_fwd's; kmat: (M, M) = mult * sym(dPsi2)
+// (upper triangle read); e0: (M, M) (read past Q = 64 only);
 // r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
 // qn = 1: (Q, N) and (D, N). Writes dmu, ds, dal, dy and the float64
 // a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). row_scratch: the
@@ -1064,14 +1126,15 @@ extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
 extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
-                              const float* kmat, const float* e0,
-                              const float* r1, int n, int m, int q, int d,
-                              int qn, int splits_c, int splits_m, float* dmu,
-                              float* ds, float* dal, float* dy, double* a_part,
-                              double* b_part, double* row_scratch,
-                              void* stream) {
+                              const float* zeta, const int* cells,
+                              const float* ce, const float* kmat,
+                              const float* e0, const float* r1, int n, int m,
+                              int q, int d, int qn, int splits_c, int splits_m,
+                              float* dmu, float* ds, float* dal, float* dy,
+                              double* a_part, double* b_part,
+                              double* row_scratch, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_bwd, gparml::launch_bwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, kmat, e0, r1, n, m, q, d, qn,
+                   y, w, z, alpha, sf2, zeta, cells, ce, kmat, e0, r1, n, m, q, d, qn,
                    splits_c, splits_m, dmu, ds, dal, dy, a_part, b_part,
                    row_scratch, static_cast<cudaStream_t>(stream));
 }

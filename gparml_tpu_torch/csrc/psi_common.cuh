@@ -9,8 +9,10 @@
 //   Psi1 terms:  den1 = a s_nq + 1,  c1_nq = a / den1,
 //                l1_n = log sf2 - 1/2 sum_q log den1
 //                log Psi1[n, m] = l1_n - 1/2 sum_q c1_nq (mu_nq - z_mq)^2
-// Everything is float32 in the direct-difference form on the CUDA cores
-// (plain FMA, accurate expf/logf: the build does not use fast math).
+// Everything is float32 (accurate expf/logf: the build does not use fast
+// math). The Psi1 kernels and the chunked kernels form each exponent in the
+// direct-difference form on the CUDA cores; the Q <= 64 Psi2 kernels form
+// theirs as an expanded product on the tensor cores (psi_tc.cuh).
 //
 // Up to Q = 64 the latent width is a template bucket QM >= Q (2, 4, 10, 16,
 // 32, 64) so per-thread vectors live in registers; entries q >= Q are zero
@@ -43,7 +45,8 @@
 
 namespace gparml {
 
-// Rows of (mu, c) staged per shared-memory chunk by the cell-major kernels.
+// Rows of (mu, c) staged per shared-memory chunk by the chunked cell-major
+// kernels (and the rows a Psi2 N-split is counted in).
 constexpr int kRowsPsi2 = 64;
 // Rows per chunk in the inducing-point-major Psi1 kernels (per-thread
 // register arrays of this length).
@@ -70,12 +73,8 @@ __host__ __device__ inline int qm_for(int q) {
   return 0;
 }
 
-// Dynamic shared memory of the three kinds of block: 64 staged rows of
-// (mu, c) and (lc, w); 32 staged rows of those plus 32 rows of Y; and Z
-// staged whole as (M, QM).
-constexpr size_t smem_rows_psi2(int qm) {
-  return (size_t)kRowsPsi2 * (qm + 1) * sizeof(float2);
-}
+// Dynamic shared memory of the Q <= 64 Psi1 blocks: 32 staged rows of
+// (mu, c) and (lc, w) plus 32 rows of Y; and Z staged whole as (M, QM).
 constexpr size_t smem_rows_psi1(int qm, int d) {
   return (size_t)kRowsPsi1 * (qm + 1) * sizeof(float2) +
          (size_t)kRowsPsi1 * d * sizeof(float);

@@ -8,17 +8,17 @@
 // on the MXU. One set of kernels serves both layouts through the Strides of
 // psi_common.cuh (the qn twin reads mu^T, s^T (Q, N) and Y^T (D, N)). Here:
 //
-//  * psi2_fwd_kernel: one grid axis over upper-triangle TILE x TILE tiles of
-//    (m, m') cells, one over N-splits. Each thread owns CPT cells of one
-//    tile row and keeps their zb vectors and E0 in registers; the block
-//    stages 64 data rows of (mu, c) and (lc, w) at a time in shared memory
-//    and every thread walks all of them, summing each such chunk apart
-//    before adding it to the cell's float32 total (at most 1024 chunk sums:
-//    a launch gives a split at most kFwdRowsMax rows). Each split writes
-//    its totals into its own float64 (M, M) partial, in both triangles; the
-//    wrapper sums the partials (deterministic, no atomics). When the
-//    partials' memory budget lowers the split count, the launcher runs the
-//    grid again for each further kFwdRowsMax rows a split, adding in.
+//  * psi2_fwd_tc_kernel (Q <= 64): one grid axis over blocks of packed
+//    upper-triangle cells (up to 256: two warpgroups, two tiles of 64
+//    cells each), one over N-splits. The exponents of each 64-cell x
+//    64-row tile come from the tensor cores (psi_tc.cuh, 3-term TF32,
+//    centred on zeta); each thread adds w_n exp2(L2) over its 16 rows into
+//    float32 tile sums of its two cells, then into float64 registers, and
+//    the four threads of a cell add theirs at the end. Each split writes its totals
+//    into its own float64 (M, M) partial, in both triangles; the wrapper
+//    sums the partials (deterministic, no atomics). When the partials'
+//    memory budget lowers the split count, the launcher runs the grid again
+//    for each further kFwdRowsMax rows a split, adding in.
 //  * psi1y_fwd_kernel: one thread per inducing point m, grid over
 //    (N-splits, m-blocks); per staged chunk of 32 rows it forms
 //    w_n Psi1[n, m] in registers and adds their products with the staged
@@ -34,115 +34,132 @@
 // Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128, and
 // 512 < M <= 640) as they take the flat window.
 //
-// What bounds it on an H100: exp and FMA issue, not bytes. Each (n, cell)
-// pair costs ~3 FMA-pipe operations per latent dimension plus one expf, and
-// reads nothing from device memory (the rows come from shared memory as
-// warp-wide broadcasts); N * M^2 / 2 pairs dominate everything else. The
-// design keeps the operands in registers, reuses one broadcast float4 load
-// (two latent dims of mu and c) across CPT = 4 cells per thread, and sizes
-// N-splits so about eight blocks per SM are resident.
-#include "psi_common.cuh"
+// What bounds it on an H100: operations, not bytes. The Psi2 kernel is
+// bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
+// rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row operand's
+// build, shared by the block's 256 cells; its epilogue costs two float32
+// adds and an FMA a pair, and the rows come from device memory once per
+// cell block (cp.async, one tile ahead). psi1y_fwd_kernel (N M pairs)
+// keeps the direct form on the CUDA cores: ~3 FMA-pipe operations per
+// latent dimension plus one expf, with the operands in registers and the
+// rows from shared memory as warp-wide broadcasts.
+#include "psi_tc.cuh"
 
 namespace gparml {
 
-// Most rows of one N-split of the Psi2 kernel in one launch: 1024 chunk
-// sums into a cell's float32 total.
+// Most rows of one N-split of the Psi2 kernel in one launch.
 constexpr int kFwdRowsMax = 1024 * kRowsPsi2;
 
-template <int QM, int TILE, int CPT>
-__global__ void __launch_bounds__(TILE * TILE / CPT)
-psi2_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                Strides ls, const float* __restrict__ w,
-                const float* __restrict__ z,
-                const float* __restrict__ alpha, const float* __restrict__ sf2,
-                int n_begin, int n, int m, int q, int rows_per_split,
-                int ntile, double* __restrict__ out) {
+// Cells of one block of psi2_fwd_tc_kernel, and its shared memory: the
+// cells' operand and terms, the rows' operand and terms, and the ring of
+// raw row stages.
+__host__ __device__ constexpr int tc_fwd_cells(int qm) {
+  return tc_wg(qm) * tc_fwd_ct(qm) * kTcRows;
+}
+__host__ __device__ constexpr size_t tc_fwd_smem(int qm) {
+  return tc_operand_bytes(tc_fwd_cells(qm), qm) + tc_cellterm_bytes(tc_fwd_cells(qm)) +
+         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
+         tc_stages(qm) * tc_stage_bytes(kTcRows, qm);
+}
+
+// sum_n w_n Psi2_n for one block of packed cells (grid x: tc_wg warpgroups,
+// each with tc_fwd_ct tiles of 64 cells, the cells on the tile's M axis)
+// and one N-split (grid y). The cells' operand is built once; the split's
+// rows are walked in tiles of 64 (the tile's N axis), staged by cp.async
+// one tile ahead, each tile's row operand built once in shared memory for
+// all the block's cell tiles. Per tile each thread adds w_n exp2(L2) over
+// its 16 rows into its two cells' float32 tile sums, then into float64
+// registers; at the end the four threads that share a cell add theirs (warp
+// shuffles) and one writes the split's float64 (M, M) partial, both
+// triangles: the grid's first launch writes it, a further one adds to it.
+// Cells past the last (the last block's tail) are dropped there.
+template <int QM>
+__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup)
+psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                   const float* __restrict__ w, const float* __restrict__ z,
+                   const float* __restrict__ alpha, const float* __restrict__ sf2,
+                   const float* __restrict__ zeta, const int2* __restrict__ cells,
+                   const float* __restrict__ ce, int n_begin, int n, int m, int q,
+                   int rows_per_split, double* __restrict__ out) {
+  constexpr int KP = tc_k(QM), S = tc_stages(QM), CT = tc_fwd_ct(QM);
+  constexpr int NC = tc_fwd_cells(QM);
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi2 * QM;
+  TcCarve cv(smem4);
+  const TcOperand cop = tc_take_operand<KP>(cv, NC);
+  float* s_ce = cv.take<float>(NC * sizeof(float));
+  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
+  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
+  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
+  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
+  __syncthreads();
 
-  int ti, tj;
-  upper_tile(blockIdx.x, ntile, &ti, &tj);
-  constexpr int TPR = TILE / CPT;  // threads per tile row
-  const int mi = ti * TILE + threadIdx.x / TPR;
-  const int col0 = tj * TILE + threadIdx.x % TPR;
-
-  float zb[CPT][QM], e0[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int mj = col0 + c * TPR;
-    float e = 0.f;
-#pragma unroll
-    for (int k = 0; k < QM; ++k) {
-      const float zi = (mi < m && k < q) ? z[(size_t)mi * q + k] : 0.f;
-      const float zj = (mj < m && k < q) ? z[(size_t)mj * q + k] : 0.f;
-      zb[c][k] = 0.5f * (zi + zj);
-      const float dz = zi - zj;
-      if (k < q) e = fmaf(alpha[k] * dz, dz, e);
-    }
-    e0[c] = -0.25f * e;
-  }
+  const int p0 = blockIdx.x * NC;
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
+                             nullptr);
+  const int wg = threadIdx.x / kTcWarpgroup;
 
   const float logsf2 = logf(*sf2);
   const int lo = n_begin + blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  float acc[CPT];
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  double acc[CT][2];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
-    __syncthreads();
-    stage_rows<QM, kRowsPsi2>(mu, s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0,
-                              hi, s_mc, s_lw);
-    __syncthreads();
-    const int nr = min(kRowsPsi2, hi - n0);
-    // Each chunk of rows is summed on its own and then added to acc, so no
-    // float32 running sum is longer than a chunk or the count of chunks (at
-    // N=1e6 a split holds ~26k rows, and one running sum over them is
-    // ~1e-5 off in float32).
-    float part[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) part[c] = 0.f;
-    for (int r = 0; r < nr; ++r) {
-      const float2 lw = s_lw[r];
-      const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
-      float qd[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) qd[c] = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float4 v = mc[k2];  // (mu_k, c_k, mu_k+1, c_k+1)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float t0 = zb[c][2 * k2] - v.x;
-          const float t1 = zb[c][2 * k2 + 1] - v.z;
-          qd[c] = fmaf(v.y * t0, t0, qd[c]);
-          qd[c] = fmaf(v.w * t1, t1, qd[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        part[c] = fmaf(lw.y, expf(lw.x + e0[c] - qd[c]), part[c]);
+  for (int j = 0; j < CT; ++j) acc[j][0] = acc[j][1] = 0.0;
+  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const float* st = ring + (t % S) * stage;
+    if (S == 2) {
+      if (t + 1 < ntiles)
+        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
+                                   ring + ((t + 1) % S) * stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, q, rop, s_rc, nullptr);
+    tc_operands_ready();
+    const float* st_w = st + 2 * kTcRows * QM;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[c] += part[c];
+    for (int j = 0; j < CT; ++j) {
+      const int tile = (wg * CT + j) * kTcRows;
+      float d[32];
+      tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = tc_m(i), r = tc_n(i);
+        part[(i >> 1) & 1] += st_w[r] * tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
+      }
+      acc[j][0] += part[0];
+      acc[j][1] += part[1];
+    }
+    __syncthreads();
   }
 
-  // out: (splits, M, M): the grid's first launch writes it, a further one
-  // adds to it. On a diagonal tile every cell has its own thread (mirrored
-  // cells are computed twice, bitwise equal: zb and (z_m - z_m')^2 are
-  // symmetric); off it the thread also sets the mirrored cell, which no
-  // other thread touches.
   double* o = out + (size_t)blockIdx.y * m * m;
   const bool first = n_begin == 0;
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int mj = col0 + c * TPR;
-    if (mi < m && mj < m) {
-      double* up = o + (size_t)mi * m + mj;
-      *up = first ? acc[c] : *up + acc[c];
-      if (ti != tj) {
-        double* mirror = o + (size_t)mj * m + mi;
-        *mirror = first ? acc[c] : *mirror + acc[c];
+  for (int j = 0; j < CT; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double v = acc[j][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int c = (wg * CT + j) * kTcRows + tc_m(2 * h);
+      const int2 ij = s_ij[c];
+      if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
+      double* up = o + (size_t)ij.x * m + ij.y;
+      *up = first ? v : *up + v;
+      if (ij.x != ij.y) {
+        double* mirror = o + (size_t)ij.y * m + ij.x;
+        *mirror = first ? v : *mirror + v;
       }
     }
   }
@@ -363,29 +380,25 @@ psi1y_fwd_chunked_kernel(const float* __restrict__ mu,
   }
 }
 
-// Psi2 tile edge and cells per thread of a Q bucket.
-constexpr int fwd_tile(int qm) { return qm <= 16 ? 32 : 16; }
-constexpr int fwd_cpt(int qm) { return qm <= 16 ? 4 : 1; }
-
 template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
-               const float* sf2, int n, int m, int q, int d, int qn,
-               int splits2, int splits1, double* p2_part, double* p1y_part,
+               const float* sf2, const float* zeta, const int* cells,
+               const float* ce, int n, int m, int q, int d, int qn, int splits2,
+               int splits1, double* p2_part, double* p1y_part,
                cudaStream_t stream) {
-  constexpr int TILE = fwd_tile(QM);
-  constexpr int CPT = fwd_cpt(QM);
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
-  const int ntile = (m + TILE - 1) / TILE;
   const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
-  dim3 grid2(ntile * (ntile + 1) / 2, splits2);
-  cudaError_t err = cudaSuccess;
+  dim3 grid2(tc_blocks(m, tc_fwd_cells(QM)), splits2);
+  const size_t smem2 = tc_fwd_smem(QM);
+  cudaError_t err = allow_smem(psi2_fwd_tc_kernel<QM>, smem2);
+  if (err != cudaSuccess) return (int)err;
   // One launch unless the partials' budget lowered splits2 below
   // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
   for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
-    psi2_fwd_kernel<QM, TILE, CPT>
-        <<<grid2, TILE * TILE / CPT, smem_rows_psi2(QM), stream>>>(
-            mu, s, ls, w, z, alpha, sf2, n0, n, m, q, rows2, ntile, p2_part);
+    psi2_fwd_tc_kernel<QM><<<grid2, tc_wg(QM) * kTcWarpgroup, smem2, stream>>>(
+        mu, s, ls, w, z, alpha, sf2, zeta, reinterpret_cast<const int2*>(cells), ce, n0, n, m,
+        q, rows2, p2_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
@@ -402,7 +415,9 @@ int launch_fwd(const float* mu, const float* s, const float* y,
 // launch_fwd for Q > 64: the chunked kernels, the same grids and partials.
 inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
-                              const float* alpha, const float* sf2, int n,
+                              const float* alpha, const float* sf2,
+                              const float* /* zeta, cells, ce: the Q <= 64 */,
+                              const int* /* kernels' only */, const float*, int n,
                               int m, int q, int d, int qn, int splits2,
                               int splits1, double* p2_part, double* p1y_part,
                               cudaStream_t stream) {
@@ -438,30 +453,34 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  const int tile = qm == 0 ? kChunkTile : fwd_tile(qm);
-  plan[0] = cap_splits(n_splits(n, tri_tiles(m, tile), kRowsPsi2,
-                                kFwdRowsMax, num_sms),
+  const int tiles = qm == 0 ? tri_tiles(m, kChunkTile) : tc_blocks(m, tc_fwd_cells(qm));
+  plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kFwdRowsMax, num_sms),
                        (size_t)m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)m * d * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(
       qm == 0 ? std::max(kFwdChunkSmem, smem_rows_chunk(kRowsPsi1, d))
-              : std::max(smem_rows_psi2(qm), smem_rows_psi1(qm, d)));
+              : std::max(tc_fwd_smem(qm), smem_rows_psi1(qm, d)));
   return (int)smem_limit(plan);
 }
 
 // qn = 0: mu, s (N, Q) and y (N, D); qn = 1: mu, s (Q, N) and y (D, N).
+// zeta (Q): the shift of mu and Z in the Q <= 64 Psi2 exponent (psi_tc.cuh;
+// the wrapper passes the mean of Z); cells (M (M + 1) / 2, 2) int32: the
+// packed upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2):
+// their E0 log2e (read up to Q = 64 only).
 // p2_part: (splits2, M, M) float64, every element written. p1y_part:
 // (splits1, M, D) float64, zero-filled by the caller (accumulated in place).
 // Returns cudaGetLastError.
 extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
-                              const float* alpha, const float* sf2, int n,
-                              int m, int q, int d, int qn, int splits2,
+                              const float* alpha, const float* sf2,
+                              const float* zeta, const int* cells, const float* ce,
+                              int n, int m, int q, int d, int qn, int splits2,
                               int splits1, double* p2_part, double* p1y_part,
                               void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, n, m, q, d, qn, splits2, splits1,
+                   y, w, z, alpha, sf2, zeta, cells, ce, n, m, q, d, qn, splits2, splits1,
                    p2_part, p1y_part, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,663 @@
+// The tensor-core pieces of the Q <= 64 Psi2 kernels (psi_fwd.cu,
+// psi_bwd.cu): the exponent tile, 64 x 64 base-2 Psi2 exponents of data
+// rows and upper-triangle cells, and the backward's reduction products.
+//
+// Replaces the direct-difference exponent that the Q <= 64 Psi2 kernels
+// formed per (row, cell) pair on the CUDA cores (one subtraction, product
+// and FMA per latent dimension), and takes the place of the TPU's K-major
+// basis product (gparml_tpu/ops/psi_pallas.py `_tile_basis`, `_flat_lhs3`,
+// `_rz3_inputs`, run in `_fwd_flat_body` as bf16 hi/lo rungs on the MXU).
+// With mu' = mu - zeta and zb' = (z_m + z_m') / 2 - zeta (zeta = the
+// per-dimension mean of Z, passed by the wrapper; the exponent depends on
+// differences only, so the shift changes nothing but the magnitudes):
+//
+//   L2[n, p] = sum_k R[n, k] C[p, k] + rc_n + ce_p
+//   R[n] = [2 c mu' log2e (QM) | -c log2e (QM) | 0 (pad)]   (the row operand)
+//   C[p] = [zb' (QM) | zb'^2 (QM) | 0 (pad)]                (the cell operand)
+//   rc_n = (lc_n - sum_q c mu'^2) log2e,  ce_p = E0_p log2e
+//
+// K = 2 QM padded to a multiple of 8 (tc_k). tc_tile runs the product as
+// wgmma m64n64k8 in TF32 with the 3-term split hi = tf32(x), lo =
+// tf32(x - hi): A_hi B_lo + A_lo B_hi first, then A_hi B_hi, float32
+// accumulators; the kernels add the constants in float32 after it, apply
+// exp2 and mask the padding cells in their epilogues (the operands hold no
+// -inf). The rows sit on the tile's M axis in the row pass and on its N
+// axis in the forward and the cell pass, so that each sums along N. A
+// single TF32 product would carry the exponent to ~1e-3 (a 1e-3 relative
+// error in Psi2); the split and the centring keep it at float32's level:
+// ops/psi_tc_model.py models this arithmetic on the CPU and
+// tools/psi_tc_numerics.py measures it (<= 2.9e-6 of max|ref| on Psi2 and
+// every gradient leaf at Q <= 64, latents offset +5; 2.4e-4 without the
+// centring).
+//
+// tc_reduce multiplies a tile of values still in the accumulator registers
+// (the backward's g or w e) by a transposed operand in shared memory, as
+// the A operand of wgmma m64nNk8 from registers (the FlashAttention form of
+// P V): the row sums [zb' | zb'^2 | 1] and the cell sums [c mu' | c],
+// 3-term split as above.
+//
+// Operands are K-major in shared memory as 8-row x 16-byte core matrices
+// without swizzle (tc_at): the descriptor's leading byte offset is 128 (the
+// next 4 columns of K), its stride byte offset 32 K (the next 8 rows).
+// Cells are the upper triangle packed row by row (the wrapper's table), so
+// a tile of 64 cells wastes nothing but the last block's tail. Rows are
+// staged by cp.async (one tile ahead where two stages fit).
+//
+// What bounds the kernels built on it, on an H100: the exp2 of each pair on
+// the MUFU (16 a clock per SM) and the rate of issuing wgmma, then the per-pair
+// float32 work of the epilogues and the per-tile operand builds; device
+// memory carries O(N (Q + D)) bytes. Off the card (CPU emulation of these
+// sources) tc_tile and tc_reduce run as scalar loops of the same 3-term
+// split over the same layouts (their #ifndef __CUDA_ARCH__ twins).
+#pragma once
+
+#include <string.h>
+
+#include "psi_common.cuh"
+
+namespace gparml {
+
+// Rows and columns of an exponent tile (wgmma m64n64), and the threads of
+// one warpgroup. A kernel runs one or two warpgroups (tc_wg), each on its
+// own tiles; operands of more than 64 rows are 64-row tiles back to back
+// (tc_at carries on past row 63).
+constexpr int kTcRows = 64;
+constexpr int kTcWarpgroup = 128;
+// Row stride of the 64 x 64 tile that tc_reduce's scalar twin gathers
+// (CPU emulation only).
+constexpr int kTcTileLd = kTcRows + 1;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// K of a bucket: [2 c mu' | -c], 2 QM columns padded to a multiple of 8.
+__host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
+// Warpgroups of a block, cell tiles per warpgroup of the forward, and
+// stages of the raw-row ring, by bucket: as many as keep two blocks
+// resident on an H100 at Q <= 10 and one block in 227 KB at Q = 64 (the
+// backward passes take one tile a warpgroup: two took 200 registers).
+__host__ __device__ constexpr int tc_wg(int qm) { return qm <= 32 ? 2 : 1; }
+__host__ __device__ constexpr int tc_fwd_ct(int qm) { return qm <= 16 ? 2 : 1; }
+__host__ __device__ constexpr int tc_stages(int qm) { return qm <= 32 ? 2 : 1; }
+// N of the backward's reduction products (tc_reduce), a multiple of 8: the
+// row pass's [zb' | zb'^2 | 1] (2 QM + 1 columns) and the cell pass's
+// [c mu' | c] (2 QM).
+__host__ __device__ constexpr int tc_n2_rows(int qm) { return (2 * qm + 1 + 7) / 8 * 8; }
+__host__ __device__ constexpr int tc_n2_cells(int qm) { return (2 * qm + 7) / 8 * 8; }
+// K position of column c (0..63) of an exponent tile when the tile, from
+// its accumulator registers, is the A operand of a reduction product:
+// within each 8 columns the even ones come first (a thread's registers hold
+// columns 2t and 2t + 1 of each 8, and a TF32 A fragment takes columns t
+// and t + 4).
+__host__ __device__ constexpr int tc_kperm(int c) {
+  return (c & ~7) | ((c & 1) ? 4 + ((c & 7) >> 1) : (c & 7) >> 1);
+}
+
+// Float index of element (r, k) of an operand with kp columns: K-major
+// 8 x 4 core matrices (128 bytes each), K chunks adjacent.
+__host__ __device__ constexpr int tc_at(int r, int k, int kp) {
+  return ((r >> 3) * (kp >> 2) + (k >> 2)) * 32 + (r & 7) * 4 + (k & 3);
+}
+
+// Cells of an m x m upper triangle, and blocks of `per` cells.
+__host__ __device__ inline int tri_cells(int m) { return m * (m + 1) / 2; }
+__host__ __device__ inline int tc_blocks(int m, int per) {
+  return (tri_cells(m) + per - 1) / per;
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 does (nearest, ties away from
+// zero, for finite x): two integer operations on the bit pattern.
+__device__ inline float to_tf32(float x) {
+  uint32_t b;
+  memcpy(&b, &x, 4);
+  b = (b + 0x1000u) & 0xffffe000u;
+  float r;
+  memcpy(&r, &b, 4);
+  return r;
+}
+
+// 2^x on the MUFU (ex2.approx.ftz: relative error ~2^-22, results below
+// 2^-126 flushed to zero, which no Psi2 sum notices).
+__device__ inline float tc_exp2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+
+// Operand element idx = x, as its TF32 hi and lo parts.
+__device__ inline void tc_put(float* hi, float* lo, int idx, float x) {
+  const float h = to_tf32(x);
+  hi[idx] = h;
+  lo[idx] = to_tf32(x - h);
+}
+
+// Row (M index) and column (N index) of accumulator register i of this
+// thread within its warpgroup's 64 x 64 tile: wgmma's m64nN f32 layout,
+// warp w of the warpgroup holding rows 16 w .. 16 w + 15.
+__device__ inline int tc_m(int i) {
+  const int t = threadIdx.x & (kTcWarpgroup - 1);
+  return (t >> 5) * 16 + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ inline int tc_n(int i) {
+  return (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1);
+}
+
+// 4-byte asynchronous copy from device to shared memory, and its group
+// commit / wait.
+__device__ inline void cp_async4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ inline void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ inline void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Make this block's shared-memory stores visible to wgmma (the async
+// proxy), then a block barrier.
+__device__ inline void tc_operands_ready() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+  __syncthreads();
+}
+
+#ifdef __CUDA_ARCH__
+// wgmma shared-memory descriptor of a K-major operand with kp columns,
+// no swizzle: start address, leading byte offset 128 (adjacent K chunks),
+// stride byte offset 32 kp (adjacent 8-row groups), all in 16-byte units.
+__device__ inline uint64_t tc_desc(const float* p, int kp) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(128 >> 4) << 16;
+  d |= (uint64_t)((32 * kp) >> 4) << 32;
+  return d;
+}
+
+__device__ inline void tc_fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 8) . B (64 x 8)^T, TF32 in, float32 accumulate.
+__device__ inline void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#endif
+
+// The tile's product: d[i] = sum_k A[tc_m(i), k] B[tc_n(i), k] in the
+// 3-term split, the small terms first, A and B 64-row operands. Every
+// thread of a warpgroup calls it (each warpgroup on its own A), after
+// tc_operands_ready.
+template <int KP>
+__device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float* b_hi,
+                               const float* b_lo, float (&d)[32]) {
+#ifdef __CUDA_ARCH__
+  tc_fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < KP / 8; ++s) {
+    wgmma_tf32(d, tc_desc(a_hi + 64 * s, KP), tc_desc(b_lo + 64 * s, KP), s > 0);
+    wgmma_tf32(d, tc_desc(a_lo + 64 * s, KP), tc_desc(b_hi + 64 * s, KP), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < KP / 8; ++s)
+    wgmma_tf32(d, tc_desc(a_hi + 64 * s, KP), tc_desc(b_hi + 64 * s, KP), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  tc_fence_acc(d);
+#else
+  for (int i = 0; i < 32; ++i) {
+    const int r = tc_m(i), c = tc_n(i);
+    float small = 0.f, big = 0.f;
+    for (int k = 0; k < KP; ++k) {
+      const int ia = tc_at(r, k, KP), ib = tc_at(c, k, KP);
+      small = fmaf(a_hi[ia], b_lo[ib], small);
+      small = fmaf(a_lo[ia], b_hi[ib], small);
+      big = fmaf(a_hi[ia], b_hi[ib], big);
+    }
+    d[i] = small + big;
+  }
+#endif
+}
+
+#ifdef __CUDA_ARCH__
+// d (+)= A (64 x 8, TF32 in registers: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4) for g = 16 warp + lane / 4, t = lane % 4) . B (N x 8)^T,
+// one wgmma m64nNk8 for each N the reduction products take.
+template <int N>
+struct TcRs;
+template <>
+struct TcRs<8> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<16> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<24> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<32> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<40> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<64> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<72> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<128> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct TcRs<136> {
+  __device__ static void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67}, {%68, %69, %70, %71}, %72, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+};
+#endif
+
+// A reduction product of the backward: d2 = X . B2^T with X this
+// warpgroup's 64 x 64 tile of values in the accumulator registers of
+// tc_tile (x[i] at (tc_m(i), tc_n(i))) and B2 an N2 x 64 K-major operand in
+// shared memory whose K axis is the tile's columns in tc_kperm order;
+// d2[e] is element (tc_m(e), tc_n(e)) of the 64 x N2 result. 3-term TF32
+// split as tc_tile's, the small terms first; wgmma m64n8k8 with A from
+// registers, one per K step and term. `scratch` (64 x kTcTileLd floats a
+// warpgroup) is read only off the card, where the scalar twin gathers the
+// tile through it. Every thread of the block calls it.
+template <int N2>
+__device__ inline void tc_reduce(float (&x)[32], const float* b_hi, const float* b_lo,
+                                 float (&d2)[N2 / 2], float* scratch) {
+#ifdef __CUDA_ARCH__
+  uint32_t ah[32], al[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float h = to_tf32(x[i]);
+    ah[i] = __float_as_uint(h);
+    al[i] = __float_as_uint(to_tf32(x[i] - h));
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+#pragma unroll
+  for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    TcRs<N2>::mma(d2, ah[4 * s], ah[4 * s + 2], ah[4 * s + 1], ah[4 * s + 3],
+                  tc_desc(b_lo + 64 * s, 64), s > 0);
+    TcRs<N2>::mma(d2, al[4 * s], al[4 * s + 2], al[4 * s + 1], al[4 * s + 3],
+                  tc_desc(b_hi + 64 * s, 64), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    TcRs<N2>::mma(d2, ah[4 * s], ah[4 * s + 2], ah[4 * s + 1], ah[4 * s + 3],
+                  tc_desc(b_hi + 64 * s, 64), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+#else
+  for (int i = 0; i < 32; ++i) scratch[tc_m(i) * kTcTileLd + tc_n(i)] = x[i];
+  __syncthreads();
+  for (int e = 0; e < N2 / 2; ++e) {
+    const int r = tc_m(e), n = tc_n(e);
+    float small = 0.f, big = 0.f;
+    for (int kp = 0; kp < 64; ++kp) {
+      const int p = kp & 7;
+      const int c = (kp & ~7) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);  // tc_kperm(c) == kp
+      const float a = scratch[r * kTcTileLd + c];
+      const float ahv = to_tf32(a), alv = to_tf32(a - ahv);
+      const int ib = tc_at(n, kp, 64);
+      small = fmaf(ahv, b_lo[ib], small);
+      small = fmaf(alv, b_hi[ib], small);
+      big = fmaf(ahv, b_hi[ib], big);
+    }
+    d2[e] = small + big;
+  }
+  __syncthreads();
+#endif
+}
+
+// Shared memory of the emulation-only scratch of tc_reduce (a tile a
+// warpgroup), none in a CUDA build.
+__host__ __device__ constexpr size_t tc_scratch_bytes(int warpgroups) {
+#ifdef __CUDACC__
+  return 0 * warpgroups;
+#else
+  return (size_t)warpgroups * kTcRows * kTcTileLd * sizeof(float);
+#endif
+}
+
+// Shared memory of the tile kernels, in 128-byte aligned regions carved in
+// a fixed order (TcCarve); each kernel's *_smem function adds up the same
+// regions.
+__host__ __device__ constexpr size_t tc_region(size_t bytes) { return (bytes + 127) / 128 * 128; }
+// hi and lo of an operand of `rows` rows.
+__host__ __device__ constexpr size_t tc_operand_bytes(int rows, int qm) {
+  return 2 * tc_region((size_t)rows * tc_k(qm) * sizeof(float));
+}
+// One raw stage of `rows` rows: mu, s (rows x QM) and w (rows).
+__host__ __device__ constexpr size_t tc_stage_bytes(int rows, int qm) {
+  return tc_region(((size_t)2 * rows * qm + rows) * sizeof(float));
+}
+// The transposed operand (hi and lo) of a reduction product with n2 rows.
+__host__ __device__ constexpr size_t tc_b2_bytes(int n2) {
+  return 2 * tc_region((size_t)n2 * kTcRows * sizeof(float));
+}
+// What tc_build_cells writes beside the operand for `cells` cells: ce,
+// kmat entries and (i, j).
+__host__ __device__ constexpr size_t tc_cellterm_bytes(int cells) {
+  return 2 * tc_region((size_t)cells * sizeof(float)) + tc_region((size_t)cells * sizeof(int2));
+}
+
+struct TcCarve {
+  char* p;
+  __device__ explicit TcCarve(void* base) : p(static_cast<char*>(base)) {}
+  template <typename T>
+  __device__ T* take(size_t bytes) {
+    T* r = reinterpret_cast<T*>(p);
+    p += tc_region(bytes);
+    return r;
+  }
+};
+
+// An operand (hi, lo) of `rows` rows, zeroed: its padding columns stay
+// zero; the builds write the rest.
+struct TcOperand {
+  float *hi, *lo;
+};
+template <int KP>
+__device__ inline TcOperand tc_take_operand(TcCarve& cv, int rows) {
+  const size_t bytes = (size_t)rows * KP * sizeof(float);
+  TcOperand o{cv.take<float>(bytes), cv.take<float>(bytes)};
+  for (int i = threadIdx.x; i < rows * KP; i += blockDim.x) o.hi[i] = o.lo[i] = 0.f;
+  return o;
+}
+
+// Stage raw rows [n0, n0 + R) of mu, s (zero past hi or q) and w (zero
+// past hi) into st = [mu (R x QM) | s (R x QM) | w (R)] with asynchronous
+// copies; neighbouring threads copy neighbouring addresses in both layouts.
+template <int QM, int R>
+__device__ inline void tc_stage_rows(const float* __restrict__ mu, const float* __restrict__ s,
+                                     Strides ls, const float* __restrict__ w, int q, int n0,
+                                     int hi, float* st) {
+  float* st_mu = st;
+  float* st_s = st + R * QM;
+  float* st_w = st_s + R * QM;
+  const bool by_row = ls.rows_contiguous();
+  for (int i = threadIdx.x; i < R * QM; i += blockDim.x) {
+    int r, k;
+    stage_index<R>(i, QM, by_row, &r, &k);
+    const int n = n0 + r, at = r * QM + k;
+    if (n < hi && k < q) {
+      cp_async4(st_mu + at, mu + ls.at(n, k));
+      cp_async4(st_s + at, s + ls.at(n, k));
+    } else {
+      st_mu[at] = 0.f;
+      st_s[at] = 0.f;
+    }
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    if (n0 + r < hi)
+      cp_async4(st_w + r, w + n0 + r);
+    else
+      st_w[r] = 0.f;
+  }
+}
+
+// From a raw stage of R rows: the row operand (R rows) and the row
+// constant s_rc[r]; with b2 (R = 64, the cell pass), the transposed
+// operand [c mu' | c] (2 QM x 64, row r of the stage at K position
+// tc_kperm(r)) of its reduction product, whose padding rows stay zero.
+// blockDim.x / R neighbouring threads share a row, each taking every
+// (blockDim.x / R)-th dimension, and add their parts of the row constant
+// with warp shuffles in a fixed order: sum_q log den as the logs of float32
+// products of up to 8 terms, and sum_q c mu'^2, both in double.
+template <int QM, int KP, int R>
+__device__ inline void tc_build_rows(const float* st, const float* __restrict__ alpha,
+                                     const float* __restrict__ zeta, float logsf2, int q,
+                                     const TcOperand& op, float* s_rc, const TcOperand* b2) {
+  const float* st_mu = st;
+  const float* st_s = st + R * QM;
+  const int tpr = blockDim.x / R;  // 1, 2 or 4
+  const int r = threadIdx.x / tpr, sub = threadIdx.x % tpr;
+  double lsum = 0.0, cm = 0.0;
+  float prod = 1.f;
+  int in_prod = 0;
+  for (int k = sub; k < QM; k += tpr) {
+    const int i = r * QM + k;
+    float c = 0.f, mv = 0.f;
+    if (k < q) {
+      const float a = alpha[k];
+      const float den = 2.f * a * st_s[i] + 1.f;
+      c = a / den;
+      mv = st_mu[i] - zeta[k];
+      prod *= den;
+      if (++in_prod == 8) {
+        lsum += (double)logf(prod);
+        prod = 1.f;
+        in_prod = 0;
+      }
+      cm += (double)(c * mv * mv);
+    }
+    tc_put(op.hi, op.lo, tc_at(r, k, KP), (2.f * c * mv) * kLog2e);
+    tc_put(op.hi, op.lo, tc_at(r, QM + k, KP), -c * kLog2e);
+    if (b2) {
+      tc_put(b2->hi, b2->lo, tc_at(k, tc_kperm(r), 64), c * mv);
+      tc_put(b2->hi, b2->lo, tc_at(QM + k, tc_kperm(r), 64), c);
+    }
+  }
+  if (in_prod) lsum += (double)logf(prod);
+  for (int o = 1; o < tpr; o <<= 1) {
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+    cm += __shfl_xor_sync(0xffffffffu, cm, o);
+  }
+  if (sub == 0) s_rc[r] = (float)(2.0 * (double)logsf2 - 0.5 * lsum - cm) * kLog2e;
+}
+
+// The cell operand of packed cells [p0, p0 + NC) (cells[p] = (i, j), i <=
+// j; ce[p] = E0 log2e, both from the wrapper), and per cell c: s_ce[c]
+// (0 past the last cell), s_ij[c] ((-1, -1) past it), with s_k the entry
+// kmat[i, j] (0 past it), and with b2 (NC = 64, the row pass) the
+// transposed operand [zb' | zb'^2 | 1 | 0 ...] (tc_n2_rows(QM) x 64, cell c
+// at K position tc_kperm(c), every row written) of its reduction product.
+// Two barriers inside.
+template <int QM, int KP, int NC>
+__device__ inline void tc_build_cells(const float* __restrict__ z, const float* __restrict__ zeta,
+                                      const int2* __restrict__ cells,
+                                      const float* __restrict__ ce,
+                                      const float* __restrict__ kmat, int m, int q, int p0,
+                                      const TcOperand& op, float* s_ce, int2* s_ij,
+                                      const TcOperand* b2, float* s_k) {
+  const int ncell = tri_cells(m);
+  for (int c = threadIdx.x; c < NC; c += blockDim.x) {
+    const bool live = p0 + c < ncell;
+    const int2 ij = live ? cells[p0 + c] : make_int2(-1, -1);
+    s_ij[c] = ij;
+    s_ce[c] = live ? ce[p0 + c] : 0.f;
+    if (s_k) s_k[c] = live ? kmat[(size_t)ij.x * m + ij.y] : 0.f;
+    if (b2)
+      for (int nn = 2 * QM; nn < tc_n2_rows(QM); ++nn)
+        tc_put(b2->hi, b2->lo, tc_at(nn, tc_kperm(c), 64), nn == 2 * QM && live ? 1.f : 0.f);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < NC * QM; t += blockDim.x) {
+    const int c = t / QM, k = t % QM;
+    const int2 ij = s_ij[c];
+    float zb = 0.f;
+    if (ij.x >= 0 && k < q) {
+      const float zi = z[(size_t)ij.x * q + k] - zeta[k];
+      const float zj = z[(size_t)ij.y * q + k] - zeta[k];
+      zb = 0.5f * (zi + zj);
+    }
+    tc_put(op.hi, op.lo, tc_at(c, k, KP), zb);
+    tc_put(op.hi, op.lo, tc_at(c, QM + k, KP), zb * zb);
+    if (b2) {
+      tc_put(b2->hi, b2->lo, tc_at(k, tc_kperm(c), 64), zb);
+      tc_put(b2->hi, b2->lo, tc_at(QM + k, tc_kperm(c), 64), zb * zb);
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace gparml

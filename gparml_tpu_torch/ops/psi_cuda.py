@@ -10,7 +10,9 @@ Counterpart of ``gparml_tpu/ops/psi_pallas.py``: ``psi_fused`` and
 and KL are plain tensor sums).
 
 The two layouts run the same kernels (``csrc/psi_fwd.cu``,
-``csrc/psi_bwd.cu``), told the layout by a flag that sets their element
+``csrc/psi_bwd.cu``; up to Q = 64 their Psi2 exponents come from the tensor
+cores, ``csrc/psi_tc.cuh``, whose arithmetic ``psi_tc_model.py`` models on
+the CPU), told the layout by a flag that sets their element
 strides: nq takes mu, s (N, Q) and Y (N, D); qn takes mu^T, s^T (Q, N) and
 Y^T (D, N) and gives the cotangents of those back in (Q, N) / (D, N). The
 kernels sum in the same order in both, so qn gives the nq results on
@@ -173,6 +175,31 @@ def _plan_for(n, m, q, d, device, partial_bytes):
     return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
+def _cell_terms(z, alpha):
+    """What the Q <= 64 Psi2 kernels (``csrc/psi_tc.cuh``) take beside Z:
+    zeta, the per-dimension mean of Z, by which they shift mu and Z (data to
+    the kernels: Psi2 depends on mu - Z only, so the shift changes no output
+    and no gradient, only the magnitudes the tensor-core product carries);
+    the packed upper-triangle cells (M (M + 1) / 2, 2) int32, (i, j) with
+    i <= j row by row; and their E0 log2e = -1/4 sum_q alpha (z_i - z_j)^2
+    log2e, in float64 from the shifted Z. Past Q = 64 (the chunked kernels)
+    three empty tensors."""
+    m, q = z.shape
+    if q > 64:
+        return tuple(torch.empty(0, device=z.device) for _ in range(3))
+    zeta = z.mean(0).contiguous()
+    ij = torch.triu_indices(m, m, device=z.device)
+    zc = (z - zeta).double()
+    za = zc * alpha.double()
+    sq = (zc * za).sum(1)
+    e0 = -0.25 * (sq[ij[0]] + sq[ij[1]] - 2.0 * (za @ zc.T)[ij[0], ij[1]])
+    ce = e0.to(z.dtype) * _LOG2E
+    return zeta, ij.T.contiguous().to(torch.int32), ce.contiguous()
+
+
+_LOG2E = 1.4426950408889634
+
+
 # layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
 _LAYOUTS = {"nq": (0, "fwd", "bwd"), "qn": (1, "fwd_t", "bwd_t")}
 
@@ -186,9 +213,10 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     f64 = dict(dtype=torch.float64, device=mu.device)
     p2_part = torch.empty((splits2, m, m), **f64)
     p1y_part = torch.zeros((splits1, m, d), **f64)
+    cell_terms = _cell_terms(z, alpha)   # alive until the kernels have read it
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
-            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2)),
+            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *cell_terms)),
             n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
             p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
@@ -216,9 +244,10 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     a_part = torch.empty((splits_c, q, m, m), **f64)
     b_part = torch.empty((splits_m, q, m), **f64)
     row_scratch = torch.zeros((scratch, n), **f64)
+    cell_terms = _cell_terms(z, alpha)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
-            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, kmat, e0, dp1y)),
+            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *cell_terms, kmat, e0, dp1y)),
             n, m, q, d, qn, splits_c, splits_m,
             *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
             torch.cuda.current_stream(mu.device).cuda_stream)

@@ -178,18 +178,22 @@ def test_cpu_tensors_do_not_launch_kernels(rng):
     assert psi_cuda.LAUNCHES == before
 
 
-def _kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym):
+def _kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, zeta=None):
     """What the backward kernels of csrc/psi_bwd.cu compute, written out
     densely: the row passes' (dmu, ds, dalpha share, dy) and the column
-    passes' centred sums a (Q, M, M) and b (Q, M)."""
+    passes' centred sums a (Q, M, M) and b (Q, M). The Psi2 passes see mu
+    and Z shifted by ``zeta`` (the mean of Z, which the wrapper takes as
+    data; default no shift)."""
     m = z.shape[0]
+    zeta = torch.zeros_like(alpha) if zeta is None else zeta
     kmat = sym * (2.0 - torch.eye(m, dtype=z.dtype)) * torch.triu(torch.ones(m, m, dtype=z.dtype))
     dz2 = (z[:, None] - z[None]) ** 2
     e0 = -0.25 * (alpha * dz2).sum(-1)
     den = 2 * alpha * s + 1
     c = alpha / den
     lc = 2 * torch.log(sf2) - 0.5 * torch.log(den).sum(-1)
-    dd = 0.5 * (z[:, None] + z[None])[None] - mu[:, None, None]
+    zc = z - zeta
+    dd = 0.5 * (zc[:, None] + zc[None])[None] - (mu - zeta)[:, None, None]
     e = w[:, None, None] * torch.exp(lc[:, None, None] + e0[None]
                                      - (c[:, None, None] * dd ** 2).sum(-1))
     g = kmat[None] * e
@@ -217,7 +221,9 @@ def _kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym):
 
 def test_backward_kernel_decomposition_matches_autograd(rng):
     """The CUDA backward's split (row passes, cell and inducing-point sums,
-    then ``_assemble_bwd``) reproduces autograd of the plain forward."""
+    then ``_assemble_bwd``) reproduces autograd of the plain forward, with
+    the Psi2 passes' latents shifted by zeta = mean(Z) as the Q <= 64
+    kernels take them, and unshifted as the chunked kernels take them."""
     pr, w = _problem(rng, n=13, d=4, q=3, m=7, zero_rows=4)
     probe = np.random.default_rng(3)
     dp1y, dp2 = _t(probe.standard_normal((7, 4))), _t(probe.standard_normal((7, 7)))
@@ -225,9 +231,10 @@ def test_backward_kernel_decomposition_matches_autograd(rng):
     want = psi_cuda.psi_fused_bwd_reference(*x, _t(w), dp1y, dp2)
     p1y, p2 = psi_cuda.psi_fused_fwd_reference(*x, _t(w))
     sym = 0.5 * (dp2 + dp2.T)
-    dmu, ds, dal, dy, a, b, dz2 = _kernel_model(*x, _t(w), dp1y, sym)
-    dz, dsf2, dalpha = psi_cuda._assemble_bwd(x[2], x[3], x[4], p1y, p2, dp1y,
-                                              sym, dz2, dal.sum(0), a, b)
-    for name, got, ref in zip(NAMES, (dmu, ds, dz, dsf2, dalpha, dy), want):
-        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-10, atol=1e-13,
-                                   err_msg=name)
+    for zeta in (None, x[2].mean(0)):
+        dmu, ds, dal, dy, a, b, dz2 = _kernel_model(*x, _t(w), dp1y, sym, zeta)
+        dz, dsf2, dalpha = psi_cuda._assemble_bwd(x[2], x[3], x[4], p1y, p2, dp1y,
+                                                  sym, dz2, dal.sum(0), a, b)
+        for name, got, ref in zip(NAMES, (dmu, ds, dz, dsf2, dalpha, dy), want):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-10, atol=1e-13,
+                                       err_msg=name)

@@ -1,0 +1,115 @@
+"""The tensor-core arithmetic of the Q <= 64 Psi2 kernels, on the CPU.
+
+``gparml_tpu_torch/ops/psi_tc_model.py`` models what the kernels compute:
+the exponent in expanded form as a 3-term TF32 product (operands rounded as
+``cvt.rna.tf32.f32``), centred on zeta = mean(Z), constants added in float32,
+exp2; the backward's reductions as the kernels run them (3-term TF32
+products over tiles of 64, combined in float64). Its sum_n w_n Psi2_n, and
+its reductions assembled by the wrapper's own ``psi_cuda._assemble_bwd``,
+are held against
+the JAX package in float64 (``psi.psi2_sum`` and its VJP) at every Q bucket
+of the kernels, with the latents centred and offset by +5 (mu and Z
+together), at ``chip_smoke.F64_TOL``."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from gparml_tpu.ops import psi as jpsi  # noqa: E402
+from gparml_tpu_torch.ops import psi as tpsi  # noqa: E402
+from gparml_tpu_torch.ops import psi_tc_model as tm  # noqa: E402
+from tools.psi_tc_numerics import BUCKETS, problem  # noqa: E402
+
+torch.set_num_threads(2)
+
+# chip_smoke.F64_TOL: the kernels' float32 statistics against float64.
+F64_TOL = 1e-5
+N, M = 200, 40
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                      1 + 3 * 2.0 ** -12, 3.0e-30, -0.0])
+    want = [1.0, 1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10), 1 + 2.0 ** -10]
+    got = tm.tf32(x)
+    assert got[:5].tolist() == want
+    bits = got.view(torch.int32)
+    assert torch.all(bits & 0x1FFF == 0)
+    hi, lo = tm.split(x)
+    assert torch.all((hi + lo - x).abs() <= x.abs() * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("offset", [0.0, 5.0], ids=["centred", "offset5"])
+@pytest.mark.parametrize("q", BUCKETS)
+def test_tc_psi2_and_gradients_match_jax_float64(q, offset):
+    mu, s, z, sf2, alpha, w, dp2 = problem(N, M, q, offset)
+    want, vjp = jax.vjp(lambda *xs: jpsi.psi2_sum(*xs, w), mu, s, z, sf2, alpha)
+    want_grads = vjp(dp2)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    p2, grads = tm.psi2_vjp(t(mu), t(s), t(z), t(sf2), t(alpha), t(w), t(dp2))
+    errs = {"psi2": _rel(p2, want)}
+    errs.update({name: _rel(g, gw) for name, g, gw in
+                 zip(("mu", "s", "z", "sf2", "alpha"), grads, want_grads)})
+    assert max(errs.values()) <= F64_TOL, errs
+
+
+def test_exponent_tile_is_the_direct_exponent():
+    """The expanded, centred 3-term TF32 exponent against the direct form
+    lc + E0 - sum c (zb - mu)^2 in float64, base 2, at Q=64 offset by +5."""
+    mu, s, z, sf2, alpha, _, _ = problem(50, 20, 64, 5.0)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    l2 = tm.exponents(t(mu), t(s), t(z), t(sf2), t(alpha))[0].double()
+    x = [torch.tensor(a, dtype=torch.float64) for a in (mu, s, z, alpha)]
+    mu64, s64, z64, al64 = x
+    den = 2 * al64 * s64 + 1
+    c = al64 / den
+    i, j = tm.cells(20)
+    zb = 0.5 * (z64[i] + z64[j])
+    e0 = -0.25 * (al64 * (z64[i] - z64[j]) ** 2).sum(-1)
+    lc = 2 * np.log(1.3) - 0.5 * torch.log(den).sum(-1)
+    ln = lc[:, None] + e0[None] - (c[:, None] * (zb[None] - mu64[:, None]) ** 2).sum(-1)
+    assert float((l2 - ln * tm.LOG2E).abs().max()) <= 1e-5 * float(ln.abs().max())
+
+
+def test_shift_by_zeta_changes_neither_value_nor_gradient():
+    """The kernels shift mu and Z by zeta = mean(Z), taken as data: Psi2 is
+    invariant under the shift, so the chain through zeta is zero and the
+    gradients of the shifted function are the unshifted ones (float64)."""
+    mu, s, z, sf2, alpha, w, dp2 = problem(30, 12, 10, 5.0)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+
+    def grads(shift, detach):
+        xs = [t(a).requires_grad_(True) for a in (mu, s, z, sf2, alpha)]
+        zeta = xs[2].mean(0)
+        zeta = zeta.detach() if detach else zeta
+        m_, z_ = (xs[0] - zeta, xs[2] - zeta) if shift else (xs[0], xs[2])
+        p2 = tpsi.psi2_sum(m_, xs[1], z_, xs[3], xs[4], t(w))
+        return p2.detach(), torch.autograd.grad(p2, xs, grad_outputs=t(dp2))
+
+    p_ref, g_ref = grads(False, True)
+    for detach in (True, False):
+        p, g = grads(True, detach)
+        np.testing.assert_allclose(p.numpy(), p_ref.numpy(), rtol=1e-12, atol=1e-14)
+        for a, b in zip(g, g_ref):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=1e-12)
+
+
+def test_expanded_form_needs_the_centring():
+    """Without the shift (zeta = 0) the expanded exponent's terms carry the
+    latents' offset: at Q=64, offset +5, Psi2 is far past F64_TOL, which is
+    why the kernels centre."""
+    mu, s, z, sf2, alpha, w, _ = problem(N, M, 64, 5.0)
+    want = np.asarray(jpsi.psi2_sum(mu, s, z, sf2, alpha, w))
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    raw = tm.psi2_sum(t(mu), t(s), t(z), t(sf2), t(alpha), t(w), zeta=torch.zeros(64))
+    centred = tm.psi2_sum(t(mu), t(s), t(z), t(sf2), t(alpha), t(w))
+    assert _rel(raw, want) > 10 * F64_TOL
+    assert _rel(centred, want) <= F64_TOL
