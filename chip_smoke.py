@@ -7,12 +7,14 @@ Phases, one line each or more:
   2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
      (one process per source, all started together), prints ptxas's
      registers and spills, and counts the HGMMA instructions of every
-     tensor-core Psi2 kernel (Q <= 64) in the library's SASS (none fails);
+     tensor-core Psi2 kernel (the Q <= 64 buckets and the K-chunked kernels
+     past Q = 64) in the library's SASS (none fails);
   3. kernel parity: the forward and backward kernels against their plain
      PyTorch versions through a scalar probe objective, in float32 and
      against the plain version in float64, in the nq layout (mu, s (N, Q),
      Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N)), also
-     with the latents offset by +5 from the origin;
+     with the latents offset by +5 from the origin, and at Q = 100 with
+     alpha unscaled, where every Psi2 entry is below float32's normal range;
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -38,7 +40,8 @@ Phases, one line each or more:
      fitted params held against the plain engine in float64. (b) and (c)
      time the kernel wrappers at their shapes (the windows of the TPU's
      `_fwd_kernel`, `_bwd_kernel` and `_bwd_kernel_stair`) against their
-     plain versions.
+     plain versions; (c) also times the wrappers at Q = 256 beside their
+     bounds.
 Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run). The line before the last is the
 kernel table as JSON; the last line is {"ok": true, "device": {...}}. A
@@ -112,7 +115,10 @@ MUFU_PER_CLOCK_SM = 16
 # staircase window (M=512, Q=44); and the chunked kernels (Q > 64), also
 # at M=640 and Q=256. Last, for the tensor-core Psi2 exponent (centred on
 # the mean of Z): the latents (mu and Z) offset by +5 at the slice's M, and
-# bucket 64 at a small N with many cells. A sixth entry is that offset.
+# bucket 64 at a small N with many cells. A sixth entry is that offset; a
+# seventh, True, keeps alpha unscaled past Q = 64 (``parity_case``): at
+# Q = 100 every Psi2 entry is then below float32's normal range, which the
+# chunked kernels' exact shift of the exponents is for.
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
     (1000, 200, 10, 12, 300),
@@ -134,6 +140,7 @@ PARITY_CASES = (
     (16, 300, 256, 8, 0),
     (1000, 200, 10, 12, 0, 5.0),
     (64, 512, 64, 12, 0),
+    (24, 256, 100, 16, 5, 0.0, True),
 )
 LAYOUTS = ("nq", "qn")
 # (N, Q, M, D) of phase 4's slice (BASELINE config 4), of phase 5's check
@@ -148,6 +155,8 @@ CONFIG5 = (10_000_000, 10, 500, 12)
 CONFIG2 = (1000, 12, 10, 50, 300, 20)
 CLI_LARGE = (1_000_000, 12, 10, 100, 5, 20, 4000)
 CLI_WIDE_Q = (100_000, 128, 100, 256, 3, 1000)
+# The chunked kernels' widest timed shape (N, M, Q, D).
+WIDEST_Q = (100_000, 256, 256, 128)
 CLI_PARTITIONS = 4
 GRAD_NAMES = ("mu", "s", "z", "sf2", "alpha", "y")
 
@@ -177,10 +186,11 @@ def _wrappers(layout):
             pc.psi_fused_t_fwd_reference, pc.psi_fused_t_bwd_reference)
 
 
-def parity_case(n, m, q, d, nzero, offset=0.0, device="cuda", layout="nq"):
+def parity_case(n, m, q, d, nzero, offset=0.0, raw_alpha=False, device="cuda", layout="nq"):
     """Kernel vs plain version on one shape in one layout, the latents (mu
-    and Z) shifted by ``offset``; returns a dict of errors and fails the run
-    past the tolerances."""
+    and Z) shifted by ``offset``, alpha unscaled past Q = 64 with
+    ``raw_alpha``; returns a dict of errors and fails the run past the
+    tolerances."""
     import torch
 
     _, _, fused, fwd_ref, _ = _wrappers(layout)
@@ -190,9 +200,9 @@ def parity_case(n, m, q, d, nzero, offset=0.0, device="cuda", layout="nq"):
         z=rng.standard_normal((m, q)) + offset, sf2=np.asarray(1.3),
         alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)),
     )
-    if q > 64:
+    if q > 64 and not raw_alpha:
         # exponents of Q terms: scaled to Q=44's range, past which every
-        # Psi2 entry would underflow float32
+        # Psi2 entry would underflow float32's normal range
         host["alpha"] *= 44.0 / q
     if layout == "qn":
         host.update({k: np.ascontiguousarray(host[k].T) for k in ("mu", "s", "y")})
@@ -219,7 +229,8 @@ def parity_case(n, m, q, d, nzero, offset=0.0, device="cuda", layout="nq"):
     bad += [k for k in ("value_rel",) if out[k] > VALUE_RTOL]
     bad += [f"d{k}" for k in GRAD_NAMES if out[f"d{k}"] > GRAD_TOL_F32]
     bad += [f"d{k}_f64" for k in GRAD_NAMES if out[f"d{k}_f64"] > GRAD_TOL_F64]
-    _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d} offset={offset}: {bad} {out}")
+    _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d} offset={offset} "
+             f"raw_alpha={raw_alpha}: {bad} {out}")
     return out
 
 
@@ -284,7 +295,7 @@ def _hgmma_counts(lib_path):
             digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
             ident = rest[len(digits):len(digits) + int(digits)] if digits else mangled
             qm = mangled.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in mangled else ""
-            name = f"{ident}<{qm}>" if "_tc_" in ident else None
+            name = (f"{ident}<{qm}>" if qm else ident) if "_tc_" in ident else None
             if name:
                 counts[name] = 0
         elif name and "HGMMA" in ln:
@@ -305,14 +316,29 @@ def _mufu_rate():
     return MUFU_PER_CLOCK_SM * sms * mhz * 1e6
 
 
+def _globals(kind, q):
+    """The ``__global__`` kernels a forward or backward wrapper call
+    launches at latent width q (csrc/psi_{fwd,bwd}.cu)."""
+    if q > 64:
+        names = (("psi2_fwd_tc_chunked_kernel", "psi1y_fwd_chunked_kernel") if kind == "fwd" else
+                 ("psi2_bwd_rows_tc_chunked_kernel", "psi1_bwd_rows_chunked_kernel",
+                  "psi2_bwd_cells_tc_chunked_kernel", "psi1_bwd_m_chunked_kernel"))
+        return list(names)
+    qm = next(b for b in (2, 4, 10, 16, 32, 64) if q <= b)
+    names = (("psi2_fwd_tc_kernel", "psi1y_fwd_kernel") if kind == "fwd" else
+             ("psi2_bwd_rows_tc_kernel", "psi1_bwd_rows_kernel", "psi2_bwd_cells_tc_kernel",
+              "psi1_bwd_m_kernel"))
+    return [f"{k}<{qm}>" for k in names]
+
+
 def _set_bounds(entry, kind, n, m, q, d):
     """A kernel-table entry's bounds: ``bound_ms`` / ``bound_by``, the FP32
-    direct form (``_bound``), and up to Q = 64, where the Psi2 exponents
-    come from the tensor cores, ``bound_tc_ms`` / ``bound_tc_by``
-    (``_bound_tc``)."""
+    direct form (``_bound``), and, since the Psi2 exponents come from the
+    tensor cores at every Q, ``bound_tc_ms`` / ``bound_tc_by``
+    (``_bound_tc``); and ``globals``, the kernels the call launches."""
     entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
-    if q <= 64:
-        entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate())
+    entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate())
+    entry["globals"] = _globals(kind, q)
 
 
 def _entry_text(k):
@@ -324,8 +350,8 @@ def _entry_text(k):
 
 
 def _bound_tc(kind, n, m, q, d, mufu_rate):
-    """(bound ms, what bounds it) of a wrapper call whose Q <= 64 Psi2 work
-    runs on the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
+    """(bound ms, what bounds it) of a wrapper call whose Psi2 work runs on
+    the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
     on the MUFU; the TF32 products at the tensor cores' rate, 2 FLOP a
     multiply-add, each counted once: the Psi2 exponent (K = 2Q) and, in the
     backward, the row sums [zb' | zb'^2 | 1] (2Q + 1) and the cell sums
@@ -1008,6 +1034,35 @@ def phase6_wide_q(dev, work, kernels):
     kernels.extend(_kernel_entries(
         f"phase 6 N={n} M={m} Q={q}", fwd_in, _cotangents(m, d, dev), block, (n, m, q, d),
         launches, {"fwd": ("psi_fwd_chunked", 225), "bwd": ("psi_bwd_chunked", 409)}))
+    del fwd_in
+    _widest_q_times(dev)
+
+
+def _widest_q_times(dev):
+    """The wrappers' times at WIDEST_Q (the dimensions in two passes in the
+    backward), on random inputs, beside both bounds."""
+    import torch
+    from gparml_tpu_torch.ops import psi_cuda
+
+    n, m, q, d = WIDEST_Q
+    gen = torch.Generator(dev).manual_seed(q)
+    xs = (torch.randn(n, q, generator=gen, device=dev),
+          0.3 + 0.5 * torch.rand(n, q, generator=gen, device=dev),
+          torch.randn(m, q, generator=gen, device=dev), torch.tensor(1.3, device=dev),
+          torch.full((q,), 44.0 / q, device=dev), torch.randn(n, d, generator=gen, device=dev),
+          torch.ones(n, device=dev))
+    out = psi_cuda.psi_fwd(*xs)
+    cot = _cotangents(m, d, dev)
+    texts = []
+    for kind, fn, reps in (("fwd", lambda: psi_cuda.psi_fwd(*xs), 3),
+                           ("bwd", lambda: psi_cuda.psi_bwd(*xs, *out, *cot), 2)):
+        entry = {"ms": _cuda_ms(fn, reps)}
+        _set_bounds(entry, kind, n, m, q, d)
+        texts.append(f"psi_{kind} {entry['ms']:.2f} ms (bound {entry['bound_ms']:.2f} ms by "
+                     f"{entry['bound_by']}, tensor-core form {entry['bound_tc_ms']:.2f} ms by "
+                     f"{entry['bound_tc_by']})")
+    _require(all(bool(torch.isfinite(t).all()) for t in out), f"phase 6 Q={q} outputs not finite")
+    print(f"phase 6 widest Q, N={n} M={m} Q={q} D={d}: " + "; ".join(texts))
 
 
 def main() -> int:
@@ -1044,7 +1099,7 @@ def main() -> int:
               f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
                   (_build.library_path().parent / "nvcc.log").read_text()).items()))
     hgmma = _hgmma_counts(_build.library_path())
-    _require(len(hgmma) == 18 and min(hgmma.values()) > 0,
+    _require(len(hgmma) == 21 and min(hgmma.values()) > 0,
              f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
     print("phase 2 HGMMA instructions in the SASS: " + ", ".join(
         f"{k} {v}" for k, v in sorted(hgmma.items())))
@@ -1055,9 +1110,9 @@ def main() -> int:
         for layout in LAYOUTS:
             res = parity_case(*case, layout=layout)
             print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
-                  f"D={case[3]} zero-w={case[4]}: "
+                  f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:] else ''}: "
                   + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
-    for case in PARITY_CASES[10:]:
+    for case in [c for c in PARITY_CASES[10:] if not c[6:]]:
         print("phase 3 times nq N={} M={} Q={} D={}: fwd {:.3f} ms, bwd {:.3f} ms; plain "
               "fwd {:.3f} ms, bwd {:.3f} ms".format(*case[:4], *_window_times(case, dev)))
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")

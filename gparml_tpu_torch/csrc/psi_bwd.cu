@@ -37,24 +37,33 @@
 //    The wrapper sums the partials and assembles dZ, dalpha's cell share and
 //    dsf2 with small tensor operations (gparml_tpu_torch/ops/psi_cuda.py).
 //
-// Past Q = 64 (any Q) the four passes have chunked twins (the *_chunked
-// kernels below), which replace the TPU's `_bwd_kernel_stair` (:409) and
-// `_bwd_kernel` (:249), launched by `_psi_fused_bwd` outside the flat
-// window; the Q <= 64 kernels take the rest of those windows. They keep no
-// Q-long vector in registers: each walks the latent dimensions in chunks of
-// kQChunk twice, first to sum the exponents of a group (kGroup cells or
-// inducing points of one data row, or a staged chunk of rows of one cell or
-// inducing point, held in the thread's own column of shared memory) before
-// expf, then for the per-dimension sums of that group, which it adds into
-// float64: the row passes into a (2, Q, N) scratch of the row's totals t_q
-// and u_q, the column passes into their partials.
+// Past Q = 64 (any Q) the four passes have twins, which replace the TPU's
+// `_bwd_kernel_stair` (:409) and `_bwd_kernel` (:249), launched by
+// `_psi_fused_bwd` outside the flat window; the Q <= 64 kernels take the
+// rest of those windows. The Psi2 passes, psi2_bwd_rows_tc_chunked_kernel
+// and psi2_bwd_cells_tc_chunked_kernel, are the tensor-core passes with K
+// walked in chunks of kTcQChunk latent dimensions (psi_tc.cuh), the
+// reductions taken one dimension chunk at a time into float64 totals in
+// shared memory, and an exact shift 2^S in the row constants that keeps
+// exp2 clear of float32's subnormal range (the totals are scaled by 2^-S).
+// The Psi1 passes (*_chunked) keep no Q-long vector in registers: each
+// walks the latent dimensions in chunks of kQChunk twice, first to sum the
+// exponents of a group (kGroup inducing points of one data row, or a
+// staged chunk of rows of one inducing point, held in the thread's own
+// column of shared memory) before expf, then for the per-dimension sums of
+// that group, which it adds into float64: the row pass into a (2, Q, N)
+// scratch of the row's totals t_q and u_q, the column pass into its
+// partials.
 //
 // What bounds it on an H100: operations. The backward sweeps the
-// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells); the Q <= 64 passes
+// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells); the Psi2 passes
 // form each tile's exponents and its reductions on the tensor cores and
 // spend a pair's exp2 on the MUFU and a few float32 operations in the
 // epilogue; the per-tile operand builds (the rows' in the cell pass, the
-// cells' in the row pass) are shared by the block's warpgroups. Device
+// cells' in the row pass) are shared by the block's warpgroups; past Q = 64
+// both operands of a tile are rebuilt chunk by chunk (the dimensions twice:
+// for the exponent and for the reductions), and the reductions' float64
+// totals are read and written in shared memory once per tile. Device
 // memory traffic is O(N (Q + D)): a row pass reads its rows once and every
 // cell's Z and K per tile, a cell pass its cells once and the rows once per
 // cell block (from L2: the grid's x axis, cells, varies fastest, so the
@@ -480,148 +489,235 @@ psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 }
 
-// The chunked cell pass's tile edge, and the most rows of one N-split of a
-// cell pass.
-constexpr int kCellTile = 16;
+// The most rows of one N-split of a cell pass.
 constexpr int kCellRowsMax = 262144;
 
-// Shared memory of a chunked row pass: a group's cells (inducing points)
-// of one chunk, and each thread's exponents of that group in its own
-// column (s_g[c * kRowThreads + threadIdx.x]).
+// Shared memory of the chunked Psi1 row pass: a group's inducing points of
+// one chunk, and each thread's exponents of that group in its own column
+// (s_h[c * kRowThreads + threadIdx.x]).
 constexpr size_t kRowGroupSmem = (size_t)kGroup * (kQChunk + kRowThreads) * sizeof(float);
 
-// psi2_bwd_rows_kernel for any Q. The row's cells are walked in groups of
-// up to kGroup cells of one row mi of cells; per group the exponents are
-// summed over the dimension chunks (in the thread's column of shared
-// memory), then the chunks are walked again for t_q, u_q, whose group sums
-// are added into the row's float64 totals tu[0][q][n], tu[1][q][n] (zero
-// on entry; zeroed again on exit for psi1_bwd_rows_chunked_kernel). The
-// cells' midpoints come from shared memory, the row's own (mu, c) chunk
-// from device memory into registers.
-__global__ void __launch_bounds__(kRowThreads)
-psi2_bwd_rows_chunked_kernel(const float* __restrict__ mu,
-                             const float* __restrict__ s, Strides ls,
-                             const float* __restrict__ w,
-                             const float* __restrict__ z,
-                             const float* __restrict__ alpha,
-                             const float* __restrict__ sf2,
-                             const float* __restrict__ kmat,
-                             const float* __restrict__ e0, int n, int m,
-                             int q, float* __restrict__ dmu,
-                             float* __restrict__ ds, float* __restrict__ dal,
-                             double* __restrict__ tu) {
-  extern __shared__ float4 smem4[];
-  float* s_zb = reinterpret_cast<float*>(smem4);
-  float* s_g = s_zb + kGroup * kQChunk + threadIdx.x;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < n;  // every thread takes part in the staging
+// Warpgroups of a Psi2 pass past Q = 64, and the rows (cell pass) or
+// cells (row pass) the block walks a step: a 64-tile a warpgroup.
+constexpr int kTcChunkWg = 2;
+constexpr int kTcChunkWalk = kTcChunkWg * kTcRows;
 
-  double lsum = 0.0;  // over Q, in double as stage_lw's sums
-  if (live)
-    for (int k = 0; k < q; ++k) lsum += logf(2.f * alpha[k] * s[ls.at(row, k)] + 1.f);
-  const float lc = 2.f * logf(*sf2) - 0.5f * (float)lsum;
-  const float wn = live ? w[row] : 0.f;
-  double* tt = tu + row;
-  double* uu = tu + (size_t)q * n + row;
+// Shared memory of the Psi2 passes past Q = 64 (with qp dimensions'
+// totals): the operand chunks of the block's fixed 64 rows or cells and of
+// the walked 128, whose room holds, in the reductions, the walked tiles'
+// transposed operand chunks; the walked (or fixed) rows' constants and
+// weights, the cells' ce, kmat entries and (i, j), the rows' G, the
+// emulation's scratch, and the float64 totals of the fixed side (64 rows
+// of tc_tot_ld(qp)).
+__host__ __device__ constexpr size_t tc_bwd_chunked_smem(int qp) {
+  return tc_chunk_operand_bytes(kTcRows) + tc_chunk_operand_bytes(kTcChunkWalk) +
+         4 * tc_region(kTcChunkWalk * sizeof(float)) + tc_region(kTcChunkWalk * sizeof(int2)) +
+         tc_region(kTcRows * sizeof(double)) + tc_scratch_bytes(kTcChunkWg) +
+         tc_region((size_t)kTcRows * tc_tot_ld(qp) * sizeof(double));
+}
 
-  float gsum = 0.f;
-  for (int mi = 0; mi < m; ++mi) {
-    const float* krow = kmat + (size_t)mi * m;
-    const float* erow = e0 + (size_t)mi * m;
-    float gp = 0.f;
-    for (int mj0 = mi; mj0 < m; mj0 += kGroup) {
-      const int nc = min(kGroup, m - mj0);
-      for (int k0 = 0; k0 < q; k0 += kQChunk) {
-        __syncthreads();
-        stage_group(z, m, q, mi, mj0, k0, true, s_zb);
-        __syncthreads();
-        float mv[kQChunk], cc[kQChunk];
-        load_row_chunk(mu, s, ls, alpha, 2.f, q, row, live, k0, mv, cc);
-#pragma unroll 2
-        for (int c = 0; c < nc; ++c) {
-          const float4* zb = reinterpret_cast<const float4*>(s_zb + c * kQChunk);
-          float qd = k0 == 0 ? 0.f : s_g[c * kRowThreads];
-#pragma unroll
-          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
-            const float4 v = zb[k4];
-            const float d0 = v.x - mv[4 * k4], d1 = v.y - mv[4 * k4 + 1];
-            const float d2 = v.z - mv[4 * k4 + 2], d3 = v.w - mv[4 * k4 + 3];
-            qd = fmaf(cc[4 * k4] * d0, d0, qd);
-            qd = fmaf(cc[4 * k4 + 1] * d1, d1, qd);
-            qd = fmaf(cc[4 * k4 + 2] * d2, d2, qd);
-            qd = fmaf(cc[4 * k4 + 3] * d3, d3, qd);
-          }
-          s_g[c * kRowThreads] = qd;
-        }
-      }
-      for (int c = 0; c < nc; ++c) {
-        const int mj = mj0 + c;
-        const float g = __ldg(krow + mj) * wn *
-                        expf(lc + __ldg(erow + mj) - s_g[c * kRowThreads]);
-        s_g[c * kRowThreads] = g;
-        gp += g;
-      }
-      for (int k0 = 0; k0 < q; k0 += kQChunk) {
-        __syncthreads();
-        stage_group(z, m, q, mi, mj0, k0, true, s_zb);
-        __syncthreads();
-        float mv[kQChunk], cc[kQChunk], tp[kQChunk], up[kQChunk];
-        load_row_chunk(mu, s, ls, alpha, 2.f, q, row, live, k0, mv, cc);
-#pragma unroll
-        for (int k = 0; k < kQChunk; ++k) {
-          tp[k] = 0.f;
-          up[k] = 0.f;
-        }
-#pragma unroll 2
-        for (int c = 0; c < nc; ++c) {
-          const float4* zb = reinterpret_cast<const float4*>(s_zb + c * kQChunk);
-          const float g = s_g[c * kRowThreads];
-#pragma unroll
-          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
-            const float4 v = zb[k4];
-            const float dv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int k = 4 * k4 + j;
-              const float dd = dv[j] - mv[k];
-              const float gd = g * dd;
-              tp[k] += gd;
-              up[k] = fmaf(gd, dd, up[k]);
-            }
-          }
-        }
-        if (live) {
-#pragma unroll
-          for (int k = 0; k < kQChunk; ++k) {
-            if (k0 + k < q) {
-              tt[(size_t)(k0 + k) * n] += tp[k];
-              uu[(size_t)(k0 + k) * n] += up[k];
-            }
-          }
-        }
-      }
-    }
-    gsum += gp;
+// The carve of tc_bwd_chunked_smem. b2[t]: walked tile t's transposed
+// operand chunk (in the room of walk: kTcChunkWg of them, 2 kTcQChunk x 64
+// each, fill it).
+struct TcChunkSmem {
+  TcOperand fix, walk, b2[kTcChunkWg];
+  float *s_rc, *s_w, *s_ce, *s_k;
+  int2* s_ij;
+  double *s_g, *s_tot;
+  float* scratch;
+  __device__ TcChunkSmem(void* base, int qp) {
+    constexpr int kB2 = 2 * kTcQChunk * kTcRows;  // floats of a transposed chunk's hi (or lo)
+    static_assert(2 * kTcChunkWg * kB2 == 2 * kTcChunkWalk * kTcKChunk, "b2 fills walk");
+    TcCarve cv(base);
+    fix = tc_take_chunk(cv, kTcRows, kTcKChunk);
+    walk = tc_take_chunk(cv, kTcChunkWalk, kTcKChunk);
+    for (int u = 0; u < kTcChunkWg; ++u)
+      b2[u] = TcOperand{walk.hi + 2 * u * kB2, walk.hi + (2 * u + 1) * kB2};
+    s_rc = cv.take<float>(kTcChunkWalk * sizeof(float));
+    s_w = cv.take<float>(kTcChunkWalk * sizeof(float));
+    s_ce = cv.take<float>(kTcChunkWalk * sizeof(float));
+    s_k = cv.take<float>(kTcChunkWalk * sizeof(float));
+    s_ij = cv.take<int2>(kTcChunkWalk * sizeof(int2));
+    s_g = cv.take<double>(kTcRows * sizeof(double));
+    scratch = cv.take<float>(tc_scratch_bytes(kTcChunkWg)) +
+              threadIdx.x / kTcWarpgroup * kTcRows * kTcTileLd;
+    s_tot = cv.take<double>((size_t)kTcRows * tc_tot_ld(qp) * sizeof(double));
   }
+};
 
-  if (!live) return;
-  for (int k = 0; k < q; ++k) {
-    const size_t i = ls.at(row, k);
-    const float a = alpha[k];
-    const float den = 2.f * a * s[i] + 1.f;
-    const float c = a / den;
-    const float t = (float)tt[(size_t)k * n], u = (float)uu[(size_t)k * n];
-    dmu[i] = 2.f * c * t;
-    ds[i] = -c * gsum + 2.f * c * c * u;
-    dal[i] = -(s[i] / den) * gsum - u / (den * den);
-    tt[(size_t)k * n] = 0.0;
-    uu[(size_t)k * n] = 0.0;
+// Add a warpgroup's float32 tile sums into the block's float64 totals, the
+// warpgroups one after another (a fixed order; every thread calls it).
+template <typename F>
+__device__ inline void tc_in_turn(F add) {
+  for (int t = 0; t < kTcChunkWg; ++t) {
+    if (threadIdx.x / kTcWarpgroup == t) add();
+    __syncthreads();
+  }
+}
+
+// The exponent tile of one step of a chunked pass (A the fixed 64, B the
+// warpgroup's walked tile): K walked in chunks, each chunk's raw values
+// loaded while the last one is built and multiplied. load_*(k0) reads
+// chunk k0's raw values into registers; put_*(k0, op) writes them into an
+// operand.
+template <class LoadFix, class LoadWalk, class PutFix, class PutWalk>
+__device__ inline void tc_chunked_exponents(const TcChunkSmem& sm, int q, int tile,
+                                            LoadFix load_fix, LoadWalk load_walk, PutFix put_fix,
+                                            PutWalk put_walk, float (&d)[32]) {
+  load_fix(0);
+  load_walk(0);
+  for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+    __syncthreads();  // the operands' last readers are done
+    put_fix(k0, sm.fix);
+    put_walk(k0, sm.walk);
+    if (k0 + kTcQChunk < q) {  // the next chunk's loads, in flight over this one's products
+      load_fix(k0 + kTcQChunk);
+      load_walk(k0 + kTcQChunk);
+    }
+    tc_operands_ready();
+    tc_tile<kTcKChunk>(sm.fix.hi, sm.fix.lo, sm.walk.hi + tile * kTcKChunk,
+                       sm.walk.lo + tile * kTcKChunk, d, k0 > 0);
+  }
+}
+
+// The reductions of one step of a chunked pass over the dimensions [pq,
+// pe): per chunk of kTcQChunk, the warpgroup's tile a (split once) times
+// its walked tile's transposed operand chunk (in the walked operand's
+// room), added into the totals in turn. load(k0) reads chunk k0's raw
+// values; put(k0, b2) writes the walked tiles' transposed chunks into
+// b2[0 .. kTcChunkWg).
+template <class Load, class Put>
+__device__ inline void tc_chunked_reductions(const TcChunkSmem& sm, int pq, int pe, int qp,
+                                             TcRegA& a, Load load, Put put) {
+  constexpr int N2 = 2 * kTcQChunk;
+  const int wg = threadIdx.x / kTcWarpgroup;
+  load(pq);
+  for (int kd = pq; kd < pe; kd += kTcQChunk) {
+    __syncthreads();
+    put(kd, sm.b2);
+    if (kd + kTcQChunk < pe) load(kd + kTcQChunk);
+    tc_operands_ready();
+    float d2[N2 / 2];
+    tc_reduce_split<N2>(a, sm.b2[wg].hi, sm.b2[wg].lo, d2, sm.scratch);
+    tc_in_turn([&] { tc_add_chunk(d2, sm.s_tot, qp, kd - pq); });
+  }
+}
+
+// psi2_bwd_rows_tc_kernel for any Q > 64, with K in chunks: a block owns
+// 64 data rows (on the tiles' M axis; their constants, with the shift S,
+// summed once) and walks all packed cells 128 at a time, a tile of 64 for
+// each of its two warpgroups. Per step the exponents come from the tensor
+// cores over the K chunks (each chunk's operands built in shared memory,
+// the rows' once for both warpgroups), are turned in registers into
+// g = K w exp2(L2 + S) and, for each chunk of kTcQChunk dimensions,
+// multiplied by the warpgroup's cells' transposed [zb' | zb'^2] chunk
+// (tc_reduce): T1, T2 over the tile's cells, float32, added into the rows'
+// float64 totals in shared memory; G = sum g by warp shuffles over the
+// tile, into float64. Past kTcPassChunks chunks the dimensions are taken in
+// passes of qp (the exponents recomputed each pass). At the end of a pass
+// thread (row, quarter of the pass's dimensions) scales the totals by 2^-S
+// and writes dmu = 2 c t, ds = -c G + 2 c^2 u and the row's share of dalpha
+// (t = T1 - mu' G, u = T2 - 2 mu' T1 + mu'^2 G, in float64), as
+// psi2_bwd_rows_tc_kernel does. No float32 sum spans more than a 64-cell
+// tile.
+__global__ void __launch_bounds__(kTcChunkWg * kTcWarpgroup)
+psi2_bwd_rows_tc_chunked_kernel(const float* __restrict__ mu, const float* __restrict__ s,
+                                Strides ls, const float* __restrict__ w,
+                                const float* __restrict__ z, const float* __restrict__ alpha,
+                                const float* __restrict__ sf2, const float* __restrict__ zeta,
+                                const int2* __restrict__ cells, const float* __restrict__ ce,
+                                const float* __restrict__ shift, const float* __restrict__ kmat,
+                                int n, int m, int q, int qp, float* __restrict__ dmu,
+                                float* __restrict__ ds, float* __restrict__ dal) {
+  constexpr int NT = kTcChunkWg * kTcWarpgroup;
+  extern __shared__ float4 smem4[];
+  const TcChunkSmem sm(smem4, qp);
+  const int tile = threadIdx.x / kTcWarpgroup * kTcRows;
+  const int n0 = blockIdx.x * kTcRows;
+  const float sh = *shift;
+  TcRowChunk<kTcRows, NT> rows;
+  TcCellChunk<kTcChunkWalk, NT> cch;
+  {
+    TcRowConst rc;
+    for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+      rows.load(mu, s, ls, alpha, zeta, q, n0, n, k0);
+      rows.put(q, n0, n, k0, nullptr, nullptr, &rc);
+    }
+    tc_finish_rows<kTcRows>(rc, w, logf(*sf2), sh, n0, n, sm.s_rc, sm.s_w);
+  }
+  for (int r = threadIdx.x; r < kTcRows; r += blockDim.x) sm.s_g[r] = 0.0;
+
+  const double unshift = ldexp(1.0, -(int)sh);
+  const int ncell = tri_cells(m);
+  for (int pq = 0; pq < q; pq += qp) {
+    const int pe = min(q, pq + qp);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTcRows * tc_tot_ld(qp); i += blockDim.x) sm.s_tot[i] = 0.0;
+    for (int p0 = 0; p0 < ncell; p0 += kTcChunkWalk) {
+      __syncthreads();
+      tc_stage_cells<kTcChunkWalk>(cells, ce, kmat, m, p0, sm.s_ij, sm.s_ce, sm.s_k);
+      __syncthreads();
+      float d[32];
+      tc_chunked_exponents(
+          sm, q, tile, [&](int k0) { rows.load(mu, s, ls, alpha, zeta, q, n0, n, k0); },
+          [&](int k0) { cch.load(z, zeta, sm.s_ij, q, k0); },
+          [&](int k0, const TcOperand& op) { rows.put(q, n0, n, k0, &op, nullptr, nullptr); },
+          [&](int, const TcOperand& op) { cch.put(&op, nullptr); }, d);
+      float gp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int rr = tc_m(i), c = tile + tc_n(i);
+        d[i] = sm.s_k[c] * (sm.s_w[rr] * tc_exp2((d[i] + sm.s_rc[rr]) + sm.s_ce[c]));
+        gp[(i >> 1) & 1] += d[i];
+      }
+      if (pq == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          gp[h] += __shfl_xor_sync(0xffffffffu, gp[h], 1);
+          gp[h] += __shfl_xor_sync(0xffffffffu, gp[h], 2);
+        }
+        tc_in_turn([&] {
+          if ((threadIdx.x & 3) != 0) return;
+          sm.s_g[tc_m(0)] += (double)gp[0];
+          sm.s_g[tc_m(2)] += (double)gp[1];
+        });
+      }
+      TcRegA a;
+      a.set(d, sm.scratch);
+      tc_chunked_reductions(
+          sm, pq, pe, qp, a, [&](int k0) { cch.load(z, zeta, sm.s_ij, q, k0); },
+          [&](int, const TcOperand* b2) { cch.put(nullptr, b2); });
+    }
+
+    // the pass's dimensions: thread (row, quarter) writes
+    __syncthreads();
+    const int r = threadIdx.x % kTcRows, row = n0 + r;
+    if (row >= n) continue;
+    const double g = sm.s_g[r] * unshift;
+    const float gs = (float)g;
+    const double* t_r = sm.s_tot + (size_t)r * tc_tot_ld(qp);
+    for (int kk = pq + threadIdx.x / kTcRows; kk < pe; kk += blockDim.x / kTcRows) {
+      const size_t i = ls.at(row, kk);
+      const double t1 = t_r[kk - pq] * unshift, t2 = t_r[qp + kk - pq] * unshift;
+      const double mv = (double)(mu[i] - zeta[kk]);
+      const float t = (float)(t1 - mv * g);
+      const float u = (float)(t2 - 2.0 * mv * t1 + mv * mv * g);
+      const float a = alpha[kk];
+      const float den = 2.f * a * s[i] + 1.f;
+      const float c = a / den;
+      dmu[i] = 2.f * c * t;
+      ds[i] = -c * gs + 2.f * c * c * u;
+      dal[i] = -(s[i] / den) * gs - u / (den * den);
+    }
   }
 }
 
 // psi1_bwd_rows_kernel for any Q: the inducing points in groups of kGroup,
-// each walked over the dimension chunks twice as in
-// psi2_bwd_rows_chunked_kernel, with the same float64 totals tu.
+// each walked over the dimension chunks of kQChunk twice, first to sum
+// each point's exponent (in the thread's own column of shared memory)
+// before expf, then for the per-dimension sums t_q, u_q of the group, which
+// it adds into the row's float64 totals tu[0][q][n], tu[1][q][n] (the
+// caller zero-fills them).
 __global__ void __launch_bounds__(kRowThreads)
 psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
                              const float* __restrict__ s, Strides ls,
@@ -663,7 +759,7 @@ psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
       const int nc = min(kGroup, m - m0);
       for (int k0 = 0; k0 < q; k0 += kQChunk) {
         __syncthreads();
-        stage_group(z, m, q, 0, m0, k0, false, s_z);
+        stage_group(z, m, q, m0, k0, s_z);
         __syncthreads();
         float mv[kQChunk], cc[kQChunk];
         load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
@@ -702,7 +798,7 @@ psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
       }
       for (int k0 = 0; k0 < q; k0 += kQChunk) {
         __syncthreads();
-        stage_group(z, m, q, 0, m0, k0, false, s_z);
+        stage_group(z, m, q, m0, k0, s_z);
         __syncthreads();
         float mv[kQChunk], cc[kQChunk], tp[kQChunk], up[kQChunk];
         load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
@@ -760,118 +856,85 @@ psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
   }
 }
 
-// Shared memory of the chunked cell pass: a staged chunk of kRowsPsi2 rows
-// and the exponents of those rows for each thread's cell, in the thread's
-// own column.
-constexpr size_t kCellChunkSmem =
-    smem_rows_chunk(kRowsPsi2, 0) + (size_t)kRowsPsi2 * kCellTile * kCellTile * sizeof(float);
-
-// psi2_bwd_cells_kernel for any Q: per staged chunk of kRowsPsi2 rows the
-// cell's exponents are summed over the dimension chunks (in the thread's
-// column of shared memory), then the chunks are walked again and each
-// chunk's centred sums A_q over those rows are added into the cell's
-// float64 partial.
-__global__ void __launch_bounds__(kCellTile * kCellTile)
-psi2_bwd_cells_chunked_kernel(const float* __restrict__ mu,
-                              const float* __restrict__ s, Strides ls,
-                              const float* __restrict__ w,
-                              const float* __restrict__ z,
-                              const float* __restrict__ alpha,
-                              const float* __restrict__ sf2, int n, int m,
-                              int q, int rows_per_split, int ntile,
-                              double* __restrict__ out) {
-  constexpr int kThreads = kCellTile * kCellTile;
+// psi2_bwd_cells_tc_kernel for any Q > 64, with K in chunks: per block of
+// 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
+// (mu'_nq - zb'_q), centred on the cell. The split's rows are walked 128
+// at a time, a tile of 64 for each of the two warpgroups; per step the
+// exponents come from the tensor cores over the K chunks (the cells'
+// operand chunk built once for both warpgroups; the rows' constants, with
+// the shift S, summed over the chunks by the threads that build them), are
+// turned in registers into ev = w exp2(L2 + S) (0 past the last cell) and,
+// for each chunk of kTcQChunk dimensions, multiplied by the warpgroup's
+// rows' transposed [c mu' | c] chunk (tc_reduce): S1, S2 over the tile's
+// rows, float32, added into the cells' float64 totals in shared memory.
+// Past kTcPassChunks chunks the dimensions are taken in passes of qp. At
+// the end of a pass the split's float64 (Q, M, M) partial gets A = (S1 -
+// zb' S2) 2^-S, both triangles.
+__global__ void __launch_bounds__(kTcChunkWg * kTcWarpgroup)
+psi2_bwd_cells_tc_chunked_kernel(const float* __restrict__ mu, const float* __restrict__ s,
+                                 Strides ls, const float* __restrict__ w,
+                                 const float* __restrict__ z, const float* __restrict__ alpha,
+                                 const float* __restrict__ sf2, const float* __restrict__ zeta,
+                                 const int2* __restrict__ cells, const float* __restrict__ ce,
+                                 const float* __restrict__ shift, int n, int m, int q, int qp,
+                                 int rows_per_split, double* __restrict__ out) {
+  constexpr int NT = kTcChunkWg * kTcWarpgroup;
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi2 * kQChunk;
-  float* s_ev = reinterpret_cast<float*>(s_lw + kRowsPsi2) + threadIdx.x;
-
-  int ti, tj;
-  upper_tile(blockIdx.x, ntile, &ti, &tj);
-  const int mi = ti * kCellTile + threadIdx.x / kCellTile;
-  const int mj = tj * kCellTile + threadIdx.x % kCellTile;
-  const bool own = mi < m && mj < m;
-  const float* zi = z + (size_t)(own ? mi : 0) * q;
-  const float* zj = z + (size_t)(own ? mj : 0) * q;
-  double e = 0.0;  // over Q, in double as stage_lw's sums
-  for (int k = 0; k < q; ++k) {
-    const float dz = zi[k] - zj[k];
-    e += alpha[k] * dz * dz;
-  }
-  const float e0 = (float)(-0.25 * e);
-
-  // out: (splits, q, M, M), as psi2_bwd_cells_kernel's
-  const size_t mm = (size_t)m * m;
-  double* o = out + (size_t)blockIdx.y * q * mm + (own ? (size_t)mi * m + mj : 0);
-  if (own)
-    for (int k = 0; k < q; ++k) o[k * mm] = 0.0;
-
-  const float logsf2 = logf(*sf2);
+  const TcChunkSmem sm(smem4, qp);
+  const int tile = threadIdx.x / kTcWarpgroup * kTcRows;
+  tc_stage_cells<kTcRows>(cells, ce, nullptr, m, blockIdx.x * kTcRows, sm.s_ij, sm.s_ce,
+                          nullptr);
+  __syncthreads();
+  TcRowChunk<kTcChunkWalk, NT> rows;
+  TcCellChunk<kTcRows, NT> cch;
+  const float logsf2 = logf(*sf2), sh = *shift;
+  const double unshift = ldexp(1.0, -(int)sh);
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
-    const int nr = min(kRowsPsi2, hi - n0);
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
+  const size_t mm = (size_t)m * m;
+  double* o = out + (size_t)blockIdx.y * q * mm;
+  for (int pq = 0; pq < q; pq += qp) {
+    const int pe = min(q, pq + qp);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTcRows * tc_tot_ld(qp); i += blockDim.x) sm.s_tot[i] = 0.0;
+    for (int n0 = lo; n0 < hi; n0 += kTcChunkWalk) {
+      TcRowConst rc;
+      float d[32];
+      tc_chunked_exponents(
+          sm, q, tile, [&](int k0) { cch.load(z, zeta, sm.s_ij, q, k0); },
+          [&](int k0) { rows.load(mu, s, ls, alpha, zeta, q, n0, hi, k0); },
+          [&](int, const TcOperand& op) { cch.put(&op, nullptr); },
+          [&](int k0, const TcOperand& op) { rows.put(q, n0, hi, k0, &op, nullptr, &rc); }, d);
+      tc_finish_rows<kTcChunkWalk>(rc, w, logsf2, sh, n0, hi, sm.s_rc, sm.s_w);
       __syncthreads();
-      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
-      if (k0 == 0)
-        stage_lw<kRowsPsi2, double>(s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0, hi, s_lw);
-      float zb[kQChunk];
 #pragma unroll
-      for (int k = 0; k < kQChunk; ++k)
-        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < nr; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-        float qd = k0 == 0 ? 0.f : s_ev[r * kThreads];
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];
-          const float t0 = zb[2 * k2] - v.x;
-          const float t1 = zb[2 * k2 + 1] - v.z;
-          qd = fmaf(v.y * t0, t0, qd);
-          qd = fmaf(v.w * t1, t1, qd);
-        }
-        s_ev[r * kThreads] = qd;
+      for (int i = 0; i < 32; ++i) {
+        const int c = tc_m(i), r = tile + tc_n(i);
+        d[i] = sm.s_ij[c].x >= 0
+                   ? sm.s_w[r] * tc_exp2((d[i] + sm.s_rc[r]) + sm.s_ce[c])
+                   : 0.f;
       }
+      TcRegA a;
+      a.set(d, sm.scratch);
+      tc_chunked_reductions(
+          sm, pq, pe, qp, a, [&](int k0) { rows.load(mu, s, ls, alpha, zeta, q, n0, hi, k0); },
+          [&](int k0, const TcOperand* b2) { rows.put(q, n0, hi, k0, nullptr, b2, nullptr); });
     }
-    for (int r = 0; r < nr; ++r) {
-      const float2 lw = s_lw[r];
-      s_ev[r * kThreads] = lw.y * expf(lw.x + e0 - s_ev[r * kThreads]);
-    }
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
-      __syncthreads();
-      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
-      float zb[kQChunk], acc[kQChunk];
-#pragma unroll
-      for (int k = 0; k < kQChunk; ++k) {
-        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
-        acc[k] = 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int r = 0; r < nr; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-        const float ev = s_ev[r * kThreads];
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];
-          acc[2 * k2] = fmaf(ev * v.y, v.x - zb[2 * k2], acc[2 * k2]);
-          acc[2 * k2 + 1] = fmaf(ev * v.w, v.z - zb[2 * k2 + 1], acc[2 * k2 + 1]);
-        }
-      }
-      if (own) {
-#pragma unroll
-        for (int k = 0; k < kQChunk; ++k)
-          if (k0 + k < q) o[(k0 + k) * mm] += acc[k];
-      }
-    }
-  }
 
-  if (own && ti != tj) {
-    double* lower = o - ((size_t)mi * m + mj) + (size_t)mj * m + mi;
-    for (int k = 0; k < q; ++k) lower[k * mm] = o[k * mm];
+    // the pass's dimensions of the split's partial, each (cell, dimension)
+    // written by one thread
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kTcRows * (pe - pq); idx += blockDim.x) {
+      const int c = idx % kTcRows, kk = pq + idx / kTcRows;
+      const int2 ij = sm.s_ij[c];
+      if (ij.x < 0) continue;
+      const double* t_c = sm.s_tot + (size_t)c * tc_tot_ld(qp);
+      const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
+                               (z[(size_t)ij.y * q + kk] - zeta[kk]));
+      const double a = (t_c[kk - pq] - (double)zb * t_c[qp + kk - pq]) * unshift;
+      o[kk * mm + (size_t)ij.x * m + ij.y] = a;
+      if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
+    }
   }
 }
 
@@ -994,9 +1057,8 @@ template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, const float* kmat,
-               const float* /* e0: the chunked kernels' only */,
-               const float* r1, int n, int m, int q, int d, int qn,
+               const float* ce, const float* /* shift: the Q > 64 kernels' */,
+               const float* kmat, const float* r1, int n, int m, int q, int d, int qn,
                int splits_c, int splits_m, float* dmu, float* ds, float* dal,
                float* dy, double* a_part, double* b_part,
                double* /* row scratch: the chunked kernels' only */,
@@ -1044,37 +1106,40 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   return (int)cudaSuccess;
 }
 
-// launch_bwd for Q > 64: the chunked kernels, the same grids and partials,
-// and the float64 row totals tu (2, Q, N), zero-filled by the caller.
+// launch_bwd for Q > 64: the K-chunked tensor-core Psi2 passes and the
+// chunked Psi1 passes, the same grids and partials, and the float64 totals
+// tu (2, Q, N) of psi1_bwd_rows_chunked_kernel, zero-filled by the caller.
 inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
-                              const float* /* zeta, cells, ce: the Q <= 64 */,
-                              const int* /* kernels' only */, const float*,
-                              const float* kmat, const float* e0,
+                              const float* zeta, const int* cells, const float* ce,
+                              const float* shift, const float* kmat,
                               const float* r1, int n, int m, int q, int d,
                               int qn, int splits_c, int splits_m, float* dmu,
                               float* ds, float* dal, float* dy,
                               double* a_part, double* b_part, double* tu,
                               cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
-  const int nblk = (n + kRowThreads - 1) / kRowThreads;
-  psi2_bwd_rows_chunked_kernel<<<nblk, kRowThreads, kRowGroupSmem, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, kmat, e0, n, m, q, dmu, ds, dal, tu);
-  cudaError_t err = cudaGetLastError();
+  const int2* cells2 = reinterpret_cast<const int2*>(cells);
+  const int qp = tc_pass_dims(q);
+  const size_t smem_tc = tc_bwd_chunked_smem(qp);
+  cudaError_t err = allow_smem(psi2_bwd_rows_tc_chunked_kernel, smem_tc);
   if (err != cudaSuccess) return (int)err;
+  psi2_bwd_rows_tc_chunked_kernel<<<(n + kTcRows - 1) / kTcRows, kTcChunkWg * kTcWarpgroup,
+                                    smem_tc, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, kmat, n, m, q, qp, dmu, ds, dal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int nblk = (n + kRowThreads - 1) / kRowThreads;
   psi1_bwd_rows_chunked_kernel<<<nblk, kRowThreads, kRowGroupSmem, stream>>>(
       mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy, tu);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int ntile = (m + kCellTile - 1) / kCellTile;
-  dim3 grid_c(ntile * (ntile + 1) / 2, splits_c);
-  err = allow_smem(psi2_bwd_cells_chunked_kernel, kCellChunkSmem);
+  err = allow_smem(psi2_bwd_cells_tc_chunked_kernel, smem_tc);
   if (err != cudaSuccess) return (int)err;
-  psi2_bwd_cells_chunked_kernel<<<grid_c, kCellTile * kCellTile,
-                                  kCellChunkSmem, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, n, m, q, (n + splits_c - 1) / splits_c,
-      ntile, a_part);
+  dim3 grid_c(tc_blocks(m, kTcRows), splits_c);
+  psi2_bwd_cells_tc_chunked_kernel<<<grid_c, kTcChunkWg * kTcWarpgroup, smem_tc, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q, qp,
+      (n + splits_c - 1) / splits_c, a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem_m = psi1_m_chunk_smem(d);
@@ -1095,30 +1160,30 @@ inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
 
 // Launch plan of gparml_psi_bwd: plan = (splits_c, splits_m, the largest
 // dynamic shared memory of its blocks in bytes, the device's limit for it,
-// the float64 scratch gparml_psi_bwd takes per data row: 2 Q for the
-// chunked kernels, else 0). Each grid's float64 partials take at most
+// the float64 scratch gparml_psi_bwd takes per data row: 2 Q past Q = 64,
+// the chunked Psi1 row pass's totals, else 0). Each grid's float64 partials take at most
 // partial_bytes.
 extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  const int tiles = qm == 0 ? tri_tiles(m, kCellTile) : tc_blocks(m, tc_cell_cells(qm));
+  const int tiles = tc_blocks(m, qm == 0 ? kTcRows : tc_cell_cells(qm));
   plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kCellRowsMax, num_sms),
                        (size_t)q * m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)q * m * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(
-      qm == 0 ? std::max({kRowGroupSmem, kCellChunkSmem, psi1_m_chunk_smem(d)})
+      qm == 0 ? std::max({kRowGroupSmem, tc_bwd_chunked_smem(tc_pass_dims(q)),
+                          psi1_m_chunk_smem(d)})
               : std::max({smem_z(m, qm), tc_rows_smem(qm), tc_cells_smem(qm),
                           smem_rows_psi1(qm, d)}));
   plan[4] = qm == 0 ? 2 * q : 0;
   return (int)smem_limit(plan);
 }
 
-// zeta (Q), cells and ce: as gparml_psi_fwd's; kmat: (M, M) = mult * sym(dPsi2)
-// (upper triangle read); e0: (M, M) (read past Q = 64 only);
-// r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
+// zeta (Q), cells, ce and shift: as gparml_psi_fwd's; kmat: (M, M) = mult *
+// sym(dPsi2) (upper triangle read); r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
 // qn = 1: (Q, N) and (D, N). Writes dmu, ds, dal, dy and the float64
 // a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). row_scratch: the
 // plan's float64 scratch (plan[4] per data row, zero-filled; unused when
@@ -1127,14 +1192,14 @@ extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells,
-                              const float* ce, const float* kmat,
-                              const float* e0, const float* r1, int n, int m,
+                              const float* ce, const float* shift, const float* kmat,
+                              const float* r1, int n, int m,
                               int q, int d, int qn, int splits_c, int splits_m,
                               float* dmu, float* ds, float* dal, float* dy,
                               double* a_part, double* b_part,
                               double* row_scratch, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_bwd, gparml::launch_bwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, zeta, cells, ce, kmat, e0, r1, n, m, q, d, qn,
+                   y, w, z, alpha, sf2, zeta, cells, ce, shift, kmat, r1, n, m, q, d, qn,
                    splits_c, splits_m, dmu, ds, dal, dy, a_part, b_part,
                    row_scratch, static_cast<cudaStream_t>(stream));
 }

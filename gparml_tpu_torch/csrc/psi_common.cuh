@@ -10,19 +10,21 @@
 //                l1_n = log sf2 - 1/2 sum_q log den1
 //                log Psi1[n, m] = l1_n - 1/2 sum_q c1_nq (mu_nq - z_mq)^2
 // Everything is float32 (accurate expf/logf: the build does not use fast
-// math). The Psi1 kernels and the chunked kernels form each exponent in the
-// direct-difference form on the CUDA cores; the Q <= 64 Psi2 kernels form
-// theirs as an expanded product on the tensor cores (psi_tc.cuh).
+// math). The Psi1 kernels form each exponent in the direct-difference form
+// on the CUDA cores; the Psi2 kernels form theirs as an expanded product on
+// the tensor cores (psi_tc.cuh).
 //
 // Up to Q = 64 the latent width is a template bucket QM >= Q (2, 4, 10, 16,
 // 32, 64) so per-thread vectors live in registers; entries q >= Q are zero
 // (c = 0, mu = 0, z = 0) and contribute exactly nothing. Past Q = 64 the
-// chunked kernels take any Q: they walk the latent dimensions in chunks of
-// kQChunk staged in shared memory, sum each exponent over the chunks (in
-// the thread's own column of shared memory, or registers) before expf,
-// and (backward) walk the chunks a second time for the per-dimension sums,
-// so registers, shared memory and the M limit do not grow with Q. Each bucket, and the chunked kernels, have parity cases
-// on the card (chip_smoke.py PARITY_CASES).
+// chunked kernels take any Q: the Psi1 ones walk the latent dimensions in
+// chunks of kQChunk staged in shared memory, sum each exponent over the
+// chunks (in the thread's own column of shared memory, or registers)
+// before expf, and (backward) walk the chunks a second time for the
+// per-dimension sums; the Psi2 ones walk K in chunks of kTcQChunk
+// dimensions on the tensor cores (psi_tc.cuh). Registers, shared memory
+// and the M limit do not grow with Q. Each bucket, and the chunked
+// kernels, have parity cases on the card (chip_smoke.py PARITY_CASES).
 //
 // Launch geometry (tile sizes, N-splits, shared memory) is decided here and
 // in the launchers only; the Python wrapper asks for it through the
@@ -45,8 +47,7 @@
 
 namespace gparml {
 
-// Rows of (mu, c) staged per shared-memory chunk by the chunked cell-major
-// kernels (and the rows a Psi2 N-split is counted in).
+// The rows a Psi2 N-split is counted in.
 constexpr int kRowsPsi2 = 64;
 // Rows per chunk in the inducing-point-major Psi1 kernels (per-thread
 // register arrays of this length).
@@ -56,9 +57,9 @@ constexpr int kRowsPsi1 = 32;
 // into a Psi1^T Y partial row, a running sum of 2048 rows in the backward's.
 constexpr int kPsi1RowsMax = 64 * kRowsPsi1;
 
-// Latent dimensions per chunk of the chunked kernels (Q > 64), and the
-// cells (inducing points) whose exponents a row-pass thread of those
-// kernels holds between its two walks over the chunks.
+// Latent dimensions per chunk of the chunked Psi1 kernels (Q > 64), and the
+// inducing points whose exponents a row-pass thread of those kernels holds
+// between its two walks over the chunks.
 constexpr int kQChunk = 16;
 constexpr int kGroup = 64;
 
@@ -82,8 +83,8 @@ constexpr size_t smem_rows_psi1(int qm, int d) {
 constexpr size_t smem_z(int m, int qm) {
   return (size_t)m * qm * sizeof(float);
 }
-// The chunked kernels' staging: nb rows of one chunk of (mu, c) and of
-// (lc, w), plus nb rows of Y (d = 0 without).
+// The chunked Psi1 kernels' staging: nb rows of one chunk of (mu, c) and of
+// (lc, w), plus nb rows of Y.
 constexpr size_t smem_rows_chunk(int nb, int d) {
   return (size_t)nb * (kQChunk + 1) * sizeof(float2) +
          (size_t)nb * d * sizeof(float);
@@ -114,12 +115,6 @@ inline int n_splits(int n, int blocks_per_split, int rows_min, int rows_max,
 inline int cap_splits(int splits, size_t bytes_per_split, size_t budget) {
   const size_t cap = budget / bytes_per_split;
   return std::max(1, (int)std::min((size_t)splits, cap));
-}
-
-// Upper-triangle tiles of an m x m matrix in tile x tile blocks.
-inline int tri_tiles(int m, int tile) {
-  const int nt = (m + tile - 1) / tile;
-  return nt * (nt + 1) / 2;
 }
 
 // plan[3] = the current device's opt-in shared memory per block (bytes).
@@ -160,7 +155,7 @@ __device__ inline void stage_index(int i, int width, bool by_row, int* r,
 }
 
 // Stage (lc_n, w_n) of rows [n0, min(n0 + NB, hi)) as s_lw[r] (w = 0 past
-// hi); lc sums log den over all q in Acc. The chunked kernels (Q > 64) sum
+// hi); lc sums log den over all q in Acc. The chunked Psi1 kernels sum
 // in double: at their init (s = 0.5, alpha = 1) the Q terms are equal, and
 // one float32 running sum of 100 of them put every output 2.8e-5 off.
 template <int NB, typename Acc = float>
@@ -210,7 +205,7 @@ __device__ inline void stage_rows(const float* __restrict__ mu,
   stage_lw<NB>(s, ls, w, alpha, logsf2, kden, ksf, q, n0, hi, s_lw);
 }
 
-// The chunked kernels' staging: (mu, c) of rows [n0, min(n0 + NB, hi)) and
+// The chunked Psi1 kernels' staging: (mu, c) of rows [n0, min(n0 + NB, hi)) and
 // latent dimensions [k0, k0 + kQChunk) as s_mc[r * kQChunk + k], zero for
 // k0 + k >= q and rows >= hi.
 template <int NB>
@@ -255,21 +250,14 @@ __device__ inline void load_row_chunk(const float* __restrict__ mu,
   }
 }
 
-// Stage latent dimensions [k0, k0 + kQChunk) of the kGroup cells (mi, mj0 +
-// c) as their midpoints 0.5 (z_mi + z_mj) (half = true), or of the inducing
-// points mj0 + c as z_mj (half = false), into s_z[c * kQChunk + k]; zero
-// for mj0 + c >= m or k0 + k >= q.
-__device__ inline void stage_group(const float* __restrict__ z, int m, int q,
-                                   int mi, int mj0, int k0, bool half,
+// Stage latent dimensions [k0, k0 + kQChunk) of the kGroup inducing points
+// m0 + c as z_m into s_z[c * kQChunk + k]; zero for m0 + c >= m or k0 + k
+// >= q.
+__device__ inline void stage_group(const float* __restrict__ z, int m, int q, int m0, int k0,
                                    float* s_z) {
   for (int i = threadIdx.x; i < kGroup * kQChunk; i += blockDim.x) {
-    const int mj = mj0 + i / kQChunk, kk = k0 + i % kQChunk;
-    float v = 0.f;
-    if (mj < m && kk < q) {
-      const float zj = z[(size_t)mj * q + kk];
-      v = half ? 0.5f * (z[(size_t)mi * q + kk] + zj) : zj;
-    }
-    s_z[i] = v;
+    const int mj = m0 + i / kQChunk, kk = k0 + i % kQChunk;
+    s_z[i] = mj < m && kk < q ? z[(size_t)mj * q + kk] : 0.f;
   }
 }
 
@@ -285,18 +273,6 @@ __device__ inline void stage_y(const float* __restrict__ y, Strides ys,
     const int nn = n0 + r;
     s_y[r * d + j] = nn < hi ? y[ys.at(nn, j)] : 0.f;
   }
-}
-
-// Upper-triangle tile (ti <= tj) of linear index t among nt x nt tiles.
-__device__ inline void upper_tile(int t, int nt, int* ti, int* tj) {
-  int i = 0, rem = nt;
-  while (t >= rem) {
-    t -= rem;
-    ++i;
-    --rem;
-  }
-  *ti = i;
-  *tj = i + t;
 }
 
 // Copy Z (m, q) into shared memory as (m, QM), zero-padded.

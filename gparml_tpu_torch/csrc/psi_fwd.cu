@@ -24,22 +24,26 @@
 //    w_n Psi1[n, m] in registers and adds their products with the staged
 //    Y rows into its split's (M, D) float64 partial row.
 //
-// Past Q = 64 (any Q) the chunked twins psi2_fwd_chunked_kernel and
+// Past Q = 64 (any Q) psi2_fwd_tc_chunked_kernel and
 // psi1y_fwd_chunked_kernel replace the TPU's `_fwd_kernel` (:225, launched
-// by `_call_fwd`, which took the shapes outside the flat window) there: a
-// thread holds the exponents of a staged chunk of rows (in its own column
-// of shared memory, or in registers for Psi1), adds each chunk of kQChunk
-// latent dimensions into them (staged in shared memory, Z's chunk in
-// registers), and applies expf once all are in. The
-// Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128, and
-// 512 < M <= 640) as they take the flat window.
+// by `_call_fwd`, which took the shapes outside the flat window) there. The
+// Psi2 kernel is psi2_fwd_tc_kernel with K walked in chunks of kTcQChunk
+// latent dimensions (psi_tc.cuh): each chunk's operands are built in shared
+// memory and added into the same tensor-core accumulators, and an exact
+// shift 2^S in the row constants keeps exp2 clear of float32's subnormal
+// range. psi1y_fwd_chunked_kernel sums a staged chunk of rows' exponents
+// over the dimension chunks in registers and applies expf once all are in.
+// The Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128,
+// and 512 < M <= 640) as they take the flat window.
 //
 // What bounds it on an H100: operations, not bytes. The Psi2 kernel is
 // bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
 // rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row operand's
 // build, shared by the block's 256 cells; its epilogue costs two float32
 // adds and an FMA a pair, and the rows come from device memory once per
-// cell block (cp.async, one tile ahead). psi1y_fwd_kernel (N M pairs)
+// cell block (cp.async, one tile ahead); past Q = 64 the rows' and the
+// 128 cells' operands are rebuilt chunk by chunk for every row tile, the
+// rows read from device memory (L1, L2) once per cell block. psi1y_fwd_kernel (N M pairs)
 // keeps the direct form on the CUDA cores: ~3 FMA-pipe operations per
 // latent dimension plus one expf, with the operands in registers and the
 // rows from shared memory as warp-wide broadcasts.
@@ -222,93 +226,98 @@ psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
   }
 }
 
-// Tile edge of psi2_fwd_chunked_kernel (one cell a thread), and its
-// shared memory: a staged chunk of kRowsPsi2 rows and the exponents of
-// those rows for each thread's cell, in the thread's own column.
-constexpr int kChunkTile = 16;
-constexpr size_t kFwdChunkSmem =
-    smem_rows_chunk(kRowsPsi2, 0) + (size_t)kRowsPsi2 * kChunkTile * kChunkTile * sizeof(float);
+// Cells of one block of psi2_fwd_tc_chunked_kernel (two warpgroups, a
+// tile of 64 cells each), and its shared memory: the cells' and the rows'
+// operand chunks, the cells' terms and the rows' constants and weights.
+constexpr int kTcChunkFwdCells = 2 * kTcRows;
+__host__ __device__ constexpr size_t tc_fwd_chunked_smem() {
+  return tc_chunk_operand_bytes(kTcChunkFwdCells) + tc_chunk_operand_bytes(kTcRows) +
+         tc_region(kTcChunkFwdCells * sizeof(float)) + tc_region(kTcChunkFwdCells * sizeof(int2)) +
+         2 * tc_region(kTcRows * sizeof(float));
+}
 
-// psi2_fwd_kernel for any Q: the same grid, partials and flushes, with one
-// cell a thread and the latent dimensions in chunks of kQChunk.
-__global__ void __launch_bounds__(kChunkTile * kChunkTile)
-psi2_fwd_chunked_kernel(const float* __restrict__ mu,
-                        const float* __restrict__ s, Strides ls,
-                        const float* __restrict__ w,
-                        const float* __restrict__ z,
-                        const float* __restrict__ alpha,
-                        const float* __restrict__ sf2, int n_begin, int n,
-                        int m, int q, int rows_per_split, int ntile,
-                        double* __restrict__ out) {
-  constexpr int kThreads = kChunkTile * kChunkTile;
+// psi2_fwd_tc_kernel for any Q > 64, with K in chunks: the same grid (128
+// packed cells a block, on the tiles' M axis), partials and relaunches.
+// Per 64-row tile of the split, each chunk of kTcQChunk latent dimensions
+// is built into shared memory for the rows and the block's cells and
+// multiplied into the warpgroups' accumulators (tc_tile, accumulating over
+// the chunks), each chunk's raw values loaded while the last one is built
+// and multiplied. The rows' constants (with the shift S) are summed over
+// the chunks by the threads that build them. The epilogue adds
+// w exp2(L2 + S) over the tile's rows into float32 tile sums, then float64
+// registers; at the end the four threads of a cell add theirs and one
+// writes the split's partial times 2^-S, both triangles.
+__global__ void __launch_bounds__(2 * kTcWarpgroup)
+psi2_fwd_tc_chunked_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                           const float* __restrict__ w, const float* __restrict__ z,
+                           const float* __restrict__ alpha, const float* __restrict__ sf2,
+                           const float* __restrict__ zeta, const int2* __restrict__ cells,
+                           const float* __restrict__ ce, const float* __restrict__ shift,
+                           int n_begin, int n, int m, int q, int rows_per_split,
+                           double* __restrict__ out) {
+  constexpr int NC = kTcChunkFwdCells, KC = kTcKChunk, NT = 2 * kTcWarpgroup;
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi2 * kQChunk;
-  float* s_qd = reinterpret_cast<float*>(s_lw + kRowsPsi2) + threadIdx.x;
+  TcCarve cv(smem4);
+  const TcOperand cop = tc_take_chunk(cv, NC, KC);
+  const TcOperand rop = tc_take_chunk(cv, kTcRows, KC);
+  float* s_ce = cv.take<float>(NC * sizeof(float));
+  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  float* s_w = cv.take<float>(kTcRows * sizeof(float));
 
-  int ti, tj;
-  upper_tile(blockIdx.x, ntile, &ti, &tj);
-  const int mi = ti * kChunkTile + threadIdx.x / kChunkTile;
-  const int mj = tj * kChunkTile + threadIdx.x % kChunkTile;
-  const bool own = mi < m && mj < m;
-  const float* zi = z + (size_t)(own ? mi : 0) * q;
-  const float* zj = z + (size_t)(own ? mj : 0) * q;
-  double e = 0.0;  // over Q, in double as stage_lw's sums
-  for (int k = 0; k < q; ++k) {
-    const float dz = zi[k] - zj[k];
-    e += alpha[k] * dz * dz;
-  }
-  const float e0 = (float)(-0.25 * e);
-
-  const float logsf2 = logf(*sf2);
+  tc_stage_cells<NC>(cells, ce, nullptr, m, blockIdx.x * NC, s_ij, s_ce, nullptr);
+  __syncthreads();
+  const int wg = threadIdx.x / kTcWarpgroup, tile = wg * kTcRows;
+  const float logsf2 = logf(*sf2), sh = *shift;
   const int lo = n_begin + blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  float acc = 0.f;
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi2) {
-    const int nr = min(kRowsPsi2, hi - n0);
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
-      __syncthreads();
-      stage_rows_chunk<kRowsPsi2>(mu, s, ls, alpha, 2.f, q, k0, n0, hi, s_mc);
-      if (k0 == 0)
-        stage_lw<kRowsPsi2, double>(s, ls, w, alpha, logsf2, 2.f, 2.f, q, n0, hi, s_lw);
-      float zb[kQChunk];
-#pragma unroll
-      for (int k = 0; k < kQChunk; ++k)
-        zb[k] = k0 + k < q ? 0.5f * (zi[k0 + k] + zj[k0 + k]) : 0.f;
-      __syncthreads();
-      // s_qd[r]: the exponent sum over the chunks so far of staged row r
-#pragma unroll 4
-      for (int r = 0; r < nr; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-        float qd = k0 == 0 ? 0.f : s_qd[r * kThreads];
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];  // (mu_k, c_k, mu_k+1, c_k+1)
-          const float t0 = zb[2 * k2] - v.x;
-          const float t1 = zb[2 * k2 + 1] - v.z;
-          qd = fmaf(v.y * t0, t0, qd);
-          qd = fmaf(v.w * t1, t1, qd);
-        }
-        s_qd[r * kThreads] = qd;
+  double acc[2] = {0.0, 0.0};
+  for (int n0 = lo; n0 < hi; n0 += kTcRows) {
+    TcRowConst rc;
+    TcRowChunk<kTcRows, NT> rows;
+    TcCellChunk<NC, NT> cch;
+    float d[32];
+    rows.load(mu, s, ls, alpha, zeta, q, n0, hi, 0);
+    cch.load(z, zeta, s_ij, q, 0);
+    for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+      __syncthreads();  // the last chunk's products (and s_rc's readers) are done
+      rows.put(q, n0, hi, k0, &rop, nullptr, &rc);
+      cch.put(&cop, nullptr);
+      if (k0 + kTcQChunk < q) {  // the next chunk's loads, in flight over this one's products
+        rows.load(mu, s, ls, alpha, zeta, q, n0, hi, k0 + kTcQChunk);
+        cch.load(z, zeta, s_ij, q, k0 + kTcQChunk);
       }
+      tc_operands_ready();
+      tc_tile<KC>(cop.hi + tile * KC, cop.lo + tile * KC, rop.hi, rop.lo, d, k0 > 0);
     }
-    float part = 0.f;
-    for (int r = 0; r < nr; ++r) {
-      const float2 lw = s_lw[r];
-      part = fmaf(lw.y, expf(lw.x + e0 - s_qd[r * kThreads]), part);
+    tc_finish_rows<kTcRows>(rc, w, logsf2, sh, n0, hi, s_rc, s_w);
+    __syncthreads();
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = tc_m(i), r = tc_n(i);
+      part[(i >> 1) & 1] += s_w[r] * tc_exp2((d[i] + s_rc[r]) + s_ce[tile + c]);
     }
-    acc += part;
+    acc[0] += part[0];
+    acc[1] += part[1];
   }
 
-  // out as psi2_fwd_kernel's (a diagonal tile's threads each own a cell)
+  const double unshift = ldexp(1.0, -(int)sh);
   double* o = out + (size_t)blockIdx.y * m * m;
   const bool first = n_begin == 0;
-  if (own) {
-    double* up = o + (size_t)mi * m + mj;
-    *up = first ? acc : *up + acc;
-    if (ti != tj) {
-      double* mirror = o + (size_t)mj * m + mi;
-      *mirror = first ? acc : *mirror + acc;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    double v = acc[h];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v *= unshift;
+    const int2 ij = s_ij[tile + tc_m(2 * h)];
+    if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
+    double* up = o + (size_t)ij.x * m + ij.y;
+    *up = first ? v : *up + v;
+    if (ij.x != ij.y) {
+      double* mirror = o + (size_t)ij.y * m + ij.x;
+      *mirror = first ? v : *mirror + v;
     }
   }
 }
@@ -384,7 +393,8 @@ template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, int n, int m, int q, int d, int qn, int splits2,
+               const float* ce, const float* /* shift: the Q > 64 kernel's */, int n, int m,
+               int q, int d, int qn, int splits2,
                int splits1, double* p2_part, double* p1y_part,
                cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
@@ -412,25 +422,25 @@ int launch_fwd(const float* mu, const float* s, const float* y,
   return (int)cudaGetLastError();
 }
 
-// launch_fwd for Q > 64: the chunked kernels, the same grids and partials.
+// launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel and
+// psi1y_fwd_chunked_kernel, the same grids and partials.
 inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
-                              const float* /* zeta, cells, ce: the Q <= 64 */,
-                              const int* /* kernels' only */, const float*, int n,
-                              int m, int q, int d, int qn, int splits2,
-                              int splits1, double* p2_part, double* p1y_part,
+                              const float* zeta, const int* cells, const float* ce,
+                              const float* shift, int n, int m, int q, int d, int qn,
+                              int splits2, int splits1, double* p2_part, double* p1y_part,
                               cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
-  const int ntile = (m + kChunkTile - 1) / kChunkTile;
   const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
-  dim3 grid2(ntile * (ntile + 1) / 2, splits2);
-  cudaError_t err = allow_smem(psi2_fwd_chunked_kernel, kFwdChunkSmem);
+  dim3 grid2(tc_blocks(m, kTcChunkFwdCells), splits2);
+  const size_t smem2 = tc_fwd_chunked_smem();
+  cudaError_t err = allow_smem(psi2_fwd_tc_chunked_kernel, smem2);
   if (err != cudaSuccess) return (int)err;
   for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
-    psi2_fwd_chunked_kernel<<<grid2, kChunkTile * kChunkTile, kFwdChunkSmem,
-                              stream>>>(
-        mu, s, ls, w, z, alpha, sf2, n0, n, m, q, rows2, ntile, p2_part);
+    psi2_fwd_tc_chunked_kernel<<<grid2, 2 * kTcWarpgroup, smem2, stream>>>(
+        mu, s, ls, w, z, alpha, sf2, zeta, reinterpret_cast<const int2*>(cells), ce, shift, n0,
+        n, m, q, rows2, p2_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
@@ -453,23 +463,24 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  const int tiles = qm == 0 ? tri_tiles(m, kChunkTile) : tc_blocks(m, tc_fwd_cells(qm));
+  const int tiles = tc_blocks(m, qm == 0 ? kTcChunkFwdCells : tc_fwd_cells(qm));
   plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kFwdRowsMax, num_sms),
                        (size_t)m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(
       n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
       (size_t)m * d * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(
-      qm == 0 ? std::max(kFwdChunkSmem, smem_rows_chunk(kRowsPsi1, d))
+      qm == 0 ? std::max(tc_fwd_chunked_smem(), smem_rows_chunk(kRowsPsi1, d))
               : std::max(tc_fwd_smem(qm), smem_rows_psi1(qm, d)));
   return (int)smem_limit(plan);
 }
 
 // qn = 0: mu, s (N, Q) and y (N, D); qn = 1: mu, s (Q, N) and y (D, N).
-// zeta (Q): the shift of mu and Z in the Q <= 64 Psi2 exponent (psi_tc.cuh;
-// the wrapper passes the mean of Z); cells (M (M + 1) / 2, 2) int32: the
-// packed upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2):
-// their E0 log2e (read up to Q = 64 only).
+// zeta (Q): the shift of mu and Z in the Psi2 exponent (psi_tc.cuh; the
+// wrapper passes the mean of Z); cells (M (M + 1) / 2, 2) int32: the packed
+// upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2): their
+// E0 log2e; shift: one float, the whole number S the Q > 64 kernel adds to
+// every base-2 exponent and takes off its sums (read past Q = 64 only).
 // p2_part: (splits2, M, M) float64, every element written. p1y_part:
 // (splits1, M, D) float64, zero-filled by the caller (accumulated in place).
 // Returns cudaGetLastError.
@@ -477,10 +488,10 @@ extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
-                              int n, int m, int q, int d, int qn, int splits2,
-                              int splits1, double* p2_part, double* p1y_part,
+                              const float* shift, int n, int m, int q, int d, int qn,
+                              int splits2, int splits1, double* p2_part, double* p1y_part,
                               void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, zeta, cells, ce, n, m, q, d, qn, splits2, splits1,
+                   y, w, z, alpha, sf2, zeta, cells, ce, shift, n, m, q, d, qn, splits2, splits1,
                    p2_part, p1y_part, static_cast<cudaStream_t>(stream));
 }

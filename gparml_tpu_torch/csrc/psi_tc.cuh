@@ -1,47 +1,59 @@
-// The tensor-core pieces of the Q <= 64 Psi2 kernels (psi_fwd.cu,
-// psi_bwd.cu): the exponent tile, 64 x 64 base-2 Psi2 exponents of data
-// rows and upper-triangle cells, and the backward's reduction products.
+// The tensor-core pieces of the Psi2 kernels (psi_fwd.cu, psi_bwd.cu): the
+// exponent tile, 64 x 64 base-2 Psi2 exponents of data rows and
+// upper-triangle cells, and the backward's reduction products.
 //
-// Replaces the direct-difference exponent that the Q <= 64 Psi2 kernels
-// formed per (row, cell) pair on the CUDA cores (one subtraction, product
-// and FMA per latent dimension), and takes the place of the TPU's K-major
-// basis product (gparml_tpu/ops/psi_pallas.py `_tile_basis`, `_flat_lhs3`,
-// `_rz3_inputs`, run in `_fwd_flat_body` as bf16 hi/lo rungs on the MXU).
-// With mu' = mu - zeta and zb' = (z_m + z_m') / 2 - zeta (zeta = the
-// per-dimension mean of Z, passed by the wrapper; the exponent depends on
-// differences only, so the shift changes nothing but the magnitudes):
+// Replaces the direct-difference exponent that the Psi2 kernels formed per
+// (row, cell) pair on the CUDA cores (one subtraction, product and FMA per
+// latent dimension), and takes the place of the TPU's K-major basis product
+// (gparml_tpu/ops/psi_pallas.py `_tile_basis`, `_flat_lhs3`, `_rz3_inputs`,
+// run in `_fwd_flat_body` as bf16 hi/lo rungs on the MXU, and the
+// B~ = (coef z) z^T products of `_tile_stats_tri`). With mu' = mu - zeta
+// and zb' = (z_m + z_m') / 2 - zeta (zeta = the per-dimension mean of Z,
+// passed by the wrapper; the exponent depends on differences only, so the
+// shift changes nothing but the magnitudes):
 //
 //   L2[n, p] = sum_k R[n, k] C[p, k] + rc_n + ce_p
 //   R[n] = [2 c mu' log2e (QM) | -c log2e (QM) | 0 (pad)]   (the row operand)
 //   C[p] = [zb' (QM) | zb'^2 (QM) | 0 (pad)]                (the cell operand)
 //   rc_n = (lc_n - sum_q c mu'^2) log2e,  ce_p = E0_p log2e
 //
-// K = 2 QM padded to a multiple of 8 (tc_k). tc_tile runs the product as
-// wgmma m64n64k8 in TF32 with the 3-term split hi = tf32(x), lo =
-// tf32(x - hi): A_hi B_lo + A_lo B_hi first, then A_hi B_hi, float32
-// accumulators; the kernels add the constants in float32 after it, apply
-// exp2 and mask the padding cells in their epilogues (the operands hold no
-// -inf). The rows sit on the tile's M axis in the row pass and on its N
-// axis in the forward and the cell pass, so that each sums along N. A
-// single TF32 product would carry the exponent to ~1e-3 (a 1e-3 relative
-// error in Psi2); the split and the centring keep it at float32's level:
-// ops/psi_tc_model.py models this arithmetic on the CPU and
+// Up to Q = 64, K = 2 QM padded to a multiple of 8 (tc_k), one operand
+// build per tile. Past Q = 64 (the *_tc_chunked kernels) K is walked in
+// chunks of kTcQChunk latent dimensions (each chunk [2 c mu' | -c] and
+// [zb' | zb'^2] of its dimensions, kTcKChunk columns), built into shared
+// memory in turn and added into the same accumulator registers, so nothing
+// staged grows with Q; there the row constant also carries an exact shift
+// S (a whole number passed by the wrapper, -floor(max_n lc_n log2e)), so
+// that every pair's exp2 lies below 2 and stays clear of float32's
+// subnormal range, and the kernels multiply their float64 totals by 2^-S.
+//
+// tc_tile runs the product as wgmma m64n64k8 in TF32 with the 3-term split
+// hi = tf32(x), lo = tf32(x - hi): A_hi B_lo + A_lo B_hi first, then
+// A_hi B_hi, float32 accumulators; the kernels add the constants in float32
+// after it, apply exp2 and mask the padding cells in their epilogues (the
+// operands hold no -inf). The rows sit on the tile's M axis in the row pass
+// and on its N axis in the forward and the cell pass, so that each sums
+// along N. A single TF32 product would carry the exponent to ~1e-3 (a 1e-3
+// relative error in Psi2); the split and the centring keep it at float32's
+// level: ops/psi_tc_model.py models this arithmetic on the CPU and
 // tools/psi_tc_numerics.py measures it (<= 2.9e-6 of max|ref| on Psi2 and
 // every gradient leaf at Q <= 64, latents offset +5; 2.4e-4 without the
-// centring).
+// centring; past Q = 64 <= 6.3e-6 with the shift, 4.5e-3 without it where
+// Psi2 is subnormal).
 //
 // tc_reduce multiplies a tile of values still in the accumulator registers
 // (the backward's g or w e) by a transposed operand in shared memory, as
 // the A operand of wgmma m64nNk8 from registers (the FlashAttention form of
 // P V): the row sums [zb' | zb'^2 | 1] and the cell sums [c mu' | c],
-// 3-term split as above.
+// 3-term split as above (past Q = 64 one dimension chunk at a time).
 //
 // Operands are K-major in shared memory as 8-row x 16-byte core matrices
 // without swizzle (tc_at): the descriptor's leading byte offset is 128 (the
 // next 4 columns of K), its stride byte offset 32 K (the next 8 rows).
 // Cells are the upper triangle packed row by row (the wrapper's table), so
 // a tile of 64 cells wastes nothing but the last block's tail. Rows are
-// staged by cp.async (one tile ahead where two stages fit).
+// staged by cp.async (one tile ahead where two stages fit) up to Q = 64,
+// and read from device memory into each chunk's build past it.
 //
 // What bounds the kernels built on it, on an H100: the exp2 of each pair on
 // the MUFU (16 a clock per SM) and the rate of issuing wgmma, then the per-pair
@@ -67,6 +79,14 @@ constexpr int kTcWarpgroup = 128;
 // (CPU emulation only).
 constexpr int kTcTileLd = kTcRows + 1;
 constexpr float kLog2e = 1.4426950408889634f;
+// Latent dimensions of one K chunk past Q = 64, and its K columns.
+constexpr int kTcQChunk = 16;
+constexpr int kTcKChunk = 2 * kTcQChunk;
+// Most K chunks whose float64 row or cell totals a backward pass past
+// Q = 64 keeps in shared memory at once (64 x (2 x 160 + 1) doubles,
+// 160 KB); wider Q is walked in passes over the dimensions, each
+// recomputing the exponents.
+constexpr int kTcPassChunks = 10;
 
 // K of a bucket: [2 c mu' | -c], 2 QM columns padded to a multiple of 8.
 __host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
@@ -115,7 +135,9 @@ __device__ inline float to_tf32(float x) {
 }
 
 // 2^x on the MUFU (ex2.approx.ftz: relative error ~2^-22, results below
-// 2^-126 flushed to zero, which no Psi2 sum notices).
+// 2^-126 flushed to zero; past Q = 64 the shift S puts every pair within
+// that range of the largest row's, up to Q = 64 no Psi2 sum of the cases
+// measured notices).
 __device__ inline float tc_exp2(float x) {
 #ifdef __CUDA_ARCH__
   float y;
@@ -213,19 +235,19 @@ __device__ inline void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int 
 }
 #endif
 
-// The tile's product: d[i] = sum_k A[tc_m(i), k] B[tc_n(i), k] in the
-// 3-term split, the small terms first, A and B 64-row operands. Every
-// thread of a warpgroup calls it (each warpgroup on its own A), after
-// tc_operands_ready.
+// The tile's product: d[i] (+)= sum_k A[tc_m(i), k] B[tc_n(i), k] in the
+// 3-term split, the small terms first, A and B 64-row operands; with
+// `accumulate` (a later K chunk) added to d. Every thread of a warpgroup
+// calls it (each warpgroup on its own A), after tc_operands_ready.
 template <int KP>
 __device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float* b_hi,
-                               const float* b_lo, float (&d)[32]) {
+                               const float* b_lo, float (&d)[32], bool accumulate = false) {
 #ifdef __CUDA_ARCH__
   tc_fence_acc(d);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int s = 0; s < KP / 8; ++s) {
-    wgmma_tf32(d, tc_desc(a_hi + 64 * s, KP), tc_desc(b_lo + 64 * s, KP), s > 0);
+    wgmma_tf32(d, tc_desc(a_hi + 64 * s, KP), tc_desc(b_lo + 64 * s, KP), accumulate || s > 0);
     wgmma_tf32(d, tc_desc(a_lo + 64 * s, KP), tc_desc(b_hi + 64 * s, KP), 1);
   }
 #pragma unroll
@@ -244,7 +266,8 @@ __device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float
       small = fmaf(a_lo[ia], b_hi[ib], small);
       big = fmaf(a_hi[ia], b_hi[ib], big);
     }
-    d[i] = small + big;
+    d[i] = (accumulate ? d[i] : 0.f) + small;
+    d[i] += big;
   }
 #endif
 }
@@ -414,59 +437,71 @@ struct TcRs<136> {
 };
 #endif
 
-// A reduction product of the backward: d2 = X . B2^T with X this
-// warpgroup's 64 x 64 tile of values in the accumulator registers of
-// tc_tile (x[i] at (tc_m(i), tc_n(i))) and B2 an N2 x 64 K-major operand in
-// shared memory whose K axis is the tile's columns in tc_kperm order;
-// d2[e] is element (tc_m(e), tc_n(e)) of the 64 x N2 result. 3-term TF32
-// split as tc_tile's, the small terms first; wgmma m64n8k8 with A from
-// registers, one per K step and term. `scratch` (64 x kTcTileLd floats a
-// warpgroup) is read only off the card, where the scalar twin gathers the
-// tile through it. Every thread of the block calls it.
-template <int N2>
-__device__ inline void tc_reduce(float (&x)[32], const float* b_hi, const float* b_lo,
-                                 float (&d2)[N2 / 2], float* scratch) {
+// A 64 x 64 tile of values in accumulator registers (x[i] at (tc_m(i),
+// tc_n(i))) as the TF32 A operand of reduction products, hi and lo (split
+// once for all of a tile's dimension chunks in the K-chunked passes). Off
+// the card it keeps the tile in `scratch` (64 x kTcTileLd floats a
+// warpgroup) for the scalar twin of tc_reduce_split. Every thread of the
+// block calls set().
+struct TcRegA {
+  uint32_t hi[32], lo[32];
+  __device__ void set(const float (&x)[32], float* scratch) {
 #ifdef __CUDA_ARCH__
-  uint32_t ah[32], al[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float h = to_tf32(x[i]);
-    ah[i] = __float_as_uint(h);
-    al[i] = __float_as_uint(to_tf32(x[i] - h));
+    for (int i = 0; i < 32; ++i) {
+      const float h = to_tf32(x[i]);
+      hi[i] = __float_as_uint(h);
+      lo[i] = __float_as_uint(to_tf32(x[i] - h));
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(hi[i]), "+r"(lo[i])::"memory");
+#else
+    for (int i = 0; i < 32; ++i) scratch[tc_m(i) * kTcTileLd + tc_n(i)] = x[i];
+    __syncthreads();
+#endif
   }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+};
+
+// A reduction product of the backward: d2 = X . B2^T with X a warpgroup's
+// 64 x 64 tile of values, split into a (TcRegA), and B2 an N2 x 64 K-major
+// operand in shared memory whose K axis is the tile's columns in tc_kperm
+// order; d2[e] is element (tc_m(e), tc_n(e)) of the 64 x N2 result. 3-term
+// TF32 split as tc_tile's, the small terms first; wgmma m64nNk8 with A from
+// registers, one per K step and term. Every thread of a warpgroup calls it,
+// after tc_operands_ready.
+template <int N2>
+__device__ inline void tc_reduce_split(TcRegA& a, const float* b_hi, const float* b_lo,
+                                       float (&d2)[N2 / 2], const float* scratch) {
+#ifdef __CUDA_ARCH__
 #pragma unroll
   for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    TcRs<N2>::mma(d2, ah[4 * s], ah[4 * s + 2], ah[4 * s + 1], ah[4 * s + 3],
+    TcRs<N2>::mma(d2, a.hi[4 * s], a.hi[4 * s + 2], a.hi[4 * s + 1], a.hi[4 * s + 3],
                   tc_desc(b_lo + 64 * s, 64), s > 0);
-    TcRs<N2>::mma(d2, al[4 * s], al[4 * s + 2], al[4 * s + 1], al[4 * s + 3],
+    TcRs<N2>::mma(d2, a.lo[4 * s], a.lo[4 * s + 2], a.lo[4 * s + 1], a.lo[4 * s + 3],
                   tc_desc(b_hi + 64 * s, 64), 1);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s)
-    TcRs<N2>::mma(d2, ah[4 * s], ah[4 * s + 2], ah[4 * s + 1], ah[4 * s + 3],
+    TcRs<N2>::mma(d2, a.hi[4 * s], a.hi[4 * s + 2], a.hi[4 * s + 1], a.hi[4 * s + 3],
                   tc_desc(b_hi + 64 * s, 64), 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
   for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a.hi[i]), "+r"(a.lo[i])::"memory");
 #else
-  for (int i = 0; i < 32; ++i) scratch[tc_m(i) * kTcTileLd + tc_n(i)] = x[i];
-  __syncthreads();
   for (int e = 0; e < N2 / 2; ++e) {
     const int r = tc_m(e), n = tc_n(e);
     float small = 0.f, big = 0.f;
     for (int kp = 0; kp < 64; ++kp) {
       const int p = kp & 7;
       const int c = (kp & ~7) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);  // tc_kperm(c) == kp
-      const float a = scratch[r * kTcTileLd + c];
-      const float ahv = to_tf32(a), alv = to_tf32(a - ahv);
+      const float x = scratch[r * kTcTileLd + c];
+      const float ahv = to_tf32(x), alv = to_tf32(x - ahv);
       const int ib = tc_at(n, kp, 64);
       small = fmaf(ahv, b_lo[ib], small);
       small = fmaf(alv, b_hi[ib], small);
@@ -474,6 +509,19 @@ __device__ inline void tc_reduce(float (&x)[32], const float* b_hi, const float*
     }
     d2[e] = small + big;
   }
+#endif
+}
+
+// tc_reduce_split of the tile x (in the accumulator registers of tc_tile),
+// split here. Every thread of the block calls it; off the card the tile
+// goes through `scratch`.
+template <int N2>
+__device__ inline void tc_reduce(float (&x)[32], const float* b_hi, const float* b_lo,
+                                 float (&d2)[N2 / 2], float* scratch) {
+  TcRegA a;
+  a.set(x, scratch);
+  tc_reduce_split<N2>(a, b_hi, b_lo, d2, scratch);
+#ifndef __CUDA_ARCH__
   __syncthreads();
 #endif
 }
@@ -615,6 +663,23 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
   if (sub == 0) s_rc[r] = (float)(2.0 * (double)logsf2 - 0.5 * lsum - cm) * kLog2e;
 }
 
+// Cells [p0, p0 + NC) of the wrapper's packed table: s_ij[c] ((-1, -1)
+// past the last cell), s_ce[c] (0 past it) and, with kmat, s_k[c] = kmat[i,
+// j] (0 past it). No barrier.
+template <int NC>
+__device__ inline void tc_stage_cells(const int2* __restrict__ cells, const float* __restrict__ ce,
+                                      const float* __restrict__ kmat, int m, int p0, int2* s_ij,
+                                      float* s_ce, float* s_k) {
+  const int ncell = tri_cells(m);
+  for (int c = threadIdx.x; c < NC; c += blockDim.x) {
+    const bool live = p0 + c < ncell;
+    const int2 ij = live ? cells[p0 + c] : make_int2(-1, -1);
+    s_ij[c] = ij;
+    s_ce[c] = live ? ce[p0 + c] : 0.f;
+    if (s_k) s_k[c] = live ? kmat[(size_t)ij.x * m + ij.y] : 0.f;
+  }
+}
+
 // The cell operand of packed cells [p0, p0 + NC) (cells[p] = (i, j), i <=
 // j; ce[p] = E0 log2e, both from the wrapper), and per cell c: s_ce[c]
 // (0 past the last cell), s_ij[c] ((-1, -1) past it), with s_k the entry
@@ -629,17 +694,12 @@ __device__ inline void tc_build_cells(const float* __restrict__ z, const float* 
                                       const float* __restrict__ kmat, int m, int q, int p0,
                                       const TcOperand& op, float* s_ce, int2* s_ij,
                                       const TcOperand* b2, float* s_k) {
-  const int ncell = tri_cells(m);
-  for (int c = threadIdx.x; c < NC; c += blockDim.x) {
-    const bool live = p0 + c < ncell;
-    const int2 ij = live ? cells[p0 + c] : make_int2(-1, -1);
-    s_ij[c] = ij;
-    s_ce[c] = live ? ce[p0 + c] : 0.f;
-    if (s_k) s_k[c] = live ? kmat[(size_t)ij.x * m + ij.y] : 0.f;
-    if (b2)
+  tc_stage_cells<NC>(cells, ce, kmat, m, p0, s_ij, s_ce, s_k);
+  if (b2)
+    for (int c = threadIdx.x; c < NC; c += blockDim.x)
       for (int nn = 2 * QM; nn < tc_n2_rows(QM); ++nn)
-        tc_put(b2->hi, b2->lo, tc_at(nn, tc_kperm(c), 64), nn == 2 * QM && live ? 1.f : 0.f);
-  }
+        tc_put(b2->hi, b2->lo, tc_at(nn, tc_kperm(c), 64),
+               nn == 2 * QM && p0 + c < tri_cells(m) ? 1.f : 0.f);
   __syncthreads();
   for (int t = threadIdx.x; t < NC * QM; t += blockDim.x) {
     const int c = t / QM, k = t % QM;
@@ -658,6 +718,192 @@ __device__ inline void tc_build_cells(const float* __restrict__ z, const float* 
     }
   }
   __syncthreads();
+}
+
+// --- the K-chunked pieces (Q > 64) ------------------------------------------
+
+// hi and lo of a chunk operand of `rows` rows (kTcKChunk columns).
+__host__ __device__ constexpr size_t tc_chunk_operand_bytes(int rows) {
+  return 2 * tc_region((size_t)rows * kTcKChunk * sizeof(float));
+}
+
+// An operand (hi, lo) of `rows` rows of `cols` columns, not zeroed: the
+// chunk builds write every element.
+__device__ inline TcOperand tc_take_chunk(TcCarve& cv, int rows, int cols) {
+  const size_t bytes = (size_t)rows * cols * sizeof(float);
+  return TcOperand{cv.take<float>(bytes), cv.take<float>(bytes)};
+}
+
+// Dimensions a backward pass keeps totals for past Q = 64: whole chunks,
+// as few passes as kTcPassChunks allows, spread evenly.
+__host__ __device__ inline int tc_pass_dims(int q) {
+  const int chunks = (q + kTcQChunk - 1) / kTcQChunk;
+  const int passes = (chunks + kTcPassChunks - 1) / kTcPassChunks;
+  return (chunks + passes - 1) / passes * kTcQChunk;
+}
+
+// A row constant summed over the K chunks by the threads of a row, as
+// tc_build_rows sums it: sum_q log den as the logs of float32 products of
+// up to 8 terms, and sum_q c mu'^2, both in double.
+struct TcRowConst {
+  double lsum = 0.0, cm = 0.0;
+  float prod = 1.f;
+  int in_prod = 0;
+  __device__ void add(float den, float c, float mv) {
+    prod *= den;
+    if (++in_prod == 8) {
+      lsum += (double)logf(prod);
+      prod = 1.f;
+      in_prod = 0;
+    }
+    cm += (double)(c * mv * mv);
+  }
+};
+
+// A thread's share of one K chunk of rows [n0, n0 + R), built by NT
+// threads: NT / R neighbouring threads share a row, each taking every
+// (NT / R)-th of the chunk's kTcQChunk dimensions, the same ones in every
+// chunk. load() reads the chunk's raw values (mu, s, alpha, zeta) into
+// registers, all its loads issued together, so that a kernel can issue the
+// next chunk's before it multiplies this one; put() writes from them, with
+// op, the chunk of the row operand (R x kTcKChunk, [2 c mu' log2e | -c
+// log2e]); with b2 (the cell pass), for each 64-row tile t the chunk of its
+// transposed operand [c mu' | c] in b2[t] (2 kTcQChunk x 64, row r at K
+// position tc_kperm(r)); with rc, each thread adds its share of its row's
+// constant. Zero past hi or q.
+template <int R, int NT>
+struct TcRowChunk {
+  static constexpr int kTpr = NT / R, kE = kTcQChunk / kTpr;
+  float sv[kE], mv[kE], av[kE], zv[kE];
+  __device__ void load(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                       const float* __restrict__ alpha, const float* __restrict__ zeta, int q,
+                       int n0, int hi, int k0) {
+    const int n = n0 + threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int k = k0 + sub + kTpr * j;
+      const bool live = n < hi && k < q;
+      sv[j] = live ? s[ls.at(n, k)] : 0.f;
+      mv[j] = live ? mu[ls.at(n, k)] : 0.f;
+      av[j] = live ? alpha[k] : 0.f;
+      zv[j] = live ? zeta[k] : 0.f;
+    }
+  }
+  __device__ void put(int q, int n0, int hi, int k0, const TcOperand* op, const TcOperand* b2,
+                      TcRowConst* rc) const {
+    const int r = threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
+    const bool row_live = n0 + r < hi;
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int kk = sub + kTpr * j;
+      float c = 0.f, mvc = 0.f;
+      if (row_live && k0 + kk < q) {
+        const float den = 2.f * av[j] * sv[j] + 1.f;
+        c = av[j] / den;
+        mvc = mv[j] - zv[j];
+        if (rc) rc->add(den, c, mvc);
+      }
+      if (op) {
+        tc_put(op->hi, op->lo, tc_at(r, kk, kTcKChunk), (2.f * c * mvc) * kLog2e);
+        tc_put(op->hi, op->lo, tc_at(r, kTcQChunk + kk, kTcKChunk), -c * kLog2e);
+      }
+      if (b2) {
+        const TcOperand& bt = b2[r / kTcRows];
+        tc_put(bt.hi, bt.lo, tc_at(kk, tc_kperm(r % kTcRows), 64), c * mvc);
+        tc_put(bt.hi, bt.lo, tc_at(kTcQChunk + kk, tc_kperm(r % kTcRows), 64), c);
+      }
+    }
+  }
+};
+
+// The row constants of rows [n0, n0 + R) from the threads' shares (every
+// thread calls it; warp shuffles in a fixed order): s_rc[r] = (lc - sum_q c
+// mu'^2) log2e + shift, summed in double and rounded once, and s_w[r] (0
+// past hi). No barrier.
+template <int R>
+__device__ inline void tc_finish_rows(TcRowConst& rc, const float* __restrict__ w, float logsf2,
+                                      float shift, int n0, int hi, float* s_rc, float* s_w) {
+  const int tpr = blockDim.x / R;
+  const int r = threadIdx.x / tpr, sub = threadIdx.x % tpr;
+  if (rc.in_prod) rc.lsum += (double)logf(rc.prod);
+  for (int o = 1; o < tpr; o <<= 1) {
+    rc.lsum += __shfl_xor_sync(0xffffffffu, rc.lsum, o);
+    rc.cm += __shfl_xor_sync(0xffffffffu, rc.cm, o);
+  }
+  if (sub == 0) {
+    s_rc[r] = (float)((2.0 * (double)logsf2 - 0.5 * rc.lsum - rc.cm) * (double)kLog2e +
+                      (double)shift);
+    s_w[r] = n0 + r < hi ? w[n0 + r] : 0.f;
+  }
+}
+
+// A thread's share of one K chunk of the NC cells staged in s_ij, built
+// by NT threads: element j of thread t is cell c, dimension kk of the chunk
+// with (kk % 4, c % 8) from the lane, so that a warp's stores into the
+// operand's core matrices fall in distinct banks. load() reads z_i - zeta
+// and z_j - zeta into registers, all its loads issued together; put()
+// writes from them, with op, the chunk of the cell operand (NC x
+// kTcKChunk, [zb' | zb'^2]); with b2 (the row pass), for each 64-cell tile
+// t the chunk of its transposed operand [zb' | zb'^2] in b2[t] (2
+// kTcQChunk x 64, cell c at K position tc_kperm(c)). Zero past the last
+// cell or q.
+template <int NC, int NT>
+struct TcCellChunk {
+  static constexpr int kE = NC * kTcQChunk / NT;
+  float zi[kE], zj[kE];
+  __device__ static void at(int j, int* c, int* kk) {
+    const int t = threadIdx.x + NT * j, rest = t >> 5;
+    *c = (rest % (NC / 8)) * 8 + ((t >> 2) & 7);
+    *kk = (rest / (NC / 8)) * 4 + (t & 3);
+  }
+  __device__ void load(const float* __restrict__ z, const float* __restrict__ zeta,
+                       const int2* s_ij, int q, int k0) {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int c, kk;
+      at(j, &c, &kk);
+      const int k = k0 + kk;
+      const int2 ij = s_ij[c];
+      const bool live = ij.x >= 0 && k < q;
+      const float zk = live ? zeta[k] : 0.f;
+      zi[j] = live ? z[(size_t)ij.x * q + k] - zk : 0.f;
+      zj[j] = live ? z[(size_t)ij.y * q + k] - zk : 0.f;
+    }
+  }
+  __device__ void put(const TcOperand* op, const TcOperand* b2) const {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int c, kk;
+      at(j, &c, &kk);
+      const float zb = 0.5f * (zi[j] + zj[j]);
+      if (op) {
+        tc_put(op->hi, op->lo, tc_at(c, kk, kTcKChunk), zb);
+        tc_put(op->hi, op->lo, tc_at(c, kTcQChunk + kk, kTcKChunk), zb * zb);
+      }
+      if (b2) {
+        const TcOperand& bt = b2[c / kTcRows];
+        tc_put(bt.hi, bt.lo, tc_at(kk, tc_kperm(c % kTcRows), 64), zb);
+        tc_put(bt.hi, bt.lo, tc_at(kTcQChunk + kk, tc_kperm(c % kTcRows), 64), zb * zb);
+      }
+    }
+  }
+};
+
+// Row stride (doubles) of the float64 totals of qp dimensions: [first |
+// second] sums, one more to spread the rows over the banks.
+__host__ __device__ constexpr int tc_tot_ld(int qp) { return 2 * qp + 1; }
+
+// Add a dimension chunk's reduction product d2 (64 x 2 kTcQChunk: columns
+// [0, kTcQChunk) the first sum of dimensions kd.., the rest the second) into
+// the float64 totals tot (64 rows of tc_tot_ld(qp): [first | second] of the
+// pass's dimensions, off = kd - the pass's first). Each element has one
+// owner.
+__device__ inline void tc_add_chunk(const float (&d2)[kTcQChunk], double* tot, int qp, int off) {
+#pragma unroll
+  for (int e = 0; e < kTcQChunk; ++e) {
+    const int col = tc_n(e), half = col / kTcQChunk;
+    tot[tc_m(e) * tc_tot_ld(qp) + half * qp + off + col % kTcQChunk] += (double)d2[e];
+  }
 }
 
 }  // namespace gparml

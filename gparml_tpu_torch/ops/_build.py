@@ -37,10 +37,10 @@ _ENTRY_POINTS = {
     # memory need, limit, the backward's float64 scratch per data row
     "gparml_psi_fwd_plan": [_I] * 5 + [_SZ, _IP],
     "gparml_psi_bwd_plan": [_I] * 5 + [_SZ, _IP],
-    # mu s y w z alpha sf2 zeta cells ce | n m q d qn splits2 splits1 |
+    # mu s y w z alpha sf2 zeta cells ce shift | n m q d qn splits2 splits1 |
     # p2_part p1y_part stream
-    "gparml_psi_fwd": [_P] * 10 + [_I] * 7 + [_P] * 3,
-    # mu s y w z alpha sf2 zeta cells ce kmat e0 r1 | n m q d qn splits_c
+    "gparml_psi_fwd": [_P] * 11 + [_I] * 7 + [_P] * 3,
+    # mu s y w z alpha sf2 zeta cells ce shift kmat r1 | n m q d qn splits_c
     # splits_m | dmu ds dal dy a_part b_part row_scratch stream
     "gparml_psi_bwd": [_P] * 13 + [_I] * 7 + [_P] * 8,
 }

@@ -10,9 +10,9 @@ Counterpart of ``gparml_tpu/ops/psi_pallas.py``: ``psi_fused`` and
 and KL are plain tensor sums).
 
 The two layouts run the same kernels (``csrc/psi_fwd.cu``,
-``csrc/psi_bwd.cu``; up to Q = 64 their Psi2 exponents come from the tensor
-cores, ``csrc/psi_tc.cuh``, whose arithmetic ``psi_tc_model.py`` models on
-the CPU), told the layout by a flag that sets their element
+``csrc/psi_bwd.cu``; their Psi2 exponents come from the tensor cores,
+``csrc/psi_tc.cuh``, whose arithmetic ``psi_tc_model.py`` models on the
+CPU), told the layout by a flag that sets their element
 strides: nq takes mu, s (N, Q) and Y (N, D); qn takes mu^T, s^T (Q, N) and
 Y^T (D, N) and gives the cotangents of those back in (Q, N) / (D, N). The
 kernels sum in the same order in both, so qn gives the nq results on
@@ -30,8 +30,10 @@ between the flat, staircase and lane-chunked kernels) has no counterpart:
 the same wrappers take every shape the Pallas kernels took. The kernels
 take any N and any Q: up to Q = 64 through the register buckets of
 ``csrc/psi_common.cuh``, past it through the chunked kernels, which walk
-the latent dimensions in chunks and keep a float64 (2, Q, N) scratch of
-the backward row passes' totals (the plan's fifth entry). M and D are
+the latent dimensions in chunks (the Psi2 ones K on the tensor cores, with
+an exact power-of-two shift of their exponents that the wrapper computes,
+``_shift``) and keep a float64 (2, Q, N) scratch of the backward Psi1 row
+pass's totals (the plan's fifth entry). M and D are
 bounded by the card's shared memory per block (227 KB on an H100): up to
 Q = 64 the backward's row passes stage Z as M x QM floats (QM the Q
 bucket), and the Psi1 kernels stage 32 rows of Y. On an H100 that is
@@ -175,29 +177,67 @@ def _plan_for(n, m, q, d, device, partial_bytes):
     return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
+@functools.lru_cache(maxsize=16)
+def _cells(m: int, device: torch.device) -> torch.Tensor:
+    """The packed upper-triangle cells (M (M + 1) / 2, 2) int32, (i, j) with
+    i <= j row by row, on ``device`` (built once per M and device)."""
+    return torch.triu_indices(m, m, device=device).T.contiguous().to(torch.int32)
+
+
 def _cell_terms(z, alpha):
-    """What the Q <= 64 Psi2 kernels (``csrc/psi_tc.cuh``) take beside Z:
-    zeta, the per-dimension mean of Z, by which they shift mu and Z (data to
-    the kernels: Psi2 depends on mu - Z only, so the shift changes no output
-    and no gradient, only the magnitudes the tensor-core product carries);
-    the packed upper-triangle cells (M (M + 1) / 2, 2) int32, (i, j) with
-    i <= j row by row; and their E0 log2e = -1/4 sum_q alpha (z_i - z_j)^2
-    log2e, in float64 from the shifted Z. Past Q = 64 (the chunked kernels)
-    three empty tensors."""
+    """What the Psi2 kernels (``csrc/psi_tc.cuh``) take beside Z: zeta, the
+    per-dimension mean of Z, by which they shift mu and Z (data to the
+    kernels: Psi2 depends on mu - Z only, so the shift changes no output and
+    no gradient, only the magnitudes the tensor-core product carries); the
+    packed cells (``_cells``); and their E0 log2e = -1/4 sum_q alpha (z_i -
+    z_j)^2 log2e, in float64 from the shifted Z."""
     m, q = z.shape
-    if q > 64:
-        return tuple(torch.empty(0, device=z.device) for _ in range(3))
+    cells = _cells(m, z.device)
+    i, j = cells.T.long()
     zeta = z.mean(0).contiguous()
-    ij = torch.triu_indices(m, m, device=z.device)
     zc = (z - zeta).double()
     za = zc * alpha.double()
     sq = (zc * za).sum(1)
-    e0 = -0.25 * (sq[ij[0]] + sq[ij[1]] - 2.0 * (za @ zc.T)[ij[0], ij[1]])
+    e0 = -0.25 * (sq[i] + sq[j] - 2.0 * (za @ zc.T)[i, j])
     ce = e0.to(z.dtype) * _LOG2E
-    return zeta, ij.T.contiguous().to(torch.int32), ce.contiguous()
+    return zeta, cells, ce.contiguous()
 
 
 _LOG2E = 1.4426950408889634
+# Elements of s a piece of ``_shift`` reads at once.
+_SHIFT_PIECE = 1 << 26
+
+
+def _shift(layout, s, alpha, sf2):
+    """S = -floor(max_n lc_n log2e), lc_n = 2 log sf2 - 1/2 sum_q log(2
+    alpha_q s_nq + 1), as a float32 scalar on the device (never read on the
+    host): the whole number the Q > 64 Psi2 kernels add to every base-2
+    exponent and take off their float64 sums (exact for any whole number;
+    this one keeps the largest row's pairs just below 2 and the rest clear
+    of float32's subnormal range). Pieces of rows bound the temporary."""
+    n = s.shape[0] if layout == "nq" else s.shape[1]
+    step = max(1, _SHIFT_PIECE // alpha.shape[0])
+    least = None
+    for i in range(0, n, step):
+        if layout == "nq":
+            part = torch.log1p(s[i:i + step] * (2.0 * alpha)).sum(1)
+        else:
+            part = torch.log1p(s[:, i:i + step] * (2.0 * alpha[:, None])).sum(0)
+        low = part.min()
+        least = low if least is None else torch.minimum(least, low)
+    lc_max = 2.0 * torch.log(sf2) - 0.5 * least
+    return (-torch.floor(lc_max * _LOG2E)).to(torch.float32).reshape(())
+
+
+def _psi2_terms(layout, s, z, sf2, alpha):
+    """(zeta, cells, ce, shift) for the kernels (shift only past Q = 64:
+    a null pointer up to it, where it is not read)."""
+    shift = _shift(layout, s, alpha, sf2) if z.shape[1] > 64 else None
+    return (*_cell_terms(z, alpha), shift)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
@@ -213,10 +253,10 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     f64 = dict(dtype=torch.float64, device=mu.device)
     p2_part = torch.empty((splits2, m, m), **f64)
     p1y_part = torch.zeros((splits1, m, d), **f64)
-    cell_terms = _cell_terms(z, alpha)   # alive until the kernels have read it
+    terms = _psi2_terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
-            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *cell_terms)),
+            *(_ptr(t) for t in (mu, s, y, w, z, alpha, sf2, *terms)),
             n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
             p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
@@ -237,17 +277,16 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     sym = 0.5 * (dp2 + dp2.T)
     kmat = (sym * (2.0 - torch.eye(m, **f32))).contiguous()
     dz2 = (z[:, None, :] - z[None, :, :]) ** 2                    # (M, M, Q)
-    e0 = (-0.25 * torch.sum(alpha * dz2, dim=-1)).contiguous()
     dmu, ds, dal = (torch.empty(mu.shape, **f32) for _ in range(3))
     dy = torch.empty(y.shape, **f32)
     f64 = dict(dtype=torch.float64, device=mu.device)
     a_part = torch.empty((splits_c, q, m, m), **f64)
     b_part = torch.empty((splits_m, q, m), **f64)
     row_scratch = torch.zeros((scratch, n), **f64)
-    cell_terms = _cell_terms(z, alpha)
+    terms = _psi2_terms(layout, s, z, sf2, alpha)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
-            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *cell_terms, kmat, e0, dp1y)),
+            *(_ptr(t) for t in (mu, s, y, w, z, alpha, sf2, *terms, kmat, dp1y)),
             n, m, q, d, qn, splits_c, splits_m,
             *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
             torch.cuda.current_stream(mu.device).cuda_stream)

@@ -1,6 +1,6 @@
-"""Plain PyTorch model of the tensor-core arithmetic of the Q <= 64 Psi2
-kernels (``csrc/psi_tc.cuh``, used by ``csrc/psi_fwd.cu`` and
-``csrc/psi_bwd.cu``).
+"""Plain PyTorch model of the tensor-core arithmetic of the Psi2 kernels
+(``csrc/psi_tc.cuh``, used by ``csrc/psi_fwd.cu`` and ``csrc/psi_bwd.cu``):
+the Q <= 64 buckets and, past Q = 64, the K-chunked kernels.
 
 The kernels write the Psi2 exponent of data row n and upper-triangle cell
 (m, m') in expanded form, in base 2:
@@ -28,6 +28,14 @@ after it, then exp2. This module computes the same thing on the CPU:
   previous kernels did), kept so that the two can be compared
   (``tools/psi_tc_numerics.py``).
 
+Past Q = 64 (``chunked``) the kernels walk K in chunks of ``QCHUNK`` latent
+dimensions (each chunk both halves of the operands for its dimensions), the
+float32 accumulator running on across the chunks, and fold an exact
+power-of-two shift 2^S into every row constant (``shift``: S = -floor(max_n
+lc_n log2e), so that every pair's exp2 lies below 2 and the largest rows stay
+clear of float32's subnormal range); they undo it on their float64 totals
+(x 2^-S, exact).
+
 Per-pair values are float32; sums over pairs are float64, as in the kernels,
 whose float32 partial sums span at most one 64-row or 64-cell tile.
 """
@@ -39,8 +47,11 @@ import math
 import torch
 
 LOG2E = 1.0 / math.log(2.0)
-# Rows and cells of one exponent tile (csrc/psi_tc.cuh kTcRows, kTcCells).
+# Rows and cells of one exponent tile (csrc/psi_tc.cuh kTcRows).
 TILE = 64
+# Latent dimensions per K chunk of the Q > 64 kernels (csrc/psi_tc.cuh
+# kTcQChunk).
+QCHUNK = 16
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -60,13 +71,40 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
-def tc_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def tc_matmul(a: torch.Tensor, b: torch.Tensor, chunks=None) -> torch.Tensor:
     """a (R, K) times b (C, K)^T in the kernels' 3-term TF32 form: the small
-    terms a_hi b_lo + a_lo b_hi first, then a_hi b_hi, float32 throughout."""
+    terms a_hi b_lo + a_lo b_hi first, then a_hi b_hi, float32 throughout.
+    ``chunks``: a list of K-column index tensors walked in turn, each adding
+    its small terms and then its large ones into the one float32
+    accumulator (the Q > 64 kernels)."""
     a_hi, a_lo = split(a.float())
     b_hi, b_lo = split(b.float())
-    small = a_hi @ b_lo.T + a_lo @ b_hi.T
-    return small + a_hi @ b_hi.T
+    if chunks is None:
+        small = a_hi @ b_lo.T + a_lo @ b_hi.T
+        return small + a_hi @ b_hi.T
+    acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32)
+    for k in chunks:
+        acc = acc + (a_hi[:, k] @ b_lo[:, k].T + a_lo[:, k] @ b_hi[:, k].T)
+        acc = acc + a_hi[:, k] @ b_hi[:, k].T
+    return acc
+
+
+def k_chunks(q: int):
+    """The K columns of each chunk of the Q > 64 kernels: QCHUNK latent
+    dimensions, both halves ([2 c mu' | -c] and [zb' | zb'^2]) of each."""
+    return [torch.cat([torch.arange(k0, min(k0 + QCHUNK, q)),
+                       q + torch.arange(k0, min(k0 + QCHUNK, q))])
+            for k0 in range(0, q, QCHUNK)]
+
+
+def shift_of(s, alpha, sf2) -> float:
+    """S = -floor(max_n lc_n log2e), lc_n = 2 log sf2 - 1/2 sum_q log(2 alpha
+    s_nq + 1): the power of two the Q > 64 kernels fold into the row
+    constants (any integer is exact; this one puts the largest row's pairs
+    just below 2)."""
+    lc = 2.0 * torch.log(sf2.double()) - 0.5 * torch.log1p(
+        2.0 * alpha.double() * s.double()).sum(-1)
+    return -math.floor(float(lc.max()) * LOG2E)
 
 
 def cells(m: int):
@@ -75,10 +113,11 @@ def cells(m: int):
     return torch.triu_indices(m, m)
 
 
-def _row_terms(mu, s, alpha, sf2, zeta):
+def _row_terms(mu, s, alpha, sf2, zeta, shift=0):
     """(row operand (N, 2Q), row constant (N,), c, den, mu') in float32;
     as in the kernels, sum_q log den is the float64 sum of the logs of
-    float32 products of 8 terms, and sum_q c mu'^2 a float64 sum."""
+    float32 products of 8 terms, and sum_q c mu'^2 a float64 sum. A
+    ``shift`` S is added to the constant in float64 before its rounding."""
     mu, s, alpha = mu.float(), s.float(), alpha.float()
     den = 2.0 * alpha * s + 1.0
     c = alpha / den
@@ -87,7 +126,10 @@ def _row_terms(mu, s, alpha, sf2, zeta):
     pad = torch.ones((n, -q % 8), dtype=den.dtype)
     prods = torch.cat([den, pad], dim=-1).reshape(n, -1, 8).prod(-1)
     lc = 2.0 * torch.log(sf2.float()).double() - 0.5 * torch.log(prods).double().sum(-1)
-    rc = ((lc - (c * mu_c * mu_c).double().sum(-1)).float() * LOG2E).float()
+    if shift:
+        rc = ((lc - (c * mu_c * mu_c).double().sum(-1)) * LOG2E + shift).float()
+    else:
+        rc = ((lc - (c * mu_c * mu_c).double().sum(-1)).float() * LOG2E).float()
     a = torch.cat([(2.0 * c * mu_c) * LOG2E, -c * LOG2E], dim=-1).float()
     return a, rc, c, den, mu_c
 
@@ -105,16 +147,25 @@ def _cell_terms(z, alpha, zeta):
     return torch.cat([zb, zb * zb], dim=-1), ce, zb
 
 
-def exponents(mu, s, z, sf2, alpha, zeta=None):
+def exponents(mu, s, z, sf2, alpha, zeta=None, shift=0):
     """The (N, C) base-2 exponents of the kernels' tile arithmetic (C the
-    packed upper-triangle cells), with (c, den, mu', zb') beside them.
-    ``zeta`` defaults to the per-dimension mean of Z."""
+    packed upper-triangle cells), plus ``shift``, with (c, den, mu', zb')
+    beside them. ``zeta`` defaults to the per-dimension mean of Z; past
+    Q = 64 K is walked in chunks as the kernels walk it."""
     if zeta is None:
         zeta = z.float().mean(0)
-    a, rc, c, den, mu_c = _row_terms(mu, s, alpha, sf2, zeta)
+    q = z.shape[1]
+    a, rc, c, den, mu_c = _row_terms(mu, s, alpha, sf2, zeta, shift)
     b, ce, zb = _cell_terms(z, alpha, zeta)
-    l2 = (tc_matmul(a, b) + rc[:, None]) + ce[None, :]
+    l2 = (tc_matmul(a, b, k_chunks(q) if q > 64 else None) + rc[:, None]) + ce[None, :]
     return l2, c, den, mu_c, zb
+
+
+def _shift_for(s, alpha, sf2, q, shift):
+    """The shift the kernels take: None means theirs (0 up to Q = 64)."""
+    if shift is None:
+        return shift_of(s, alpha, sf2) if q > 64 else 0
+    return shift
 
 
 def _mirror(packed, m):
@@ -126,12 +177,14 @@ def _mirror(packed, m):
     return out
 
 
-def psi2_sum(mu, s, z, sf2, alpha, w, zeta=None):
-    """sum_n w_n Psi2_n (M, M) in float64: float32 pair values w exp2(L2),
-    summed in float64."""
-    l2 = exponents(mu, s, z, sf2, alpha, zeta)[0]
+def psi2_sum(mu, s, z, sf2, alpha, w, zeta=None, shift=None):
+    """sum_n w_n Psi2_n (M, M) in float64: float32 pair values w exp2(L2 + S),
+    summed in float64 and scaled by 2^-S (``shift`` S: None for the kernels'
+    own)."""
+    sh = _shift_for(s, alpha, sf2, z.shape[1], shift)
+    l2 = exponents(mu, s, z, sf2, alpha, zeta, sh)[0]
     pair = w.float()[:, None] * torch.exp2(l2)
-    return _mirror(pair.double().sum(0), z.shape[0])
+    return _mirror(pair.double().sum(0), z.shape[0]) * 2.0 ** -sh
 
 
 def _tiled_tc(a, b, axis_len, tile=TILE):
@@ -143,7 +196,13 @@ def _tiled_tc(a, b, axis_len, tile=TILE):
     return out
 
 
-def psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta=None, form="tc"):
+def _tile_sums(x):
+    """Row sums of x (R, C) as the kernels take G: float32 sums over tiles
+    of 64 columns, added in float64."""
+    return sum(x[:, k0:k0 + TILE].sum(1).double() for k0 in range(0, x.shape[1], TILE))
+
+
+def psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta=None, form="tc", shift=None):
     """The Psi2 part of the backward kernels' reductions: the row pass's
     (dmu, ds, dalpha share) (N, Q) and the cell pass's centred sums
     a_q = sum_n w e c_q (mu_q - zb_q) (Q, M, M), float64.
@@ -156,31 +215,34 @@ def psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta=None, form="tc"):
     then in float64 t = T1 - mu' G, u = T2 - 2 mu' T1 + mu'^2 G,
     a = S1 - zb' S2. "direct": per pair g = K w e, d = zb' - mu', t += g d,
     u += g d^2, a += w e c (mu' - zb'), all float32 per pair (the previous
-    kernels')."""
-    m = z.shape[0]
-    l2, c, den, mu_c, zb = exponents(mu, s, z, sf2, alpha, zeta)
+    kernels'). e carries the shift 2^S (``shift``: None for the kernels'
+    own), which the float64 sums drop before they are combined."""
+    m, q = z.shape
+    sh = _shift_for(s, alpha, sf2, q, shift)
+    unshift = 2.0 ** -sh
+    l2, c, den, mu_c, zb = exponents(mu, s, z, sf2, alpha, zeta, sh)
     i, j = cells(m)
     e = torch.exp2(l2)                                     # (N, C)
     we = w.float()[:, None] * e
     g = kmat.float()[i, j][None, :] * we                   # (N, C)
-    gsum = g.double().sum(1)
+    gsum = (_tile_sums(g) if form == "tc" else g.double().sum(1)) * unshift
     if form == "direct":
         d = zb[None, :, :] - mu_c[:, None, :]              # (N, C, Q)
         gd = g[..., None] * d
-        t = gd.double().sum(1)
-        u = (gd * d).double().sum(1)
-        acc = (we[..., None] * (c[:, None, :] * (-d))).double().sum(0)   # (C, Q)
+        t = gd.double().sum(1) * unshift
+        u = (gd * d).double().sum(1) * unshift
+        acc = (we[..., None] * (c[:, None, :] * (-d))).double().sum(0) * unshift   # (C, Q)
     elif form == "tc":
         ncell, n = zb.shape[0], mu.shape[0]
         prod = lambda x, y, length: _tiled_tc(x, y.T.contiguous(), length)
-        pz = prod(g, zb, ncell)                                          # (N, Q)
-        pz2 = prod(g, zb * zb, ncell)
+        pz = prod(g, zb, ncell) * unshift                                # (N, Q)
+        pz2 = prod(g, zb * zb, ncell) * unshift
         mu64 = mu_c.double()
         t = pz - mu64 * gsum[:, None]
         u = pz2 - 2.0 * mu64 * pz + mu64 * mu64 * gsum[:, None]
         wc = w.float()[:, None] * c
         e_t = e.T.contiguous()
-        acc = prod(e_t, wc * mu_c, n) - zb.double() * prod(e_t, wc, n)
+        acc = (prod(e_t, wc * mu_c, n) - zb.double() * prod(e_t, wc, n)) * unshift
     else:
         raise ValueError(f"form must be 'tc' or 'direct', got {form!r}")
     t32, u32, g32 = t.float(), u.float(), gsum.float()[:, None]
@@ -191,7 +253,7 @@ def psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta=None, form="tc"):
     return dmu.double(), ds.double(), dal.double(), _mirror(acc.T.contiguous(), m)
 
 
-def psi2_vjp(mu, s, z, sf2, alpha, w, dp2, zeta=None, form="tc"):
+def psi2_vjp(mu, s, z, sf2, alpha, w, dp2, zeta=None, form="tc", shift=None):
     """(sum_n w_n Psi2_n, (dmu, ds, dz, dsf2, dalpha)) against the cotangent
     dp2 (M, M): the model's statistic, and its reductions assembled by the
     wrapper's own ``psi_cuda._assemble_bwd`` in float32, as the wrapper
@@ -203,8 +265,8 @@ def psi2_vjp(mu, s, z, sf2, alpha, w, dp2, zeta=None, form="tc"):
     z32, sf2_32, alpha32 = f(z), f(sf2), f(alpha)
     sym = 0.5 * (f(dp2) + f(dp2).T)
     kmat = sym * (2.0 - torch.eye(m))
-    p2 = psi2_sum(mu, s, z, sf2, alpha, w, zeta)
-    dmu, ds, dal, a = psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta, form)
+    p2 = psi2_sum(mu, s, z, sf2, alpha, w, zeta, shift)
+    dmu, ds, dal, a = psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta, form, shift)
     dz2 = (z32[:, None, :] - z32[None, :, :]) ** 2
     zero_p1y = torch.zeros((m, 1))
     dz, dsf2, dalpha = _assemble_bwd(z32, sf2_32, alpha32, zero_p1y, p2.float(), zero_p1y,

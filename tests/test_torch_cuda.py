@@ -85,6 +85,30 @@ def test_qn_kernels_equal_nq_kernels_on_transposed_inputs(cuda):
             assert torch.equal(a, b.T if i in (0, 1, 5) else b), i
 
 
+@pytest.mark.parametrize("q", [100, 256])
+def test_chunked_qn_kernels_equal_nq_kernels_on_transposed_inputs(cuda, q):
+    """Past Q = 64 (K-chunked tensor-core kernels, the exponents shifted by
+    2^S; at Q = 256 the backward's dimensions in two passes) both layouts
+    still run the same sums in the same order. dalpha, whose row shares the
+    wrapper sums in float32 over N in a layout's own order, cancels to
+    entries far below its largest at these widths: it is held to 1e-6 of
+    its largest entry."""
+    xs = list(_inputs(cuda, n=300, m=70, q=q, d=12))
+    xs[4] = xs[4] * (44.0 / q)
+    ts = [t.T.contiguous() if i in (0, 1, 5) else t for i, t in enumerate(xs)]
+    p1y, p2 = psi_cuda.psi_fwd(*xs)
+    p1y_t, p2_t = psi_cuda.psi_fwd_t(*ts)
+    assert torch.equal(p1y, p1y_t) and torch.equal(p2, p2_t)
+    cot = (torch.ones_like(p1y), torch.ones_like(p2))
+    g = psi_cuda.psi_bwd(*xs, p1y, p2, *cot)
+    g_t = psi_cuda.psi_bwd_t(*ts, p1y, p2, *cot)
+    for i, (a, b) in enumerate(zip(g, g_t)):
+        if i == 4:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+        else:
+            assert torch.equal(a, b.T if i in (0, 1, 5) else b), i
+
+
 def test_wrappers_count_launches(cuda):
     xs = _inputs(cuda)
     before = dict(psi_cuda.LAUNCHES)

@@ -9,7 +9,10 @@ its reductions assembled by the wrapper's own ``psi_cuda._assemble_bwd``,
 are held against
 the JAX package in float64 (``psi.psi2_sum`` and its VJP) at every Q bucket
 of the kernels, with the latents centred and offset by +5 (mu and Z
-together), at ``chip_smoke.F64_TOL``."""
+together), at ``chip_smoke.F64_TOL``; past Q = 64 (K chunked, the exact
+shift 2^S in the row constants) at the larger of that and twice the plain
+float32 engine's own error on the same inputs, as chip_smoke holds the
+kernels there."""
 
 import numpy as np
 import pytest
@@ -21,12 +24,14 @@ import jax  # noqa: E402
 from gparml_tpu.ops import psi as jpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi as tpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi_tc_model as tm  # noqa: E402
-from tools.psi_tc_numerics import BUCKETS, problem  # noqa: E402
+from tools.psi_tc_numerics import BUCKETS, CONTROL, WIDE, problem, reference  # noqa: E402
 
 torch.set_num_threads(2)
 
 # chip_smoke.F64_TOL: the kernels' float32 statistics against float64.
 F64_TOL = 1e-5
+# chip_smoke.F64_FLOOR_FACTOR: past Q = 64, times the plain f32 engine's error.
+F64_FLOOR_FACTOR = 2.0
 N, M = 200, 40
 
 
@@ -58,6 +63,48 @@ def test_tc_psi2_and_gradients_match_jax_float64(q, offset):
     errs = {"psi2": _rel(p2, want)}
     errs.update({name: _rel(g, gw) for name, g, gw in
                  zip(("mu", "s", "z", "sf2", "alpha"), grads, want_grads)})
+    assert max(errs.values()) <= F64_TOL, errs
+
+
+def _model_errors(q, offset, raw, shift=None):
+    """({leaf: model error vs JAX float64}, the plain f32 engine's worst)."""
+    pr = problem(N, M, q, offset, raw_alpha=raw)
+    mu, s, z, sf2, alpha, w, dp2 = pr
+    want, vjp = jax.vjp(lambda *xs: jpsi.psi2_sum(*xs, w), mu, s, z, sf2, alpha)
+    want_grads = vjp(dp2)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    p2, grads = tm.psi2_vjp(t(mu), t(s), t(z), t(sf2), t(alpha), t(w), t(dp2), shift=shift)
+    errs = {"psi2": _rel(p2, want)}
+    errs.update({name: _rel(g, gw) for name, g, gw in
+                 zip(("mu", "s", "z", "sf2", "alpha"), grads, want_grads)})
+    p2_32, grads_32 = reference(*pr, torch.float32)
+    plain = max([_rel(p2_32, want)] + [_rel(g, gw) for g, gw in zip(grads_32, want_grads)])
+    return errs, plain
+
+
+@pytest.mark.parametrize("offset", [0.0, 5.0], ids=["centred", "offset5"])
+@pytest.mark.parametrize("q,raw", WIDE, ids=[f"q{q}" + ("-raw-alpha" if r else "")
+                                             for q, r in WIDE])
+def test_chunked_psi2_and_gradients_match_jax_float64(q, raw, offset):
+    """Past Q = 64: K walked in chunks, the shift 2^S folded into the row
+    constants; Q = 100 with the raw alpha puts Psi2 at and below the
+    bottom of float32's normal range, which the shift brings back."""
+    errs, plain = _model_errors(q, offset, raw)
+    assert max(errs.values()) <= max(F64_TOL, F64_FLOOR_FACTOR * plain), (errs, plain)
+
+
+def test_chunked_exponent_needs_the_shift_where_psi2_is_subnormal():
+    """Without the shift (S = 0), Q = 100 with the raw alpha: g = K w e is
+    mostly subnormal in float32 and its TF32 split loses its bits, so the
+    gradients are far past the tolerance; that is why the kernels shift."""
+    errs, _ = _model_errors(100, 0.0, True, shift=0)
+    assert max(errs.values()) > 1e-3, errs
+
+
+def test_bucket_64_with_raw_alpha_needs_no_shift():
+    """The Q <= 64 kernels take no shift: at their widest bucket with the
+    raw alpha the arithmetic is still within F64_TOL of float64."""
+    errs, _ = _model_errors(*CONTROL[:1], 0.0, CONTROL[1])
     assert max(errs.values()) <= F64_TOL, errs
 
 

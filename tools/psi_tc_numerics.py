@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Numerics of the tensor-core Psi2 arithmetic, on the CPU.
 
-Runs the plain model of the Q <= 64 Psi2 kernels' arithmetic
+Runs the plain model of the Psi2 kernels' arithmetic
 (``gparml_tpu_torch/ops/psi_tc_model.py``: the exponent as a 3-term TF32
 product in expanded form, constants added in float32, exp2) on small random
-problems at every Q bucket, with the latents centred on the origin and
+problems at every Q bucket and past Q = 64 (K chunked, Q = 65, 100, 256 with
+alpha scaled by 44/Q as chip_smoke.parity_case scales it, and Q = 100 with
+the raw alpha, where Psi2 lies at and below the bottom of float32's normal
+range), with
+the latents centred on the origin and
 offset by +5 (mu and Z shifted together), and prints, per case, the largest
 error of max|ref| of sum_n w_n Psi2_n and of each gradient leaf (mu, s, z,
 sf2, alpha, against a random cotangent of Psi2) from the port's plain
@@ -14,6 +18,7 @@ engine in float64, for:
     products of g [zb' | zb'^2 | 1] and w e [c mu' | c] over tiles of 64
     combined in float64 ("tc"), or per pair in float32 in the centred
     direct form;
+  * past Q = 64, the exact shift 2^S folded into the row constants or not;
 and beside them the plain float32 engine's own error on the same inputs.
 These are the numbers that chose the kernels' design (PERF.md).
 
@@ -27,11 +32,16 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BUCKETS = (2, 4, 10, 16, 32, 64)
+# Past Q = 64: (Q, raw alpha); and the Q <= 64 kernels' control at their
+# widest bucket with the raw alpha (no shift there).
+WIDE = ((65, False), (100, False), (256, False), (100, True))
+CONTROL = (64, True)
 
 
-def problem(n, m, q, offset, seed=0):
+def problem(n, m, q, offset, seed=0, raw_alpha=False):
     """(mu, s, z, sf2, alpha, w, dp2) as float64 numpy arrays, drawn as
-    chip_smoke.parity_case draws them, the latents shifted by ``offset``."""
+    chip_smoke.parity_case draws them, the latents shifted by ``offset``;
+    past Q = 64 alpha is scaled by 44/Q unless ``raw_alpha``."""
     import numpy as np
 
     rng = np.random.default_rng(seed + 100 * q + n + m)
@@ -39,6 +49,8 @@ def problem(n, m, q, offset, seed=0):
     s = 0.3 + 0.5 * rng.random((n, q))
     z = rng.standard_normal((m, q)) + offset
     alpha = 0.5 + rng.random(q)
+    if q > 64 and not raw_alpha:
+        alpha *= 44.0 / q
     w = np.r_[np.ones(n - n // 10), np.zeros(n // 10)]
     dp2 = rng.standard_normal((m, m))
     return mu, s, z, np.asarray(1.3), alpha, w, dp2
@@ -63,13 +75,20 @@ def errors(got, ref):
     return [rel(p2, p2_r)] + [rel(a, b) for a, b in zip(grads, grads_r)]
 
 
-def model(mu, s, z, sf2, alpha, w, dp2, centred, form):
+def model(mu, s, z, sf2, alpha, w, dp2, centred, form, shift=None):
+    """The model's (Psi2 sum, gradient leaves); ``shift`` None: the kernels'
+    own (S past Q = 64, else 0), 0: none."""
     import torch
     from gparml_tpu_torch.ops import psi_tc_model as tm
 
     t = lambda a: torch.tensor(a, dtype=torch.float32)
     zeta = None if centred else torch.zeros(z.shape[1])
-    return tm.psi2_vjp(t(mu), t(s), t(z), t(sf2), t(alpha), t(w), t(dp2), zeta, form)
+    return tm.psi2_vjp(t(mu), t(s), t(z), t(sf2), t(alpha), t(w), t(dp2), zeta, form, shift)
+
+
+def _print(q, offset, name, e):
+    print(f"{q:>3} {offset:>6.1f} {name:<28}" + "".join(f"{v:>10.2e}" for v in e)
+          + f"{max(e):>10.2e}")
 
 
 def main() -> int:
@@ -82,7 +101,7 @@ def main() -> int:
     torch.set_num_threads(4)
     cols = "psi2 dmu ds dz dsf2 dalpha".split()
     print(f"N={args.n} M={args.m}; max abs err / max|ref| vs the plain engine in float64")
-    print(f"{'Q':>3} {'offset':>6} {'variant':<24}" + "".join(f"{c:>10}" for c in cols)
+    print(f"{'Q':>3} {'offset':>6} {'variant':<28}" + "".join(f"{c:>10}" for c in cols)
           + f"{'worst':>10}")
     for q in BUCKETS:
         for offset in (0.0, 5.0):
@@ -94,9 +113,22 @@ def main() -> int:
                     name = f"{'zeta=mean' if centred else 'zeta=0'}, {form}"
                     rows[name] = model(*pr, centred, form)
             for name, got in rows.items():
-                e = errors(got, ref)
-                print(f"{q:>3} {offset:>6.1f} {name:<24}" + "".join(f"{v:>10.2e}" for v in e)
-                      + f"{max(e):>10.2e}")
+                _print(q, offset, name, errors(got, ref))
+    print("past Q = 64, K chunked, centred, tc form; alpha x 44/Q unless raw")
+    for q, raw in WIDE:
+        for offset in (0.0, 5.0):
+            pr = problem(args.n, args.m, q, offset, raw_alpha=raw)
+            ref = reference(*pr, torch.float64)
+            tag = ", raw alpha" if raw else ""
+            _print(q, offset, "plain f32 engine" + tag, errors(reference(*pr, torch.float32), ref))
+            _print(q, offset, "shift 2^S" + tag, errors(model(*pr, True, "tc"), ref))
+            _print(q, offset, "no shift" + tag, errors(model(*pr, True, "tc", shift=0), ref))
+    q, raw = CONTROL
+    print(f"Q = {q} (bucket 64, no shift), raw alpha, centred, tc form")
+    pr = problem(args.n, args.m, q, 0.0, raw_alpha=raw)
+    ref = reference(*pr, torch.float64)
+    _print(q, 0.0, "plain f32 engine, raw alpha", errors(reference(*pr, torch.float32), ref))
+    _print(q, 0.0, "bucket 64, raw alpha", errors(model(*pr, True, "tc"), ref))
     return 0
 
 
