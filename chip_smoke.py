@@ -15,6 +15,10 @@ Phases, one line each or more:
      Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N)), also
      with the latents offset by +5 from the origin, and at Q = 100 with
      alpha unscaled, where every Psi2 entry is below float32's normal range;
+     at M=1000, Q=44 (Z staged in pieces by the Psi1 row pass); and the
+     flush case: the slice's shape at sf2 = 1e-20, every Psi2 entry below
+     2^-126, Psi2 and the gradients of a Psi2 probe against the plain
+     version in float64;
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -41,9 +45,24 @@ Phases, one line each or more:
      time the kernel wrappers at their shapes (the windows of the TPU's
      `_fwd_kernel`, `_bwd_kernel` and `_bwd_kernel_stair`) against their
      plain versions; (c) also times the wrappers at Q = 256 beside their
-     bounds.
+     bounds;
+  7. prediction, latent inference and sparse GP regression: (a) the slice's
+     GPLVM (N=1e6 rows and 1e4 more held out, drawn in one call), fitted
+     for 5 SCG iterations, then predict_observed at 1e4 latent points,
+     infer_latents on 1e3 held-out rows (20 SCG iterations; the kernels
+     must launch, the bound must not decrease, and the first evaluation is
+     held against the plain engine in float64 as phase 4 holds the bound)
+     and reconstruct of those rows (held against the plain float64 route;
+     RMSE under half the zero-mean baseline); (b) reconstruct at config 5
+     (phase 5's parameters, 1e4 points; run right after phase 5), its
+     first 1024 points against the float64 route on the same statistics;
+     (c) SGPR: BASELINE config 1 through the CLI (--fixed-embeddings, 200
+     SCG iterations, the learned noise std within 0.15-0.25, then a resume
+     with --load) and the API at N=1e6, Q=1, M=200 in both layouts (one
+     bound+gradient against float64, and 5 SCG iterations).
 Each phase that drives the main path sets the kernels' launch counts to 0
-just before it and reads them just after (phase 6: each CLI run). The line before the last is the
+just before it and reads them just after (phase 6: each CLI run; phase 7:
+each call). The line before the last is the
 kernel table as JSON; the last line is {"ok": true, "device": {...}}. A
 failed check prints a "chip_smoke check failed" line, the run goes on to
 its end for the readings, and then exits non-zero without those two lines.
@@ -93,6 +112,10 @@ LAYOUT_TOL = 1e-6
 # Full-N sums against the float64 sum of the kernels' outputs over 100
 # short slices: sound kernels read <= 7.5e-8, splits of 5e6 rows 3.1e-6.
 LONG_SUM_TOL = 1e-6
+# Predictions (mean, variance) in float32 against the same float32 form
+# evaluated in float64 on the same statistics (``_float32_form``): max abs
+# error of max|ref|.
+PREDICT_TOL = SLICE_TOL
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 on the CUDA cores, and HBM bytes; dense TF32 on the tensor cores,
@@ -106,7 +129,8 @@ MUFU_PER_CLOCK_SM = 16
 # (N, M, Q, D, rows with zero weight): the flat-kernel shape of the JAX
 # smoke, a weighted N=1000, the top of the TPU's flat window (M=512), a
 # ragged shape with D > 16 (the backward's D chunking), and Q=44 (bucket 64),
-# also at the H100's M limit there (908: Z fills the shared memory); then
+# also at M=908 (Z filled the shared memory before the Psi1 row pass staged
+# it in pieces); then
 # one case for each other Q bucket of csrc/psi_common.cuh: Q=2 (the
 # default GPLVMConfig), Q=3 (bucket 4), Q=16 and Q=27 (bucket 32). Then the
 # windows of the TPU's other kernels (`_fwd_kernel`, `_bwd_kernel_stair`,
@@ -118,7 +142,8 @@ MUFU_PER_CLOCK_SM = 16
 # bucket 64 at a small N with many cells. A sixth entry is that offset; a
 # seventh, True, keeps alpha unscaled past Q = 64 (``parity_case``): at
 # Q = 100 every Psi2 entry is then below float32's normal range, which the
-# chunked kernels' exact shift of the exponents is for.
+# chunked kernels' exact shift of the exponents is for. After them, Q=44
+# past M=908, at M=1000: the Psi1 row pass stages Z in six pieces.
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
     (1000, 200, 10, 12, 300),
@@ -141,8 +166,13 @@ PARITY_CASES = (
     (1000, 200, 10, 12, 0, 5.0),
     (64, 512, 64, 12, 0),
     (24, 256, 100, 16, 5, 0.0, True),
+    (40, 1000, 44, 12, 5),
 )
 LAYOUTS = ("nq", "qn")
+# (N, M, Q, D, sf2) of the flush case: the slice's shape (phase 3's first
+# case) with every Psi2 entry below 2^-126, where the kernels' exp2
+# (ex2.approx.ftz) gives zero unless the exponent is shifted.
+FLUSH_CASE = (1000, 200, 10, 12, 1e-20)
 # (N, Q, M, D) of phase 4's slice (BASELINE config 4), of phase 5's check
 # shape (JAX bench's m500_n1e5_sec; with the plain engine's N-block) and of
 # BASELINE config 5.
@@ -158,6 +188,18 @@ CLI_WIDE_Q = (100_000, 128, 100, 256, 3, 1000)
 # The chunked kernels' widest timed shape (N, M, Q, D).
 WIDEST_Q = (100_000, 256, 256, 128)
 CLI_PARTITIONS = 4
+# Phase 7, prediction and inference. (a) the slice's GPLVM: (N, Q, M, D,
+# SCG iterations of its fit, rows drawn past N and held out, latent points
+# of predict_observed, held-out rows inferred, SCG iterations of
+# infer_latents, the plain engine's N-block); (b) reconstruct at config 5
+# from phase 5's parameters: (points, of which held against float64);
+# (c) SGPR: BASELINE config 1 through the CLI (N, D, Q, M, SCG iterations,
+# resumed iterations, bounds of the learned noise std; true 0.2), and the
+# API at N=1e6 (N, Q, M, SCG iterations).
+SERVE = (1_000_000, 10, 200, 12, 5, 10_000, 10_000, 1_000, 20, 4000)
+RECON_C5 = (10_000, 1024)
+SGPR_CLI = (1000, 1, 1, 10, 200, 20, (0.15, 0.25))
+SGPR_API = (1_000_000, 1, 200, 5)
 GRAD_NAMES = ("mu", "s", "z", "sf2", "alpha", "y")
 
 FAILURES = []
@@ -231,6 +273,45 @@ def parity_case(n, m, q, d, nzero, offset=0.0, raw_alpha=False, device="cuda", l
     bad += [f"d{k}_f64" for k in GRAD_NAMES if out[f"d{k}_f64"] > GRAD_TOL_F64]
     _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d} offset={offset} "
              f"raw_alpha={raw_alpha}: {bad} {out}")
+    return out
+
+
+def flush_case(n, m, q, d, sf2, device="cuda", layout="nq"):
+    """Psi2 where every entry lies below 2^-126 (``sf2`` tiny): the kernels'
+    Psi2 and the gradients of the probe sum(Psi2 * W) / sf2 (the scale of
+    the bound's dPsi2, through K_MM^-1) against the plain version in
+    float64, beside the plain float32 version's own errors (max abs error
+    / max|ref| per output). The kernels are held to the larger of F64_TOL
+    and F64_FLOOR_FACTOR times the plain float32 error of each output:
+    both hand the backward's assembly the float32 Psi2, subnormal here.
+    Fails the run past that; returns {output: (kernel error, plain f32
+    error)}."""
+    import torch
+
+    _, _, fused, fwd_ref, _ = _wrappers(layout)
+    rng = np.random.default_rng(m + n)
+    host = dict(mu=rng.standard_normal((n, q)), s=0.3 + 0.5 * rng.random((n, q)),
+                z=rng.standard_normal((m, q)), sf2=np.asarray(sf2),
+                alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)))
+    if layout == "qn":
+        host.update({k: np.ascontiguousarray(host[k].T) for k in ("mu", "s", "y")})
+    w = np.ones(n)
+    wp = rng.standard_normal((m, m)) / sf2
+
+    def run(dtype, kernels):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+        xs = [t(host[k]).requires_grad_(True) for k in GRAD_NAMES[:5]]
+        _, p2 = (fused if kernels else fwd_ref)(*xs, t(host["y"]), t(w))
+        grads = torch.autograd.grad(torch.sum(p2 * t(wp)), xs)
+        return [a.detach().double().cpu().numpy() for a in (p2, *grads)]
+
+    got, plain, ref = run(torch.float32, True), run(torch.float32, False), run(torch.float64, False)
+    err = lambda a, b: float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+    names = ("psi2",) + tuple(f"d{k}" for k in GRAD_NAMES[:5])
+    out = {k: (err(a, c), err(b, c)) for k, a, b, c in zip(names, got, plain, ref)}
+    bad = [k for k, (e, e32) in out.items()
+           if not math.isfinite(e) or e > max(F64_TOL, F64_FLOOR_FACTOR * e32)]
+    _require(not bad, f"flush {layout} N={n} M={m} Q={q} D={d} sf2={sf2}: {bad} {out}")
     return out
 
 
@@ -824,6 +905,7 @@ def phase5_config5(dev, kernels):
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         kernels.append(entry)
     print("phase 5 config 5 kernels: " + "; ".join(map(_entry_text, kernels[-2:])))
+    return p, y_t
 
 
 def _window_times(case, dev):
@@ -1065,6 +1147,341 @@ def _widest_q_times(dev):
     print(f"phase 6 widest Q, N={n} M={m} Q={q} D={d}: " + "; ".join(texts))
 
 
+def _timed(fn):
+    """(wall seconds, fn()) with the card synchronized around the call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _rel_err(got, ref):
+    """{output index: max abs error / max|ref|} of two tuples of tensors."""
+    return [float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-300))
+            for a, b in zip(got, ref)]
+
+
+def _float32_form(st32, st64):
+    """st64 with Psi2 as the float32 posterior takes it: plus the jitter of
+    ``bound._chol_psi2`` (30 or 3000 float32 eps times tr(Psi2), the rung
+    st32's float32 Psi2 takes). The B-form on it is the float32 form's
+    function evaluated in float64: what the float32 route computes, without
+    its rounding."""
+    import torch
+    from gparml_tpu_torch.ops import bound as bound_ops
+
+    m = st64.psi2.shape[0]
+    jit = (float(bound_ops._jitter_scale(st32.psi2)) * float(torch.finfo(torch.float32).eps)
+           * torch.trace(st64.psi2))
+    eye = torch.eye(m, dtype=torch.float64, device=st64.psi2.device)
+    return st64._replace(psi2=st64.psi2 + jit * eye)
+
+
+def _hold_predictions(label, fn, k32, x32, k64, x64, ref64):
+    """Hold a prediction function ``fn(stats, dtype)`` -> (mean, variance)
+    computed from the kernels' statistics against its references, as the
+    bound is held in phase 4: the kernels' float32 route against the plain
+    engine's (SLICE_TOL); the kernels' statistics through the float64
+    algebra against the plain float64 route (F64_TOL, or twice the plain
+    float32 statistics' own distance through the same algebra); and the
+    float32 route against its float32 form in float64 on the same
+    statistics (PREDICT_TOL). The float32 form's distance from the plain
+    float64 route is its jitter's, the JAX package's own: printed, not
+    held. k32/x32: the kernels' and the plain engine's float32 statistics;
+    k64/x64 those cast to float64; ref64 the plain float64 engine's."""
+    import torch
+
+    got = fn(k32, torch.float32)
+    vs_plain = _rel_err(got, fn(x32, torch.float32))
+    want = fn(ref64, torch.float64)
+    vs64 = _rel_err(fn(k64, torch.float64), want)
+    plain64 = _rel_err(fn(x64, torch.float64), want)
+    form = _rel_err(got, fn(_float32_form(k32, k64), torch.float64))
+    _require(max(vs_plain) <= SLICE_TOL, f"{label} vs the plain engine: {vs_plain}")
+    _require(all(e <= max(F64_TOL, F64_FLOOR_FACTOR * e0) for e, e0 in zip(vs64, plain64)),
+             f"{label} kernels' statistics through float64 vs float64: {vs64} "
+             f"(plain f32 statistics {plain64})")
+    _require(max(form) <= PREDICT_TOL, f"{label} float32 route vs its form in float64: {form}")
+    print(f"{label} (mean, variance) max abs err of max|ref|: kernels vs plain f32 "
+          f"{vs_plain[0]:.2e}, {vs_plain[1]:.2e}; kernels' statistics + f64 vs plain f64 "
+          f"{vs64[0]:.2e}, {vs64[1]:.2e} (plain f32 statistics {plain64[0]:.2e}, "
+          f"{plain64[1]:.2e}); f32 route vs its form in f64 {form[0]:.2e}, {form[1]:.2e}; "
+          f"whole f32 route vs plain f64 " + ", ".join(f"{e:.2e}" for e in _rel_err(got, want)))
+    return got
+
+
+def _glob_of(p, dtype=None):
+    """(z, sf2, alpha, beta) of p's globals, detached, in ``dtype``."""
+    from gparml_tpu_torch.models import params as P
+
+    return tuple(t.detach().to(dtype or t.dtype) for t in P.constrain(p.glob))
+
+
+def _infer_f64_bound(p, y, y_new, cfg, lat):
+    """(-bound, gradient in the new latents ``lat``) of infer_latents'
+    objective with ``cfg``'s engine at float32 and the bound in float64."""
+    import torch
+    from gparml_tpu_torch.models import gplvm, params as P
+    from gparml_tpu_torch.ops import bound as bound_ops
+
+    glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob)))
+    with torch.no_grad():
+        st_tr = gplvm.suff_stats(p, y, cfg)
+    p_new = P.GPLVMParams(glob, P.LatentParams(*lat))
+    st_new = gplvm.suff_stats(p_new, y_new, cfg)
+    st = type(st_tr)(*(a.double() + b.double() for a, b in zip(st_tr, st_new)))
+    z, sf2, alpha, beta = _glob_of(p, torch.float64)
+    f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=gplvm._d_of(y, cfg),
+                                    jitter=cfg.jitter)
+    return f.detach(), torch.autograd.grad(f, list(p_new.lat.parameters()))
+
+
+def phase7_serving(dev):
+    """7(a): the slice's GPLVM (N=1e6, Q=10, M=200, D=12, nq, float32)
+    fitted, then predict_observed, infer_latents on held-out rows and
+    reconstruct from the inferred q(x*)."""
+    import torch
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import gplvm, params as P
+    from gparml_tpu_torch.ops import bound as bound_ops, psi_cuda
+
+    n, q, m, d, iters, n_held, n_pred, n_inf, inf_iters, block = SERVE
+    t0 = time.perf_counter()
+    # one draw of N + held rows: oil_flow_like's rows depend on n
+    y_np, _ = data.oil_flow_like(n=n + n_held, d=d)
+    y_all = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    y, y_new = y_all[:n], y_all[n:n + n_inf].contiguous()
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="auto")
+    cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla", block=block)
+    p0 = gplvm.init_params(torch.Generator(dev).manual_seed(0), y, cfg)
+    fit_s, res = _timed(lambda: gplvm.fit(p0, y, cfg, iters=iters))
+    p = res.params
+    print(f"phase 7(a) N={n}+{n_held} held out, Q={q} M={m} D={d}: data+init "
+          f"{time.perf_counter() - t0 - fit_s:.2f} s, fit {iters} SCG iterations "
+          f"{fit_s:.2f} s, bound {res.trace['bound'][0]:.6g} -> {res.bound:.6g}")
+
+    p64, y64 = P.from_leaves([t.double() for t in P.leaves(p)]), y.double()
+    with torch.no_grad():
+        st = {"k32": gplvm.suff_stats(p, y, cfg), "x32": gplvm.suff_stats(p, y, cfg_x),
+              "ref64": gplvm.suff_stats(p64, y64, cfg_x)}
+    st["k64"] = type(st["k32"])(*(t.double() for t in st["k32"]))
+    st["x64"] = type(st["x32"])(*(t.double() for t in st["x32"]))
+    glob = {torch.float32: _glob_of(p), torch.float64: _glob_of(p, torch.float64)}
+
+    # predict_observed at latent points: the fitted means of the first rows
+    x_star = gplvm.latents(p, cfg)[0][:n_pred].detach().contiguous()
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    with torch.no_grad():
+        sec, out = _timed(lambda: gplvm.predict_observed(p, y, x_star, cfg))
+    launches = dict(psi_cuda.LAUNCHES)
+    _require(launches["fwd"] > 0 and all(torch.isfinite(t).all() for t in out)
+             and tuple(out[0].shape) == (n_pred, d), f"phase 7(a) predict_observed: {launches}")
+    print(f"phase 7(a) predict_observed at {n_pred} latent points: {sec:.3f} s; "
+          f"launches {launches}")
+    _hold_predictions(
+        "phase 7(a) predict_observed",
+        lambda s_, dt: bound_ops.predict(x_star.to(dt), s_, *glob[dt]), **st)
+
+    # infer_latents: kernel launches, a non-decreasing bound, and its first
+    # evaluation against the plain engine in float64, as phase 4 holds the
+    # bound
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    sec, (mu_s, s_s, inf) = _timed(lambda: gplvm.infer_latents(p, y, y_new, cfg,
+                                                               iters=inf_iters))
+    launches = dict(psi_cuda.LAUNCHES)
+    bound = inf.trace["bound"]
+    done = int(np.isfinite(bound).sum())
+    _require(launches["fwd"] > 0 and launches["bwd"] > 0,
+             f"phase 7(a) infer_latents skipped a kernel: {launches}")
+    _require(done > 0 and np.all(np.diff(bound[:done]) >= 0),
+             f"phase 7(a) infer_latents bound decreased: {bound}")
+    print(f"phase 7(a) infer_latents {n_inf} rows, {inf_iters} SCG iterations: {sec:.3f} s "
+          f"({done} iterations, {inf.n_evals} evaluations, {sec / max(done, 1):.4f} s per "
+          f"iteration), bound {bound[0]:.8g} -> {bound[done - 1]:.8g}; launches {launches}")
+    vg, lat0 = gplvm._infer_objective(p, y, y_new, cfg)
+    f_k, g_k = vg(lat0)
+    f_x, g_x = gplvm._infer_objective(p, y, y_new, cfg_x)[0](lat0)
+    f_64, g_64 = gplvm._infer_objective(p64, y64, y_new.double(), cfg_x)[0](
+        [t.double() for t in lat0])
+    f_kb, g_kb = _infer_f64_bound(p, y, y_new, cfg, lat0)
+    f_xb, g_xb = _infer_f64_bound(p, y, y_new, cfg_x, lat0)
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))
+    norm = lambda gs, hs: [_norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
+                           for a, b in zip(gs, hs)]
+    vs_plain, kb, xb = norm(g_k, g_x), norm(g_kb, g_64), norm(g_xb, g_64)
+    _require(rel(f_k, f_x) <= SLICE_TOL and max(vs_plain) <= SLICE_TOL,
+             f"phase 7(a) infer first evaluation vs plain: {rel(f_k, f_x)}, {vs_plain}")
+    _require(rel(f_kb, f_64) <= F64_TOL and max(kb) <= F64_TOL,
+             f"phase 7(a) infer first evaluation, kernels' statistics with a float64 "
+             f"bound vs float64: {rel(f_kb, f_64)}, {kb}")
+    print(f"phase 7(a) infer first evaluation (bound rel; gradient mu, u_s norm-scaled): "
+          f"kernels vs plain f32 {rel(f_k, f_x):.2e}; {vs_plain[0]:.2e}, {vs_plain[1]:.2e}; "
+          f"kernels' statistics + f64 bound vs plain f64 {rel(f_kb, f_64):.2e}; "
+          f"{kb[0]:.2e}, {kb[1]:.2e} (plain f32 statistics {rel(f_xb, f_64):.2e}; "
+          f"{xb[0]:.2e}, {xb[1]:.2e}); whole f32 path vs f64 {rel(f_k, f_64):.2e}; "
+          + ", ".join(f"{e:.2e}" for e in norm(g_k, g_64)))
+
+    # reconstruct the held-out rows from the inferred q(x*)
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        sec, out = _timed(lambda: gplvm.reconstruct(p, y, mu_s, s_s, cfg))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(psi_cuda.LAUNCHES)
+    mean = _hold_predictions(
+        "phase 7(a) reconstruct",
+        lambda s_, dt: bound_ops.predict_uncertain(mu_s.to(dt), s_s.to(dt), s_, *glob[dt]),
+        **st)[0]
+    rmse = float(torch.sqrt(torch.mean((mean - y_new) ** 2)))
+    base = float(torch.sqrt(torch.mean(y_new ** 2)))
+    _require(rmse < 0.5 * base, f"phase 7(a) reconstruct RMSE {rmse} vs zero-mean {base}")
+    print(f"phase 7(a) reconstruct {n_inf} rows: {sec:.3f} s, peak {peak:.2f} GB; RMSE "
+          f"{rmse:.4f} (zero-mean baseline {base:.4f}, ratio {rmse / base:.3f}); "
+          f"launches {launches}")
+
+
+def phase7_config5(dev, p, y_t):
+    """7(b): reconstruct at config 5's width (N=1e7, M=500, qn/dn) from phase
+    5's parameters, at the latents of its first rows."""
+    import torch
+    from gparml_tpu_torch.models import gplvm
+    from gparml_tpu_torch.ops import bound as bound_ops, psi_cuda
+
+    n_star, n_check = RECON_C5
+    q, m = CONFIG5[1], CONFIG5[2]
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, layout="qn", y_layout="dn",
+                            stats_impl="auto")
+    mu, s = (t[:n_star].detach().contiguous() for t in gplvm.latents(p, cfg))
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        sec, (mean, var) = _timed(lambda: gplvm.reconstruct(p, y_t, mu, s, cfg))
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(psi_cuda.LAUNCHES)
+        st = gplvm.suff_stats(p, y_t, cfg)
+        st64 = type(st)(*(t.double() for t in st))
+        ref = lambda s_: bound_ops.predict_uncertain(
+            mu[:n_check].double(), s[:n_check].double(), s_, *_glob_of(p, torch.float64))
+        got = (mean[:n_check], var[:n_check])
+        form, errs = _rel_err(got, ref(_float32_form(st, st64))), _rel_err(got, ref(st64))
+    _require(launches["fwd_t"] > 0 and tuple(mean.shape) == (n_star, y_t.shape[0])
+             and bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+             f"phase 7(b) reconstruct: {launches}")
+    _require(max(form) <= PREDICT_TOL,
+             f"phase 7(b) reconstruct vs its float32 form in float64: {form}")
+    print(f"phase 7(b) config 5 reconstruct N={y_t.shape[1]} M={m} qn/dn, {n_star} points: "
+          f"{sec:.3f} s, peak {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"model and data); launches {launches}; first {n_check} (mean, variance), max abs "
+          f"err of max|ref|, on the kernels' statistics: vs the float32 form in float64 "
+          f"{form[0]:.2e}, {form[1]:.2e}; vs the float64 route {errs[0]:.2e}, {errs[1]:.2e}")
+
+
+def phase7_sgpr(dev, work):
+    """7(c): SGPR. BASELINE config 1 through the CLI (--fixed-embeddings),
+    then a resume; and the API at N=1e6 in both layouts: one bound+gradient
+    held against float64, and an SCG fit."""
+    import torch
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import params as P, sgpr
+    from gparml_tpu_torch.ops import bound as bound_ops
+
+    n, d, q, m, iters, more, (lo, hi) = SGPR_CLI
+    x_np, y_np = data.synthetic_regression(n=n, seed=0)
+    folder = os.path.join(work, "sgpr")
+    stats, emb = os.path.join(folder, "st"), os.path.join(folder, "emb")
+    data.save_embeddings(emb, x_np, np.zeros_like(x_np), CLI_PARTITIONS)
+    base = ["-i", _write_inputs(folder, y_np), "-e", emb, "-s", stats, "-m", m,
+            "--fixed-embeddings", "--seed", 0, "--device", dev.type]
+    s1, l1, sec1 = _cli_run(base + ["-T", iters, "--trace-timing"])
+    rows = _history(stats)
+    hist = np.array([r["bound"] for r in rows])
+    hist = hist[np.isfinite(hist)]
+    with np.load(os.path.join(stats, "checkpoint.npz")) as f:
+        g = P.global_from_numpy(P.GlobalArrays(*(f[k] for k in P.GlobalArrays._fields)),
+                                device=dev)
+    noise = float(1.0 / torch.sqrt(P.constrain(g)[3].detach()))
+    _require(s1["mode"] == "sgpr" and len(hist) > 0 and np.all(np.diff(hist) >= 0),
+             f"phase 7(c) config 1 bound not non-decreasing: {hist[:3]}...{hist[-3:]}")
+    _require(lo <= noise <= hi, f"phase 7(c) config 1 noise std {noise} outside [{lo}, {hi}]")
+    x = torch.tensor(x_np, dtype=torch.float32, device=dev)
+    y = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    f0 = float(sgpr.log_bound(g, x, y, sgpr.SGPRConfig(num_inducing=m)).detach())
+    s2, l2, sec2 = _cli_run(base + ["-T", more, "--load"])
+    rel = abs(f0 - s1["final_bound"]) / abs(s1["final_bound"])
+    _require(rel <= 1e-5, f"phase 7(c) checkpoint bound {f0} vs saved {s1['final_bound']}")
+    _require(s2["final_bound"] >= f0, f"phase 7(c) resume ended below its start: {f0} -> {s2}")
+    per_eval = np.nansum([r.get("wall_s", np.nan) for r in rows]) / max(s1["n_evals"] - 1, 1)
+    print(f"phase 7(c) BASELINE config 1 through the CLI, N={n} D={d} Q={q} M={m} -T {iters}: "
+          f"{sec1:.2f} s, bound {hist[0]:.6g} -> {hist[-1]:.6g} ({s1['n_evals']} evaluations, "
+          f"{per_eval * 1e3:.3f} ms/eval from the wall column); noise std {noise:.4f} (true "
+          f"0.2); launches {l1} (SGPR runs no kernel); "
+          f"resume --load -T {more}: {sec2:.2f} s, starts at {f0:.6g} (saved "
+          f"{s1['final_bound']:.6g}, rel {rel:.2e}), ends at {s2['final_bound']:.6g}")
+
+    n, q, m, iters = SGPR_API
+    x_np, y_np = data.synthetic_regression(n=n, seed=0)
+    for layout in ("nq", "qn"):
+        host = (lambda a: np.ascontiguousarray(a.T)) if layout == "qn" else (lambda a: a)
+        x = torch.tensor(host(x_np), dtype=torch.float32, device=dev)
+        y = torch.tensor(host(y_np), dtype=torch.float32, device=dev)
+        cfg = sgpr.SGPRConfig(num_inducing=m, layout=layout)
+        g = sgpr.init_params(torch.Generator(dev).manual_seed(0), x, y, cfg)
+        sgpr.neg_bound_value_and_grad(g, x, y, cfg)
+        secs = []
+        for _ in range(3):
+            sec, (f32, g32) = _timed(lambda: sgpr.neg_bound_value_and_grad(g, x, y, cfg))
+            secs.append(sec)
+        # the float64 statistics through the float32 bound (the bound the
+        # float32 route takes), and the whole float64 route
+        g64 = P.from_leaves([t.double() for t in P.leaves(g)])
+        x64, y64 = x.double(), y.double()
+        st64 = sgpr.suff_stats(g64, x64, y64, cfg)
+        with torch.no_grad():
+            st_err = dict(zip(("psi0", "psi1_y", "psi2", "yy"),
+                              _rel_err(sgpr.suff_stats(g, x, y, cfg)[:4], st64[:4])))
+        z, sf2, alpha, beta = (t.float() for t in P.constrain(g64))
+        f_s64 = -bound_ops.bound_from_stats(type(st64)(*(t.float() for t in st64)), z, sf2,
+                                            alpha, beta, d=1, jitter=cfg.jitter)
+        g_s64 = torch.autograd.grad(f_s64, list(g64.parameters()))
+        f64, gr64 = sgpr.neg_bound_value_and_grad(g64, x64, y64, cfg)
+        names = [k for k, _ in g.named_parameters()]
+        rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))
+        norm = lambda gs, hs: {k: _norm_err(a.double().cpu().numpy(), b.double().cpu().numpy())
+                               for k, a, b in zip(names, gs, hs)}
+        err_s, err_64 = norm(g32, g_s64), norm(g32, gr64)
+        # The statistics are cuBLAS float32 products summed over N rows, held
+        # as phase 4 holds two float32 paths that sum 1e5..1e7 rows. The
+        # bound and gradient are printed beside float64 and not held: at
+        # M=200 on one input dimension K_MM's condition number is ~1e8, and
+        # the float32 bound's PSD-by-construction form (its jitter 30 eps
+        # tr(Psi2)) is another function there, in the JAX package as here.
+        _require(max(st_err.values()) <= SLICE_TOL,
+                 f"phase 7(c) SGPR {layout} float32 statistics vs float64: {st_err}")
+        _require(all(math.isfinite(float(f)) and all(bool(torch.isfinite(t).all()) for t in gs)
+                     for f, gs in ((f32, g32), (f64, gr64))),
+                 f"phase 7(c) SGPR {layout} bound+gradient not finite")
+        fit_s, res = _timed(lambda: sgpr.fit(g, x, y, cfg, iters=iters))
+        b = res.trace["bound"][:iters]
+        _require(np.all(np.isfinite(b)) and np.all(np.diff(b) >= 0),
+                 f"phase 7(c) SGPR {layout} fit bound: {b}")
+        print(f"phase 7(c) SGPR API N={n} Q={q} M={m} {layout}: {min(secs):.4f} s/eval; "
+              f"float32 statistics vs float64 (max abs err of max|ref|) "
+              + ", ".join(f"{k} {v:.2e}" for k, v in st_err.items())
+              + f"; bound+gradient vs the float64 statistics through the float32 bound: "
+              f"bound rel {rel(f32, f_s64.detach()):.2e}, gradient "
+              + ", ".join(f"{k} {v:.2e}" for k, v in err_s.items())
+              + f"; vs the float64 route (bound {-float(f64):.8g} against {-float(f32):.8g}): "
+              f"bound rel {rel(f32, f64):.2e}, gradient "
+              + ", ".join(f"{k} {v:.2e}" for k, v in err_64.items())
+              + f"; fit {iters} SCG iterations {fit_s:.2f} s, {res.n_evals} evaluations, "
+              f"bound {b[0]:.8g} -> {b[-1]:.8g}, noise std "
+              f"{float(1.0 / torch.sqrt(P.constrain(res.params)[3].detach())):.4f}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gparml_tpu_torch")):
         print("chip_smoke: gparml_tpu_torch/ not found beside the script",
@@ -1112,6 +1529,10 @@ def main() -> int:
             print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
                   f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:] else ''}: "
                   + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
+    for layout in LAYOUTS:
+        res = flush_case(*FLUSH_CASE, layout=layout)
+        print("phase 3 flush {} N={} M={} Q={} D={} sf2={:g}: ".format(layout, *FLUSH_CASE)
+              + " ".join(f"{k}={e:.2e} (plain f32 {e32:.2e})" for k, (e, e32) in res.items()))
     for case in [c for c in PARITY_CASES[10:] if not c[6:]]:
         print("phase 3 times nq N={} M={} Q={} D={}: fwd {:.3f} ms, bwd {:.3f} ms; plain "
               "fwd {:.3f} ms, bwd {:.3f} ms".format(*case[:4], *_window_times(case, dev)))
@@ -1125,8 +1546,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase5_small(dev)
     torch.cuda.empty_cache()
-    phase5_config5(dev, kernels)
+    p5 = phase5_config5(dev, kernels)
     print(f"phase 5: {time.perf_counter() - t0:.2f} s")
+    t7 = time.perf_counter()
+    phase7_config5(dev, *p5)
+    t7 = time.perf_counter() - t7
+    del p5
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1137,9 +1562,15 @@ def main() -> int:
         phase6_large(dev, work, kernels)
         torch.cuda.empty_cache()
         phase6_wide_q(dev, work, kernels)
+        print(f"phase 6: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase7_serving(dev)
+        torch.cuda.empty_cache()
+        phase7_sgpr(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 6: {time.perf_counter() - t0:.2f} s")
+    print(f"phase 7: {time.perf_counter() - t0 + t7:.2f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} checks failed", file=sys.stderr)

@@ -1,4 +1,5 @@
-"""Command-line driver: the GPLVM mode of ``gparml_tpu/cli.py`` on one GPU.
+"""Command-line interface: the GPLVM and sparse GP regression modes of
+``gparml_tpu/cli.py`` on one GPU.
 
 The same option surface and folder workflow as the JAX package's CLI, the
 re-design of GParML's ``parallel_GPLVM.py``: per-partition ``Y_<i>.npy``
@@ -6,7 +7,11 @@ inputs, embedding init (PCA, random, or ``--load`` from the embeddings
 folder and ``checkpoint.npz``), a joint fit of latents, inducing points and
 hypers with SCG, Adam or GD, and the results written back: embeddings
 partition files, ``bound_history.jsonl``, ``checkpoint.npz`` and
-``summary.json``. Either package resumes from the other's folders.
+``summary.json``. With ``--fixed-embeddings`` the embeddings folder holds
+observed inputs X (its ``X_mu_<i>.npy``, one row per row of Y) and the run
+fits sparse GP regression (``models/sgpr.py``): Z and the hypers only,
+``--load`` resuming from ``checkpoint.npz``, the summary's ``mode`` "sgpr".
+Either package resumes from the other's folders.
 
   -i/--input         folder of per-partition Y_<i>.npy files
   -e/--embeddings    folder for X_mu_<i>.npy / X_S_<i>.npy
@@ -23,9 +28,8 @@ raises. The kernels take float32: ``--dtype float64`` on the card needs
 ``--stats-impl xla``. A checkpoint's leaves are cast to ``--dtype``.
 ``--compile-cache`` and ``--scg-mode`` are accepted and do nothing (XLA
 compile caching and the TPU's fused SCG program have no counterpart).
-Not ported yet, and raising NotImplementedError: ``--fixed-embeddings``
-(SGPR), ``--optimizer svgp`` and ``-p remote`` (ROADMAP.md Queue 1, items
-10, 13 and 14).
+Not ported yet, and raising NotImplementedError: ``--optimizer svgp`` and
+``-p remote`` (ROADMAP.md Queue 1, items 2 and 3).
 
 Run ``python -m gparml_tpu_torch.cli --help`` for the full surface.
 """
@@ -57,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--statistics", default=None, help="output folder for logs/checkpoints")
     p.add_argument("--fixed-embeddings", action="store_true",
                    help="treat embeddings as observed inputs (sparse GP "
-                        "regression mode; not ported yet)")
+                        "regression mode)")
     p.add_argument("--fixed-beta", action="store_true", help="do not optimize noise precision")
     p.add_argument("--init", choices=["pca", "random"], default="pca")
     p.add_argument("--load", action="store_true",
@@ -111,15 +115,11 @@ def _check_ported(options) -> None:
     if options.optimizer == "svgp":
         raise NotImplementedError(
             "--optimizer svgp (SVGP minibatch training) is not ported yet "
-            "(ROADMAP.md Queue 1, item 13)")
-    if options.fixed_embeddings:
-        raise NotImplementedError(
-            "--fixed-embeddings (sparse GP regression) is not ported yet "
-            "(ROADMAP.md Queue 1, item 10)")
+            "(ROADMAP.md Queue 1, item 2: SVGP)")
     if options.parallel == "remote":
         raise NotImplementedError(
             "-p remote (multi-host data parallelism) is not ported yet "
-            "(ROADMAP.md Queue 1, item 14)")
+            "(ROADMAP.md Queue 1, item 3: parallel)")
 
 
 def _device(options):
@@ -205,6 +205,8 @@ def run(options) -> dict:
     t_start = time.perf_counter()
     device = _device(options)
     dtype = torch.float64 if options.dtype == "float64" else torch.float32
+    if options.fixed_embeddings:
+        return _run_sgpr(options, device, dtype, t_start)
     if dtype == torch.float64 and device.type == "cuda" and options.stats_impl != "xla":
         raise ValueError(
             "--dtype float64 on the card needs --stats-impl xla: the CUDA "
@@ -311,6 +313,70 @@ def run(options) -> dict:
     summary["wall_time_s"] = round(time.perf_counter() - t_start, 3)
     summary["timings_s"] = {k: round(v, 3) for k, v in timer.summary().items()}
     if options.statistics:
+        with open(os.path.join(options.statistics, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return summary
+
+
+def _run_sgpr(options, device, dtype, t_start) -> dict:
+    """The --fixed-embeddings mode: sparse GP regression of Y on the observed
+    inputs X of the embeddings folder (the JAX CLI's SGPR branch, one
+    device)."""
+    import torch
+
+    from gparml_tpu_torch import checkpoint, data
+    from gparml_tpu_torch.models import params as P, sgpr
+    from gparml_tpu_torch.utils import logging as glog
+
+    y_np = data.load_partitioned(options.input, prefix="Y")
+    n, d = y_np.shape
+    x_np, _ = data.load_embeddings(options.embeddings)
+    if x_np.shape[0] != n:
+        raise ValueError(
+            f"embeddings rows {x_np.shape[0]} != N={n}; --fixed-embeddings "
+            "needs observed inputs in the embeddings folder")
+    layout = getattr(options, "layout", "nq")
+    # under qn both are stored transposed, (Q, N) and (D, N)
+    host = (lambda a: a.T) if layout == "qn" else (lambda a: a)
+    x = torch.tensor(np.ascontiguousarray(host(x_np)), dtype=dtype, device=device)
+    y = torch.tensor(np.ascontiguousarray(host(y_np)), dtype=dtype, device=device)
+    cfg = sgpr.SGPRConfig(num_inducing=options.m, bijector=options.bijector,
+                          block=options.block, fixed_beta=options.fixed_beta,
+                          layout=layout, scg_mode=getattr(options, "scg_mode", "auto"))
+    g0 = sgpr.init_params(torch.Generator(device).manual_seed(options.seed), x, y, cfg)
+    ckpt_path = (os.path.join(options.statistics, "checkpoint.npz")
+                 if options.statistics else None)
+    if options.load and ckpt_path and os.path.exists(ckpt_path):
+        g0, meta = checkpoint.load(ckpt_path, g0)
+        g0 = P.from_leaves([t.detach().to(dtype) for t in g0.parameters()])
+        print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+
+    timer = glog.Timer()
+    timer.start("fit")
+    with _maybe_profile(options), _maybe_iter_timer(options) as it_timer:
+        result = sgpr.fit(
+            g0, x, y, cfg, iters=options.iterations, optimizer=options.optimizer,
+            learning_rate=options.learning_rate,
+            scg_options=_scg_options(options) if options.optimizer == "scg" else None)
+        final_bound = float(result.bound)
+    fit_s = timer.stop("fit")
+    summary = {
+        "mode": "sgpr", "n": n, "d": d, "m": options.m,
+        "optimizer": options.optimizer, "iterations": options.iterations,
+        "n_evals": int(result.n_evals), "final_bound": final_bound,
+        "devices": 1, "parallel": options.parallel,
+        "wall_time_s": round(time.perf_counter() - t_start, 3),
+    }
+    if options.statistics:
+        os.makedirs(options.statistics, exist_ok=True)
+        glog.write_history(
+            os.path.join(options.statistics, "bound_history.jsonl"),
+            _history_with_wall(result, it_timer, options.iterations),
+            extra=_iter_wall_extra(fit_s, result.history),
+        )
+        checkpoint.save(ckpt_path, result.params,
+                        meta={"iteration": options.iterations, "bound": final_bound})
         with open(os.path.join(options.statistics, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
     print(json.dumps(summary))

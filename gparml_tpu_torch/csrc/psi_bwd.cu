@@ -20,7 +20,8 @@
 //        u_q = sum g (zb - mu)^2 (g = K w Psi2) on the tensor cores
 //        (psi_tc.cuh); it writes dmu = 2 c t, ds = -c G + 2 c^2 u and the
 //        row's share of dalpha, -(s/den) G - u / den^2.
-//      psi1_bwd_rows_kernel walks the inducing points with
+//      psi1_bwd_rows_kernel walks the inducing points (Z staged in pieces
+//        of a fixed size, so at any M) with
 //        h = w Psi1 (y_n . dPsi1Y_m), adds -c1 T, -c1 H/2 + c1^2 U/2 and
 //        -(s/den1) H/2 - U/(2 den1^2) (T, U, H the h-sums as above), and
 //        writes dY = sum_m w Psi1 dPsi1Y_m.
@@ -44,8 +45,9 @@
 // and psi2_bwd_cells_tc_chunked_kernel, are the tensor-core passes with K
 // walked in chunks of kTcQChunk latent dimensions (psi_tc.cuh), the
 // reductions taken one dimension chunk at a time into float64 totals in
-// shared memory, and an exact shift 2^S in the row constants that keeps
-// exp2 clear of float32's subnormal range (the totals are scaled by 2^-S).
+// shared memory. Every Psi2 pass, at any Q, adds an exact shift 2^S to its
+// row constants that keeps exp2 clear of float32's subnormal range (the
+// totals are scaled by 2^-S).
 // The Psi1 passes (*_chunked) keep no Q-long vector in registers: each
 // walks the latent dimensions in chunks of kQChunk twice, first to sum the
 // exponents of a group (kGroup inducing points of one data row, or a
@@ -114,8 +116,9 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
                         const float* __restrict__ w, const float* __restrict__ z,
                         const float* __restrict__ alpha, const float* __restrict__ sf2,
                         const float* __restrict__ zeta, const int2* __restrict__ cells,
-                        const float* __restrict__ ce, const float* __restrict__ kmat, int n,
-                        int m, int q, float* __restrict__ dmu, float* __restrict__ ds,
+                        const float* __restrict__ ce, const float* __restrict__ shift,
+                        const float* __restrict__ kmat, int n, int m, int q,
+                        float* __restrict__ dmu, float* __restrict__ ds,
                         float* __restrict__ dal) {
   constexpr int KP = tc_k(QM), QS = QM / 2, R = tc_row_rows(QM), N2 = tc_n2_rows(QM);
   extern __shared__ float4 smem4[];
@@ -140,7 +143,8 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  tc_build_rows<QM, KP, R>(st, alpha, zeta, logf(*sf2), q, rop, s_rc, nullptr);
+  const float sh = *shift;
+  tc_build_rows<QM, KP, R>(st, alpha, zeta, logf(*sf2), sh, q, rop, s_rc, nullptr);
   for (int r = threadIdx.x; r < R; r += blockDim.x) s_w[r] = st[2 * R * QM + r];
   __syncthreads();  // the stage's room is the cells' transpose's from here
 
@@ -175,15 +179,17 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
   const int row = n0 + r;
   if (row >= n) return;
   const double* t_r = s_tot + r * N2;
-  const double g = t_r[2 * QM];
+  const double unshift = ldexp(1.0, -(int)sh);
+  const double g = t_r[2 * QM] * unshift;
   const float gs = (float)g;
   for (int k = 0; k < QS; ++k) {
     const int kk = k0 + k;
     if (kk >= q) break;
     const size_t i = ls.at(row, kk);
     const double mv = (double)(mu[i] - zeta[kk]);
-    const float t = (float)(t_r[kk] - mv * g);
-    const float u = (float)(t_r[QM + kk] - 2.0 * mv * t_r[kk] + mv * mv * g);
+    const double t1 = t_r[kk] * unshift, t2 = t_r[QM + kk] * unshift;
+    const float t = (float)(t1 - mv * g);
+    const float u = (float)(t2 - 2.0 * mv * t1 + mv * mv * g);
     const float a = alpha[kk];
     const float den = 2.f * a * s[i] + 1.f;
     const float c = a / den;
@@ -195,6 +201,15 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
 
 constexpr int kDChunk = 16;
 
+// The Psi1 row pass (Q <= 64): a thread per data row walks the inducing
+// points with h = w Psi1 (y_n . dPsi1Y_m) and adds the row's shares (see
+// the file's head). Z is staged in pieces of mp inducing points (mp x QM
+// floats, the plan's kZPieceBytes at most), so M has no limit: every thread
+// of the block, a row or not, reaches each piece's barriers. The row's
+// sums tt, uu and hsum run on across the pieces in registers, in the order
+// of one whole stage, and dY's partial sums over a D chunk leave the
+// registers between pieces through dY itself (a float32 stored and loaded
+// back unchanged): a piece changes no sum, only where it is kept.
 template <int QM>
 __global__ void __launch_bounds__(128)
 psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
@@ -203,15 +218,13 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
                      const float* __restrict__ z,
                      const float* __restrict__ alpha,
                      const float* __restrict__ sf2,
-                     const float* __restrict__ r1, int n, int m, int q, int d,
+                     const float* __restrict__ r1, int n, int m, int q, int d, int mp,
                      float* __restrict__ dmu, float* __restrict__ ds,
                      float* __restrict__ dal, float* __restrict__ dy) {
   extern __shared__ float4 smem4[];
   float* zs = reinterpret_cast<float*>(smem4);
-  stage_z<QM>(z, m, q, zs);
-  __syncthreads();
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+  const bool live = row < n;
 
   float mv[QM], c[QM], tt[QM], uu[QM];
   float lsum = 0.f;
@@ -221,7 +234,7 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     c[k] = 0.f;
     tt[k] = 0.f;
     uu[k] = 0.f;
-    if (k < q) {
+    if (live && k < q) {
       const float a = alpha[k];
       const float den = a * s[ls.at(row, k)] + 1.f;
       mv[k] = mu[ls.at(row, k)];
@@ -230,54 +243,62 @@ psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
     }
   }
   const float l1 = logf(*sf2) - 0.5f * lsum;
-  const float wn = w[row];
+  const float wn = live ? w[row] : 0.f;
   float hsum = 0.f;
 
-  // h is linear in y_n . dPsi1Y_m, so D is walked in chunks of kDChunk
-  // (Psi1 is recomputed per chunk only when D > kDChunk).
-  for (int d0 = 0; d0 < d; d0 += kDChunk) {
-    float yv[kDChunk], gy[kDChunk];
-#pragma unroll
-    for (int j = 0; j < kDChunk; ++j) {
-      yv[j] = d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
-      gy[j] = 0.f;
-    }
-    for (int mi = 0; mi < m; ++mi) {
-      const float2* zm = reinterpret_cast<const float2*>(zs + mi * QM);
-      float dd[QM];
-      float qd = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float2 v = zm[k2];
-        dd[2 * k2] = mv[2 * k2] - v.x;
-        dd[2 * k2 + 1] = mv[2 * k2 + 1] - v.y;
-        qd = fmaf(c[2 * k2] * dd[2 * k2], dd[2 * k2], qd);
-        qd = fmaf(c[2 * k2 + 1] * dd[2 * k2 + 1], dd[2 * k2 + 1], qd);
-      }
-      const float p = wn * expf(l1 - 0.5f * qd);
-      const float* rr = r1 + (size_t)mi * d + d0;
-      float dot = 0.f;
+  for (int m0 = 0; m0 < m; m0 += mp) {
+    const int np = min(mp, m - m0);
+    __syncthreads();  // the previous piece is read
+    stage_z<QM>(z + (size_t)m0 * q, np, q, zs);
+    __syncthreads();
+    if (!live) continue;
+    // h is linear in y_n . dPsi1Y_m, so D is walked in chunks of kDChunk
+    // (Psi1 is recomputed per chunk only when D > kDChunk).
+    for (int d0 = 0; d0 < d; d0 += kDChunk) {
+      float yv[kDChunk], gy[kDChunk];
 #pragma unroll
       for (int j = 0; j < kDChunk; ++j) {
-        if (d0 + j < d) {
-          const float rv = __ldg(rr + j);
-          dot = fmaf(yv[j], rv, dot);
-          gy[j] = fmaf(p, rv, gy[j]);
+        yv[j] = d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
+        gy[j] = m0 > 0 && d0 + j < d ? dy[ys.at(row, d0 + j)] : 0.f;
+      }
+      for (int mi = 0; mi < np; ++mi) {
+        const float2* zm = reinterpret_cast<const float2*>(zs + mi * QM);
+        float dd[QM];
+        float qd = 0.f;
+#pragma unroll
+        for (int k2 = 0; k2 < QM / 2; ++k2) {
+          const float2 v = zm[k2];
+          dd[2 * k2] = mv[2 * k2] - v.x;
+          dd[2 * k2 + 1] = mv[2 * k2 + 1] - v.y;
+          qd = fmaf(c[2 * k2] * dd[2 * k2], dd[2 * k2], qd);
+          qd = fmaf(c[2 * k2 + 1] * dd[2 * k2 + 1], dd[2 * k2 + 1], qd);
+        }
+        const float p = wn * expf(l1 - 0.5f * qd);
+        const float* rr = r1 + (size_t)(m0 + mi) * d + d0;
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < kDChunk; ++j) {
+          if (d0 + j < d) {
+            const float rv = __ldg(rr + j);
+            dot = fmaf(yv[j], rv, dot);
+            gy[j] = fmaf(p, rv, gy[j]);
+          }
+        }
+        const float h = p * dot;
+        hsum += h;
+#pragma unroll
+        for (int k = 0; k < QM; ++k) {
+          const float hd = h * dd[k];
+          tt[k] += hd;
+          uu[k] = fmaf(hd, dd[k], uu[k]);
         }
       }
-      const float h = p * dot;
-      hsum += h;
 #pragma unroll
-      for (int k = 0; k < QM; ++k) {
-        const float hd = h * dd[k];
-        tt[k] += hd;
-        uu[k] = fmaf(hd, dd[k], uu[k]);
-      }
+      for (int j = 0; j < kDChunk; ++j)
+        if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
     }
-#pragma unroll
-    for (int j = 0; j < kDChunk; ++j)
-      if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
   }
+  if (!live) return;
 
   for (int k = 0; k < q; ++k) {
     const size_t i = ls.at(row, k);
@@ -320,8 +341,8 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
                          const float* __restrict__ w, const float* __restrict__ z,
                          const float* __restrict__ alpha, const float* __restrict__ sf2,
                          const float* __restrict__ zeta, const int2* __restrict__ cells,
-                         const float* __restrict__ ce, int n, int m, int q,
-                         int rows_per_split, double* __restrict__ out) {
+                         const float* __restrict__ ce, const float* __restrict__ shift, int n,
+                         int m, int q, int rows_per_split, double* __restrict__ out) {
   constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2;
   constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM);
   extern __shared__ float4 smem4[];
@@ -348,7 +369,7 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
 #pragma unroll
   for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
 
-  const float logsf2 = logf(*sf2);
+  const float logsf2 = logf(*sf2), sh = *shift;
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
   const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
@@ -368,7 +389,7 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
       cp_async_wait<0>();
     }
     __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, q, rop, s_rc, &b2);
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, &b2);
     tc_operands_ready();
     const float* st_w = st + 2 * kTcRows * QM;
     float d[32];
@@ -392,6 +413,7 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
   // out: (splits, q, M, M), each (cell, dimension) written by one thread
   const size_t mm = (size_t)m * m;
   double* o = out + (size_t)blockIdx.y * q * mm;
+  const double unshift = ldexp(1.0, -(int)sh);
   for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
     const int c = idx % NC, k0 = (idx / NC) * QS;
     const int2 ij = s_ij[c];
@@ -402,7 +424,7 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
       if (kk >= q) break;
       const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
                                (z[(size_t)ij.y * q + kk] - zeta[kk]));
-      const double a = t_c[kk] - (double)zb * t_c[QM + kk];
+      const double a = (t_c[kk] - (double)zb * t_c[QM + kk]) * unshift;
       o[kk * mm + (size_t)ij.x * m + ij.y] = a;
       if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
     }
@@ -1057,7 +1079,7 @@ template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, const float* /* shift: the Q > 64 kernels' */,
+               const float* ce, const float* shift,
                const float* kmat, const float* r1, int n, int m, int q, int d, int qn,
                int splits_c, int splits_m, float* dmu, float* ds, float* dal,
                float* dy, double* a_part, double* b_part,
@@ -1070,15 +1092,16 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   const int2* cells2 = reinterpret_cast<const int2*>(cells);
   constexpr int R = tc_row_rows(QM);
   psi2_bwd_rows_tc_kernel<QM><<<(n + R - 1) / R, tc_wg(QM) * kTcWarpgroup, smem_r, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, kmat, n, m, q, dmu, ds, dal);
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, kmat, n, m, q, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_zm = smem_z(m, QM);
+  const int mp = z_piece(m, QM);
+  const size_t smem_zm = smem_z(mp, QM);
   const int nblk = (n + kRowThreads - 1) / kRowThreads;
   err = allow_smem(psi1_bwd_rows_kernel<QM>, smem_zm);
   if (err != cudaSuccess) return (int)err;
   psi1_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
-      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy);
+      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, mp, dmu, ds, dal, dy);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem_c = tc_cells_smem(QM);
@@ -1086,8 +1109,8 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   if (err != cudaSuccess) return (int)err;
   dim3 grid_c(tc_blocks(m, tc_cell_cells(QM)), splits_c);
   psi2_bwd_cells_tc_kernel<QM><<<grid_c, tc_wg(QM) * kTcWarpgroup, smem_c, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, n, m, q, (n + splits_c - 1) / splits_c,
-      a_part);
+      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q,
+      (n + splits_c - 1) / splits_c, a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem_m = smem_rows_psi1(QM, d);
@@ -1176,7 +1199,7 @@ extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
   plan[2] = smem_bytes(
       qm == 0 ? std::max({kRowGroupSmem, tc_bwd_chunked_smem(tc_pass_dims(q)),
                           psi1_m_chunk_smem(d)})
-              : std::max({smem_z(m, qm), tc_rows_smem(qm), tc_cells_smem(qm),
+              : std::max({smem_z(z_piece(m, qm), qm), tc_rows_smem(qm), tc_cells_smem(qm),
                           smem_rows_psi1(qm, d)}));
   plan[4] = qm == 0 ? 2 * q : 0;
   return (int)smem_limit(plan);

@@ -22,8 +22,9 @@
 // chunks (in the thread's own column of shared memory, or registers)
 // before expf, and (backward) walk the chunks a second time for the
 // per-dimension sums; the Psi2 ones walk K in chunks of kTcQChunk
-// dimensions on the tensor cores (psi_tc.cuh). Registers, shared memory
-// and the M limit do not grow with Q. Each bucket, and the chunked
+// dimensions on the tensor cores (psi_tc.cuh). Registers and shared
+// memory do not grow with Q, and at no Q does shared memory grow with M
+// (the Q <= 64 Psi1 row pass stages Z in pieces). Each bucket, and the chunked
 // kernels, have parity cases on the card (chip_smoke.py PARITY_CASES).
 //
 // Launch geometry (tile sizes, N-splits, shared memory) is decided here and
@@ -75,13 +76,23 @@ __host__ __device__ inline int qm_for(int q) {
 }
 
 // Dynamic shared memory of the Q <= 64 Psi1 blocks: 32 staged rows of
-// (mu, c) and (lc, w) plus 32 rows of Y; and Z staged whole as (M, QM).
+// (mu, c) and (lc, w) plus 32 rows of Y; and m inducing points of Z as
+// (m, QM), the row pass's piece of Z.
 constexpr size_t smem_rows_psi1(int qm, int d) {
   return (size_t)kRowsPsi1 * (qm + 1) * sizeof(float2) +
          (size_t)kRowsPsi1 * d * sizeof(float);
 }
 constexpr size_t smem_z(int m, int qm) {
   return (size_t)m * qm * sizeof(float);
+}
+// Most bytes of Z the Psi1 row pass stages at once, and the inducing points
+// of one such piece at bucket qm: 48 KB holds M = 1228 at Q <= 10 (one
+// piece at every M the repo's configurations take) and 192 inducing points
+// at Q <= 64.
+constexpr size_t kZPieceBytes = 48 * 1024;
+__host__ __device__ constexpr int z_piece(int m, int qm) {
+  return m < (int)(kZPieceBytes / (qm * sizeof(float))) ? m
+                                                       : (int)(kZPieceBytes / (qm * sizeof(float)));
 }
 // The chunked Psi1 kernels' staging: nb rows of one chunk of (mu, c) and of
 // (lc, w), plus nb rows of Y.

@@ -12,7 +12,8 @@
 //    upper-triangle cells (up to 256: two warpgroups, two tiles of 64
 //    cells each), one over N-splits. The exponents of each 64-cell x
 //    64-row tile come from the tensor cores (psi_tc.cuh, 3-term TF32,
-//    centred on zeta); each thread adds w_n exp2(L2) over its 16 rows into
+//    centred on zeta, an exact shift 2^S in the row constants, undone on
+//    the float64 totals); each thread adds w_n exp2(L2) over its 16 rows into
 //    float32 tile sums of its two cells, then into float64 registers, and
 //    the four threads of a cell add theirs at the end. Each split writes its totals
 //    into its own float64 (M, M) partial, in both triangles; the wrapper
@@ -29,9 +30,8 @@
 // by `_call_fwd`, which took the shapes outside the flat window) there. The
 // Psi2 kernel is psi2_fwd_tc_kernel with K walked in chunks of kTcQChunk
 // latent dimensions (psi_tc.cuh): each chunk's operands are built in shared
-// memory and added into the same tensor-core accumulators, and an exact
-// shift 2^S in the row constants keeps exp2 clear of float32's subnormal
-// range. psi1y_fwd_chunked_kernel sums a staged chunk of rows' exponents
+// memory and added into the same tensor-core accumulators, with the same
+// shift 2^S. psi1y_fwd_chunked_kernel sums a staged chunk of rows' exponents
 // over the dimension chunks in registers and applies expf once all are in.
 // The Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128,
 // and 512 < M <= 640) as they take the flat window.
@@ -83,8 +83,8 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
                    const float* __restrict__ w, const float* __restrict__ z,
                    const float* __restrict__ alpha, const float* __restrict__ sf2,
                    const float* __restrict__ zeta, const int2* __restrict__ cells,
-                   const float* __restrict__ ce, int n_begin, int n, int m, int q,
-                   int rows_per_split, double* __restrict__ out) {
+                   const float* __restrict__ ce, const float* __restrict__ shift, int n_begin,
+                   int n, int m, int q, int rows_per_split, double* __restrict__ out) {
   constexpr int KP = tc_k(QM), S = tc_stages(QM), CT = tc_fwd_ct(QM);
   constexpr int NC = tc_fwd_cells(QM);
   extern __shared__ float4 smem4[];
@@ -104,7 +104,7 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
                              nullptr);
   const int wg = threadIdx.x / kTcWarpgroup;
 
-  const float logsf2 = logf(*sf2);
+  const float logsf2 = logf(*sf2), sh = *shift;
   const int lo = n_begin + blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
   const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
@@ -127,7 +127,7 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
       cp_async_wait<0>();
     }
     __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, q, rop, s_rc, nullptr);
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, nullptr);
     tc_operands_ready();
     const float* st_w = st + 2 * kTcRows * QM;
 #pragma unroll
@@ -149,6 +149,7 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
 
   double* o = out + (size_t)blockIdx.y * m * m;
   const bool first = n_begin == 0;
+  const double unshift = ldexp(1.0, -(int)sh);
 #pragma unroll
   for (int j = 0; j < CT; ++j) {
 #pragma unroll
@@ -156,6 +157,7 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
       double v = acc[j][h];
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v *= unshift;
       const int c = (wg * CT + j) * kTcRows + tc_m(2 * h);
       const int2 ij = s_ij[c];
       if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
@@ -393,7 +395,7 @@ template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, const float* /* shift: the Q > 64 kernel's */, int n, int m,
+               const float* ce, const float* shift, int n, int m,
                int q, int d, int qn, int splits2,
                int splits1, double* p2_part, double* p1y_part,
                cudaStream_t stream) {
@@ -407,8 +409,8 @@ int launch_fwd(const float* mu, const float* s, const float* y,
   // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
   for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
     psi2_fwd_tc_kernel<QM><<<grid2, tc_wg(QM) * kTcWarpgroup, smem2, stream>>>(
-        mu, s, ls, w, z, alpha, sf2, zeta, reinterpret_cast<const int2*>(cells), ce, n0, n, m,
-        q, rows2, p2_part);
+        mu, s, ls, w, z, alpha, sf2, zeta, reinterpret_cast<const int2*>(cells), ce, shift, n0,
+        n, m, q, rows2, p2_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
@@ -479,8 +481,8 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
 // zeta (Q): the shift of mu and Z in the Psi2 exponent (psi_tc.cuh; the
 // wrapper passes the mean of Z); cells (M (M + 1) / 2, 2) int32: the packed
 // upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2): their
-// E0 log2e; shift: one float, the whole number S the Q > 64 kernel adds to
-// every base-2 exponent and takes off its sums (read past Q = 64 only).
+// E0 log2e; shift: one float, the whole number S the Psi2 kernels add to
+// every base-2 exponent and take off their sums.
 // p2_part: (splits2, M, M) float64, every element written. p1y_part:
 // (splits1, M, D) float64, zero-filled by the caller (accumulated in place).
 // Returns cudaGetLastError.

@@ -15,17 +15,20 @@
 //   L2[n, p] = sum_k R[n, k] C[p, k] + rc_n + ce_p
 //   R[n] = [2 c mu' log2e (QM) | -c log2e (QM) | 0 (pad)]   (the row operand)
 //   C[p] = [zb' (QM) | zb'^2 (QM) | 0 (pad)]                (the cell operand)
-//   rc_n = (lc_n - sum_q c mu'^2) log2e,  ce_p = E0_p log2e
+//   rc_n = (lc_n - sum_q c mu'^2) log2e + S,  ce_p = E0_p log2e
+//
+// The row constant carries an exact shift S (a whole number passed by the
+// wrapper, -floor(max_n lc_n log2e)), so that every pair's exp2 lies below
+// 2 and stays clear of float32's subnormal range, where ex2.approx.ftz
+// would flush it to zero (at sf2 = 1e-20 every Psi2 entry lies there, at
+// any Q); the kernels multiply their float64 totals by 2^-S.
 //
 // Up to Q = 64, K = 2 QM padded to a multiple of 8 (tc_k), one operand
 // build per tile. Past Q = 64 (the *_tc_chunked kernels) K is walked in
 // chunks of kTcQChunk latent dimensions (each chunk [2 c mu' | -c] and
 // [zb' | zb'^2] of its dimensions, kTcKChunk columns), built into shared
 // memory in turn and added into the same accumulator registers, so nothing
-// staged grows with Q; there the row constant also carries an exact shift
-// S (a whole number passed by the wrapper, -floor(max_n lc_n log2e)), so
-// that every pair's exp2 lies below 2 and stays clear of float32's
-// subnormal range, and the kernels multiply their float64 totals by 2^-S.
+// staged grows with Q.
 //
 // tc_tile runs the product as wgmma m64n64k8 in TF32 with the 3-term split
 // hi = tf32(x), lo = tf32(x - hi): A_hi B_lo + A_lo B_hi first, then
@@ -135,9 +138,8 @@ __device__ inline float to_tf32(float x) {
 }
 
 // 2^x on the MUFU (ex2.approx.ftz: relative error ~2^-22, results below
-// 2^-126 flushed to zero; past Q = 64 the shift S puts every pair within
-// that range of the largest row's, up to Q = 64 no Psi2 sum of the cases
-// measured notices).
+// 2^-126 flushed to zero; the shift S puts every pair within that range of
+// the largest row's).
 __device__ inline float tc_exp2(float x) {
 #ifdef __CUDA_ARCH__
   float y;
@@ -614,7 +616,7 @@ __device__ inline void tc_stage_rows(const float* __restrict__ mu, const float* 
 }
 
 // From a raw stage of R rows: the row operand (R rows) and the row
-// constant s_rc[r]; with b2 (R = 64, the cell pass), the transposed
+// constant s_rc[r] (with the shift, in double, rounded once); with b2 (R = 64, the cell pass), the transposed
 // operand [c mu' | c] (2 QM x 64, row r of the stage at K position
 // tc_kperm(r)) of its reduction product, whose padding rows stay zero.
 // blockDim.x / R neighbouring threads share a row, each taking every
@@ -623,8 +625,9 @@ __device__ inline void tc_stage_rows(const float* __restrict__ mu, const float* 
 // products of up to 8 terms, and sum_q c mu'^2, both in double.
 template <int QM, int KP, int R>
 __device__ inline void tc_build_rows(const float* st, const float* __restrict__ alpha,
-                                     const float* __restrict__ zeta, float logsf2, int q,
-                                     const TcOperand& op, float* s_rc, const TcOperand* b2) {
+                                     const float* __restrict__ zeta, float logsf2, float shift,
+                                     int q, const TcOperand& op, float* s_rc,
+                                     const TcOperand* b2) {
   const float* st_mu = st;
   const float* st_s = st + R * QM;
   const int tpr = blockDim.x / R;  // 1, 2 or 4
@@ -660,7 +663,8 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
     lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
     cm += __shfl_xor_sync(0xffffffffu, cm, o);
   }
-  if (sub == 0) s_rc[r] = (float)(2.0 * (double)logsf2 - 0.5 * lsum - cm) * kLog2e;
+  if (sub == 0)
+    s_rc[r] = (float)((2.0 * (double)logsf2 - 0.5 * lsum - cm) * (double)kLog2e + (double)shift);
 }
 
 // Cells [p0, p0 + NC) of the wrapper's packed table: s_ij[c] ((-1, -1)

@@ -124,6 +124,17 @@ def save_embeddings_partition(
     np.save(os.path.join(folder, f"X_S_{partition}.npy"), np.asarray(s))
 
 
+def synthetic_regression(
+    n: int = 1000, noise_std: float = 0.2, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """1-D sparse-GP regression toy (BASELINE config 1 shape): (X (N, 1)
+    sorted, Y (N, 1))."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-3.0, 3.0, (n, 1)), axis=0)
+    y = np.sin(2.0 * x) + 0.5 * np.sin(5.0 * x) + noise_std * rng.standard_normal((n, 1))
+    return x, y
+
+
 def synthetic_gplvm(
     n: int = 1000,
     d: int = 12,

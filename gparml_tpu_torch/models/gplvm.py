@@ -2,13 +2,14 @@
 
 Counterpart of ``gparml_tpu/models/gplvm.py``: ``GPLVMConfig``,
 ``FitResult``, ``init_params``, ``suff_stats``, ``log_bound``,
-``neg_bound_value_and_grad``, ``fit`` with SCG, Adam or GD, and
-``latents``. Latents q(x_n) = N(mu_n, diag(s_n)) are (N, Q) leaves, or
-(Q, N) under ``layout='qn'``, optimized jointly with the globals; Y is
-(N, D), or (D, N) under ``y_layout='dn'``.
+``neg_bound_value_and_grad``, ``fit`` with SCG, Adam or GD, ``latents``,
+and prediction and inference: ``predict_observed`` (at given latent
+points), ``infer_latents`` (q(x*) of new observations) and ``reconstruct``
+(the observations predicted from q(x*)). Latents q(x_n) = N(mu_n,
+diag(s_n)) are (N, Q) leaves, or (Q, N) under ``layout='qn'``, optimized
+jointly with the globals; Y is (N, D), or (D, N) under ``y_layout='dn'``.
 
-Not ported yet (they raise NotImplementedError; see ROADMAP.md): a
-``mesh``, ``infer_latents``, ``predict_observed`` and ``reconstruct``.
+Not ported yet (it raises NotImplementedError; see ROADMAP.md): a ``mesh``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from gparml_tpu_torch.models import params as P
+from gparml_tpu_torch.models.sgpr import scg_trace
 from gparml_tpu_torch.ops import bound as bound_ops
 from gparml_tpu_torch.ops import psi, psi_cuda
 from gparml_tpu_torch.opt import optax_adapter, scg
@@ -198,18 +200,6 @@ def _check(p: P.GPLVMParams, y, config: GPLVMConfig):
             f"({config.num_inducing}, {config.q})")
 
 
-def scg_trace(st: scg.SCGState) -> dict:
-    """Bound-sign per-iteration dict from a final SCGState (the JAX
-    package's ``models/sgpr.py`` ``scg_trace``)."""
-    return {
-        "bound": -st.history.f,
-        "gnorm2": st.history.gnorm2,
-        "lambda": st.history.lam,
-        "alpha": st.history.alpha,
-        "accepted": st.history.accepted,
-    }
-
-
 def fit(
     p0: P.GPLVMParams,
     y: torch.Tensor,
@@ -258,14 +248,106 @@ def latents(p: P.GPLVMParams, config: GPLVMConfig):
     return P.constrain_latents(p.lat, config.bijector, config.layout)
 
 
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"gplvm.{name} is not ported yet (ROADMAP.md Queue 1, item 9)")
-    fn.__name__ = name
-    return fn
+def predict_observed(p: P.GPLVMParams, y, x_star, config: GPLVMConfig, mesh=None,
+                     weights=None):
+    """Predictive p(y* | x*) at latent locations x_star (N*, Q): mean (N*, D)
+    and variance (N*,), noise included."""
+    z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
+    stats = _stats(p, y, config, mesh=mesh, weights=weights)
+    return bound_ops.predict(x_star, stats, z, sf2, alpha, beta, jitter=config.jitter)
 
 
-predict_observed = _not_ported("predict_observed")
-infer_latents = _not_ported("infer_latents")
-reconstruct = _not_ported("reconstruct")
+# Most entries of one piece of the (N*, N) distance matrix of the
+# nearest-neighbour init.
+_NN_PIECE = 1 << 26
+
+
+def _nearest_rows(y_new, y_train):
+    """argmin_n |y_new_i - y_train_n|^2 for each row i (the first on ties),
+    over pieces of the training rows, so that the (N*, N) distance matrix
+    never exists whole."""
+    step = max(1, _NN_PIECE // max(1, y_new.shape[0]))
+    yn2 = torch.sum(y_new * y_new, dim=1)[:, None]
+    best = idx = None
+    for i in range(0, y_train.shape[0], step):
+        part = y_train[i:i + step]
+        d2 = yn2 - 2.0 * (y_new @ part.T) + torch.sum(part * part, dim=1)[None, :]
+        val, arg = torch.min(d2, dim=1)
+        if best is None:
+            best, idx = val, arg
+        else:
+            closer = val < best
+            best = torch.where(closer, val, best)
+            idx = torch.where(closer, arg + i, idx)
+    return idx
+
+
+def _infer_objective(p: P.GPLVMParams, y_train, y_new, config: GPLVMConfig, mesh=None,
+                     weights=None):
+    """(vg, lat0) of ``infer_latents``: vg maps the new latents' leaves [mu,
+    u_s] (the config's layout) to (-F, their gradient), F the collapsed
+    bound of the training and the new data with every trained parameter
+    held; lat0 are the leaves of the nearest-neighbour init."""
+    _check_config(config)
+    glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob)))
+    z, sf2, alpha, beta = (t.detach() for t in P.constrain(glob, config.bijector))
+    with torch.no_grad():
+        stats_train = _stats(p, y_train, config, mesh=mesh, weights=weights)
+        # the init runs row-major; views of (D, N) storage
+        y_tr_rows = y_train.T if config.y_layout == "dn" else y_train
+        y_new_rows = y_new.T if config.y_layout == "dn" else y_new
+        mu_tr, _ = P.constrain_latents(p.lat, config.bijector, config.layout)
+        mu0 = mu_tr[_nearest_rows(y_new_rows, y_tr_rows)]
+        lat0 = P.make_latents(mu0, torch.full_like(mu0, config.s0),
+                              bijector=config.bijector, layout=config.layout)
+    d = y_new_rows.shape[1]
+
+    def vg(leaves):
+        p_new = P.GPLVMParams(glob, P.LatentParams(*leaves))
+        st = stats_train + _stats(p_new, y_new, config)
+        f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=d, jitter=config.jitter)
+        return f.detach(), list(torch.autograd.grad(f, list(p_new.lat.parameters())))
+
+    return vg, P.leaves(lat0)
+
+
+def infer_latents(
+    p: P.GPLVMParams,
+    y_train,
+    y_new,
+    config: GPLVMConfig,
+    iters: int = 100,
+    mesh=None,
+    weights=None,
+    scg_options: Optional[scg.SCGOptions] = None,
+):
+    """Variational latent inference for new observations y_new (N*, D), or
+    (D, N*) under ``y_layout='dn'``: SCG on q(x*) = N(mu*, diag(s*))
+    against the collapsed bound of the joint training and new data, every
+    trained parameter held.
+
+    The training statistics are computed once, without gradient. Each new
+    point starts at the latent mean of its nearest training point in data
+    space (s* = config.s0). The new points' statistics take the engine
+    ``_stats`` takes for the config (the CUDA kernels for CUDA tensors under
+    'auto' or 'pallas'). Returns (mu*, s*) (N*, Q) and a FitResult whose
+    ``params`` are ``p`` and whose history and trace are the SCG fit's.
+    """
+    vg, lat0 = _infer_objective(p, y_train, y_new, config, mesh=mesh, weights=weights)
+    st = scg.minimize(vg, lat0, scg_options or scg.SCGOptions(max_iters=iters))
+    mu_s, s_s = P.constrain_latents(P.LatentParams(*st.x), config.bijector, config.layout)
+    return mu_s.detach(), s_s.detach(), FitResult(
+        params=p, bound=-st.f_now, history=-st.history.f, n_evals=st.n_evals,
+        trace=scg_trace(st))
+
+
+def reconstruct(p: P.GPLVMParams, y_train, mu_star, s_star, config: GPLVMConfig,
+                mesh=None, weights=None, block: int = 1024):
+    """Predictive mean (N*, D) and variance (N*,) of y* given uncertain
+    latents q(x*) = N(mu*, diag(s*)), mu* and s* (N*, Q), through the
+    Psi-statistics of x*; ``block`` bounds the variance's working set to
+    O(block M^2) at any N* (``bound.predict_uncertain``)."""
+    z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
+    stats = _stats(p, y_train, config, mesh=mesh, weights=weights)
+    return bound_ops.predict_uncertain(mu_star, s_star, stats, z, sf2, alpha, beta,
+                                       jitter=config.jitter, block=block)

@@ -193,29 +193,40 @@ class GPLVMArrays(NamedTuple):
     lat: LatentArrays
 
 
+def _to_tensor(device, dtype):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "from_numpy: no CUDA device; pass device='cpu' for CPU tensors")
+    return lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+
+def global_from_numpy(arrays, device=torch.device("cuda"), dtype=None) -> GlobalParams:
+    """Port globals from ``jax.tree.map(np.asarray, g)`` of a JAX
+    GlobalParams (the SGPR parameters), or a ``GlobalArrays``: any object
+    with ``.z``, ``.u_sf2``, ``.u_alpha`` and ``.u_beta``. The device rule is
+    ``from_numpy``'s."""
+    t = _to_tensor(device, dtype)
+    return GlobalParams(t(arrays.z), t(arrays.u_sf2), t(arrays.u_alpha), t(arrays.u_beta))
+
+
+def global_to_numpy(g: GlobalParams) -> GlobalArrays:
+    """The inverse of ``global_from_numpy``."""
+    return GlobalArrays(*(t.detach().cpu().numpy() for t in (g.z, g.u_sf2, g.u_alpha, g.u_beta)))
+
+
 def from_numpy(arrays, device=torch.device("cuda"), dtype=None) -> GPLVMParams:
     """Port params from ``jax.tree.map(np.asarray, p)`` of a JAX GPLVMParams
     (or a ``GPLVMArrays``): any object with ``.glob.{z,u_sf2,u_alpha,u_beta}``
     and ``.lat.{mu,u_s}``. Leaves keep their shapes, so (Q, N) latents of a
     qn model stay (Q, N). The params go to the GPU unless ``device`` says
     otherwise (``device="cpu"``); without a GPU the default raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "from_numpy: no CUDA device; pass device='cpu' for CPU tensors")
-    t = lambda a: torch.tensor(np.asarray(a), device=device, dtype=dtype)
-    g, l = arrays.glob, arrays.lat
-    return GPLVMParams(
-        GlobalParams(t(g.z), t(g.u_sf2), t(g.u_alpha), t(g.u_beta)),
-        LatentParams(t(l.mu), t(l.u_s)),
-    )
+    t = _to_tensor(device, dtype)
+    return GPLVMParams(global_from_numpy(arrays.glob, device, dtype),
+                       LatentParams(t(arrays.lat.mu), t(arrays.lat.u_s)))
 
 
 def to_numpy(p: GPLVMParams) -> GPLVMArrays:
     """The inverse of ``from_numpy``."""
     a = lambda x: x.detach().cpu().numpy()
-    g, l = p.glob, p.lat
-    return GPLVMArrays(
-        GlobalArrays(a(g.z), a(g.u_sf2), a(g.u_alpha), a(g.u_beta)),
-        LatentArrays(a(l.mu), a(l.u_s)),
-    )
+    return GPLVMArrays(global_to_numpy(p.glob), LatentArrays(a(p.lat.mu), a(p.lat.u_s)))

@@ -14,8 +14,12 @@ kernels in ``psi_cuda.py``. With q(x_n) = N(mu_n, diag(s_n)):
 Derivatives come from autograd. The blocked form runs the per-block body
 under ``torch.utils.checkpoint`` so memory stays O(block * M^2) at any N.
 ``suff_stats_t`` takes the transposed (Q, N) / (D, N) storage of
-GPLVMConfig(layout='qn', y_layout='dn'). The SGPR ``s=None`` branch is not
-ported yet (ROADMAP.md Queue 1).
+GPLVMConfig(layout='qn', y_layout='dn').
+
+With ``s=None`` (sparse GP regression: the inputs X are observed, s = 0)
+the statistics collapse to kernel products, Psi1 = K_NM and Psi2 =
+K_NM^T K_NM, KL = 0: plain matrix products (cuBLAS on the card), blocked
+so that K_NM never exceeds one (block, M) slab.
 """
 
 from __future__ import annotations
@@ -107,6 +111,12 @@ def _block_stats(y, mu, s, w, z, sf2, alpha):
     return p1.T @ (y * w[:, None]), psi2_sum(mu, s, z, sf2, alpha, w)
 
 
+def _block_stats_sgpr(y, x, w, z, sf2, alpha):
+    knm = ard_rbf.k(x, z, sf2, alpha)
+    knm_w = knm * torch.sqrt(w)[:, None]
+    return knm.T @ (y * w[:, None]), knm_w.T @ knm_w
+
+
 def suff_stats(
     y: torch.Tensor,
     mu: torch.Tensor,
@@ -123,35 +133,35 @@ def suff_stats(
     alpha (Q,) positive tensors. ``block`` (a divisor of N) accumulates over
     N-blocks with the block body recomputed in the backward pass;
     ``weights`` (N,) make every statistic a weighted sum and ``n`` their sum.
+    ``s=None`` gives the SGPR statistics of observed inputs mu = X: weights
+    enter Psi1^T Y as w and Psi2 as sqrt(w) on each side of K_NM.
     """
-    if s is None:
-        raise NotImplementedError(
-            "the SGPR (s=None) statistics are not ported yet (ROADMAP.md Queue 1)")
     n = y.shape[0]
     if weights is None:
         n_f = torch.as_tensor(float(n), dtype=y.dtype, device=y.device)
-        yw = y
         yy = torch.sum(y * y)
+        w = torch.ones(n, dtype=y.dtype, device=y.device)
     else:
         n_f = torch.sum(weights)
-        yw = y * weights[:, None]
-        yy = torch.sum(yw * y)
+        yy = torch.sum((y * weights[:, None]) * y)
+        w = weights
     psi0 = n_f * sf2
-    kl = kl_qp(mu, s, weights)
+    if s is None:
+        kl = torch.zeros((), dtype=y.dtype, device=y.device)
+        body, rows = _block_stats_sgpr, (y, mu, w)
+    else:
+        kl = kl_qp(mu, s, weights)
+        body, rows = _block_stats, (y, mu, s, w)
     if block is None or block >= n:
-        p1 = psi1(mu, s, z, sf2, alpha)
-        p1y = p1.T @ yw
-        p2 = psi2_sum(mu, s, z, sf2, alpha, weights)
+        p1y, p2 = body(*rows, z, sf2, alpha)
         return SufficientStats(psi0, p1y, p2, yy, kl, n_f)
 
     if n % block != 0:
         raise ValueError(f"N={n} must be a multiple of block={block}")
-    w = torch.ones(n, dtype=y.dtype, device=y.device) if weights is None else weights
     p1y = p2 = None
     for i in range(0, n, block):
-        sl = slice(i, i + block)
-        p1y_b, p2_b = checkpoint(_block_stats, y[sl], mu[sl], s[sl], w[sl],
-                                 z, sf2, alpha, use_reentrant=False)
+        p1y_b, p2_b = checkpoint(body, *(t[i:i + block] for t in rows), z, sf2, alpha,
+                                 use_reentrant=False)
         p1y = p1y_b if p1y is None else p1y + p1y_b
         p2 = p2_b if p2 is None else p2 + p2_b
     return SufficientStats(psi0, p1y, p2, yy, kl, n_f)
@@ -175,10 +185,8 @@ def suff_stats_t(
     and a transpose is a view, so this hands (N, Q) / (N, D) views of the
     same storage to ``suff_stats``: each block of its blocked form slices
     columns of the (Q, N) arrays and reuses ``psi1`` / ``psi2_sum``, and no
-    transposed copy exists. ``block`` must divide N.
+    transposed copy exists. ``block`` must divide N. ``s_t=None`` is the
+    SGPR mode, mu_t the transposed inputs X (Q, N).
     """
-    if s_t is None:
-        raise NotImplementedError(
-            "the SGPR (s=None) statistics are not ported yet (ROADMAP.md Queue 1)")
-    return suff_stats(y_t.T, mu_t.T, s_t.T, z, sf2, alpha, block=block,
-                      weights=weights)
+    return suff_stats(y_t.T, mu_t.T, None if s_t is None else s_t.T, z, sf2, alpha,
+                      block=block, weights=weights)

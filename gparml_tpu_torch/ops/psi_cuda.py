@@ -30,18 +30,18 @@ between the flat, staircase and lane-chunked kernels) has no counterpart:
 the same wrappers take every shape the Pallas kernels took. The kernels
 take any N and any Q: up to Q = 64 through the register buckets of
 ``csrc/psi_common.cuh``, past it through the chunked kernels, which walk
-the latent dimensions in chunks (the Psi2 ones K on the tensor cores, with
-an exact power-of-two shift of their exponents that the wrapper computes,
-``_shift``) and keep a float64 (2, Q, N) scratch of the backward Psi1 row
-pass's totals (the plan's fifth entry). M and D are
-bounded by the card's shared memory per block (227 KB on an H100): up to
-Q = 64 the backward's row passes stage Z as M x QM floats (QM the Q
-bucket), and the Psi1 kernels stage 32 rows of Y. On an H100 that is
-M <= 908 at 32 < Q <= 64 and M <= 5811 at Q <= 10, and D <= 1686 at
-32 < Q <= 64; past Q = 64 nothing staged grows with M or Q (D <= 1782).
-The wrappers raise ValueError past these limits, which the kernels' launch
-plan reports (``gparml_psi_{fwd,bwd}_plan``); the launch geometry itself
-lives in the CUDA sources only.
+the latent dimensions in chunks (the Psi2 ones K on the tensor cores) and
+keep a float64 (2, Q, N) scratch of the backward Psi1 row pass's totals
+(the plan's fifth entry). At every Q the Psi2 kernels add an exact
+power-of-two shift to their exponents, which the wrapper computes
+(``_shift``), so that no pair's exp2 flushes to zero. The kernels take any
+M: the Q <= 64 Psi1 row pass stages Z in pieces of a fixed size. D is
+bounded by the card's shared memory per block (227 KB on an H100), since
+the Psi1 kernels stage 32 rows of Y: on an H100, D <= 1686 at
+32 < Q <= 64 and D <= 1782 past Q = 64. The wrappers raise ValueError
+past that limit, which the kernels' launch plan reports
+(``gparml_psi_{fwd,bwd}_plan``); the launch geometry itself lives in the
+CUDA sources only.
 
 Each grid splits N and writes one float64 partial per split, which the
 wrapper sums; ``PARTIAL_BYTES`` bounds each grid's partials, and the plan
@@ -171,9 +171,8 @@ def _plan_for(n, m, q, d, device, partial_bytes):
     if need > limit:
         raise ValueError(
             f"the CUDA kernels need {need} bytes of shared memory per block at "
-            f"M={m}, Q={q}, D={d}, and this card gives {limit}: Z is staged "
-            f"as M x (Q bucket) floats up to Q=64 and 32 rows of Y as "
-            f"32 x D floats; lower M or D")
+            f"M={m}, Q={q}, D={d}, and this card gives {limit}: the Psi1 "
+            f"kernels stage 32 rows of Y as 32 x D floats; lower D")
     return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
@@ -211,8 +210,8 @@ _SHIFT_PIECE = 1 << 26
 def _shift(layout, s, alpha, sf2):
     """S = -floor(max_n lc_n log2e), lc_n = 2 log sf2 - 1/2 sum_q log(2
     alpha_q s_nq + 1), as a float32 scalar on the device (never read on the
-    host): the whole number the Q > 64 Psi2 kernels add to every base-2
-    exponent and take off their float64 sums (exact for any whole number;
+    host): the whole number the Psi2 kernels add to every base-2 exponent
+    and take off their float64 sums (exact for any whole number;
     this one keeps the largest row's pairs just below 2 and the rest clear
     of float32's subnormal range). Pieces of rows bound the temporary."""
     n = s.shape[0] if layout == "nq" else s.shape[1]
@@ -230,14 +229,8 @@ def _shift(layout, s, alpha, sf2):
 
 
 def _psi2_terms(layout, s, z, sf2, alpha):
-    """(zeta, cells, ce, shift) for the kernels (shift only past Q = 64:
-    a null pointer up to it, where it is not read)."""
-    shift = _shift(layout, s, alpha, sf2) if z.shape[1] > 64 else None
-    return (*_cell_terms(z, alpha), shift)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    """(zeta, cells, ce, shift) for the kernels."""
+    return (*_cell_terms(z, alpha), _shift(layout, s, alpha, sf2))
 
 
 # layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
@@ -256,7 +249,7 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     terms = _psi2_terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
-            *(_ptr(t) for t in (mu, s, y, w, z, alpha, sf2, *terms)),
+            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms)),
             n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
             p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
@@ -286,7 +279,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     terms = _psi2_terms(layout, s, z, sf2, alpha)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
-            *(_ptr(t) for t in (mu, s, y, w, z, alpha, sf2, *terms, kmat, dp1y)),
+            *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms, kmat, dp1y)),
             n, m, q, d, qn, splits_c, splits_m,
             *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
             torch.cuda.current_stream(mu.device).cuda_stream)

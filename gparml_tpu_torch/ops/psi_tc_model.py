@@ -5,7 +5,7 @@ the Q <= 64 buckets and, past Q = 64, the K-chunked kernels.
 The kernels write the Psi2 exponent of data row n and upper-triangle cell
 (m, m') in expanded form, in base 2:
 
-  L2 = [(lc_n - sum_q c mu'^2) log2e] + [E0_mm' log2e]
+  L2 = [(lc_n - sum_q c mu'^2) log2e + S] + [E0_mm' log2e]
        + sum_q (2 c mu' log2e)_nq zb'_q + sum_q (-c log2e)_nq zb'_q^2
 
 with mu' = mu - zeta and zb' = (z_m + z_m') / 2 - zeta, zeta the
@@ -14,12 +14,18 @@ expanded terms carry the data's spread, not its offset). The last two sums
 are one (rows x 2Q) . (2Q x cells) product, which the kernels run on the
 tensor cores in TF32 with the 3-term split a_hi b_lo + a_lo b_hi + a_hi b_hi
 and float32 accumulation; the row and cell constants are added in float32
-after it, then exp2. This module computes the same thing on the CPU:
+after it, then exp2 (``ex2.approx.ftz``, whose results below 2^-126 flush
+to zero). S is an exact power-of-two shift (``shift``: S = -floor(max_n
+lc_n log2e)), so that every pair's exp2 lies below 2 and the largest rows
+stay clear of float32's subnormal range; the kernels undo it on their
+float64 totals (x 2^-S, exact). This module computes the same thing on the
+CPU:
 
 * ``tf32`` rounds as ``cvt.rna.tf32.f32`` does (round to nearest, ties away
   from zero, on the low 13 mantissa bits of the float32 bit pattern);
 * ``tc_matmul`` is the 3-term product;
-* ``exponents`` the kernels' (rows, cells) exponent tile;
+* ``exponents`` the kernels' (rows, cells) exponent tile, ``ex2`` their
+  exp2 with its flush;
 * ``psi2_sum`` the forward statistic, ``psi2_bwd`` the backward's
   reductions in either form: ``"tc"`` (what the kernels run: the sums
   g [zb' | zb'^2 | 1] and w e [c mu' | c] as further 3-term TF32 products
@@ -30,11 +36,7 @@ after it, then exp2. This module computes the same thing on the CPU:
 
 Past Q = 64 (``chunked``) the kernels walk K in chunks of ``QCHUNK`` latent
 dimensions (each chunk both halves of the operands for its dimensions), the
-float32 accumulator running on across the chunks, and fold an exact
-power-of-two shift 2^S into every row constant (``shift``: S = -floor(max_n
-lc_n log2e), so that every pair's exp2 lies below 2 and the largest rows stay
-clear of float32's subnormal range); they undo it on their float64 totals
-(x 2^-S, exact).
+float32 accumulator running on across the chunks.
 
 Per-pair values are float32; sums over pairs are float64, as in the kernels,
 whose float32 partial sums span at most one 64-row or 64-cell tile.
@@ -97,9 +99,20 @@ def k_chunks(q: int):
             for k0 in range(0, q, QCHUNK)]
 
 
+# Below this, ex2.approx.ftz returns 0.
+FLUSH = 2.0 ** -126
+
+
+def ex2(x: torch.Tensor) -> torch.Tensor:
+    """2^x as the kernels' ``ex2.approx.ftz`` gives it: a result below
+    2^-126 (float32's smallest normal) becomes 0."""
+    y = torch.exp2(x)
+    return torch.where(y < FLUSH, torch.zeros_like(y), y)
+
+
 def shift_of(s, alpha, sf2) -> float:
     """S = -floor(max_n lc_n log2e), lc_n = 2 log sf2 - 1/2 sum_q log(2 alpha
-    s_nq + 1): the power of two the Q > 64 kernels fold into the row
+    s_nq + 1): the power of two the kernels fold into the row
     constants (any integer is exact; this one puts the largest row's pairs
     just below 2)."""
     lc = 2.0 * torch.log(sf2.double()) - 0.5 * torch.log1p(
@@ -116,7 +129,7 @@ def cells(m: int):
 def _row_terms(mu, s, alpha, sf2, zeta, shift=0):
     """(row operand (N, 2Q), row constant (N,), c, den, mu') in float32;
     as in the kernels, sum_q log den is the float64 sum of the logs of
-    float32 products of 8 terms, and sum_q c mu'^2 a float64 sum. A
+    float32 products of 8 terms, and sum_q c mu'^2 a float64 sum; the
     ``shift`` S is added to the constant in float64 before its rounding."""
     mu, s, alpha = mu.float(), s.float(), alpha.float()
     den = 2.0 * alpha * s + 1.0
@@ -126,10 +139,7 @@ def _row_terms(mu, s, alpha, sf2, zeta, shift=0):
     pad = torch.ones((n, -q % 8), dtype=den.dtype)
     prods = torch.cat([den, pad], dim=-1).reshape(n, -1, 8).prod(-1)
     lc = 2.0 * torch.log(sf2.float()).double() - 0.5 * torch.log(prods).double().sum(-1)
-    if shift:
-        rc = ((lc - (c * mu_c * mu_c).double().sum(-1)) * LOG2E + shift).float()
-    else:
-        rc = ((lc - (c * mu_c * mu_c).double().sum(-1)).float() * LOG2E).float()
+    rc = ((lc - (c * mu_c * mu_c).double().sum(-1)) * LOG2E + shift).float()
     a = torch.cat([(2.0 * c * mu_c) * LOG2E, -c * LOG2E], dim=-1).float()
     return a, rc, c, den, mu_c
 
@@ -161,11 +171,9 @@ def exponents(mu, s, z, sf2, alpha, zeta=None, shift=0):
     return l2, c, den, mu_c, zb
 
 
-def _shift_for(s, alpha, sf2, q, shift):
-    """The shift the kernels take: None means theirs (0 up to Q = 64)."""
-    if shift is None:
-        return shift_of(s, alpha, sf2) if q > 64 else 0
-    return shift
+def _shift_for(s, alpha, sf2, shift):
+    """The shift the kernels take: None means theirs, ``shift_of``."""
+    return shift_of(s, alpha, sf2) if shift is None else shift
 
 
 def _mirror(packed, m):
@@ -181,9 +189,9 @@ def psi2_sum(mu, s, z, sf2, alpha, w, zeta=None, shift=None):
     """sum_n w_n Psi2_n (M, M) in float64: float32 pair values w exp2(L2 + S),
     summed in float64 and scaled by 2^-S (``shift`` S: None for the kernels'
     own)."""
-    sh = _shift_for(s, alpha, sf2, z.shape[1], shift)
+    sh = _shift_for(s, alpha, sf2, shift)
     l2 = exponents(mu, s, z, sf2, alpha, zeta, sh)[0]
-    pair = w.float()[:, None] * torch.exp2(l2)
+    pair = w.float()[:, None] * ex2(l2)
     return _mirror(pair.double().sum(0), z.shape[0]) * 2.0 ** -sh
 
 
@@ -218,11 +226,11 @@ def psi2_bwd(mu, s, z, sf2, alpha, w, kmat, zeta=None, form="tc", shift=None):
     kernels'). e carries the shift 2^S (``shift``: None for the kernels'
     own), which the float64 sums drop before they are combined."""
     m, q = z.shape
-    sh = _shift_for(s, alpha, sf2, q, shift)
+    sh = _shift_for(s, alpha, sf2, shift)
     unshift = 2.0 ** -sh
     l2, c, den, mu_c, zb = exponents(mu, s, z, sf2, alpha, zeta, sh)
     i, j = cells(m)
-    e = torch.exp2(l2)                                     # (N, C)
+    e = ex2(l2)                                            # (N, C)
     we = w.float()[:, None] * e
     g = kmat.float()[i, j][None, :] * we                   # (N, C)
     gsum = (_tile_sums(g) if form == "tc" else g.double().sum(1)) * unshift

@@ -16,8 +16,10 @@ in the JAX package: ``models.gplvm`` sends it to ``psi_cuda.suff_stats_t``
 ``psi.suff_stats_t`` (the plain engine).
 
 The TPU engine's M limit (``PALLAS_M_LIMIT``, a VMEM budget) has no
-counterpart. Data-parallel statistics over a mesh are not ported yet
-(ROADMAP.md Queue 1).
+counterpart: the kernels take any M. The SGPR statistics (``s=None``)
+always take the plain engine, as they take the XLA path in the JAX
+package: they are plain matrix products. Data-parallel statistics over a
+mesh are not ported yet (ROADMAP.md Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -48,5 +50,5 @@ def suff_stats_auto(
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel statistics over a mesh are not ported yet "
-            "(ROADMAP.md Queue 1, item 14)")
+            "(ROADMAP.md Queue 1, item 3: parallel)")
     return _local_stats(y, mu, s, z, sf2, alpha, block, weights, impl)

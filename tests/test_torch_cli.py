@@ -211,9 +211,9 @@ def test_option_strings_match_jax():
     assert t["device"][:3] == (("--device",), "cuda", ("cuda", "cpu"))
 
 
-@pytest.mark.parametrize("extra, item", [(["--fixed-embeddings"], "item 10"),
-                                         (["--fixed-embeddings", "--optimizer", "svgp"], "item 13"),
-                                         (["-p", "remote"], "item 14")])
+@pytest.mark.parametrize("extra, item", [(["--fixed-embeddings", "--optimizer", "svgp"],
+                                          "item 2: SVGP"),
+                                         (["-p", "remote"], "item 3: parallel")])
 def test_unported_modes_raise(tmp_path, extra, item):
     tdata.save_partitioned(str(tmp_path / "in"), np.ones((8, 2)), 1)
     with pytest.raises(NotImplementedError, match=item):

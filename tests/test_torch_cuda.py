@@ -146,22 +146,28 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
 
 
 def test_m_limit_at_q_over_32(cuda):
-    """Z staged as M x 64 floats is the largest block at 32 < Q <= 64:
-    M=908 fits an H100's 227 KB, M=909 does not. Past Q = 64 the chunked
-    kernels stage no Z, so M has no such limit."""
-    if torch.cuda.get_device_properties(cuda).major != 9:
-        pytest.skip("the limit is an H100's")
-    psi_cuda._plan(8, 908, 44, 4, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        psi_cuda._plan(8, 909, 44, 4, cuda)
-    psi_cuda._plan(8, 4000, 65, 4, cuda)
-    psi_cuda._plan(8, 4000, 300, 4, cuda)
+    """At 32 < Q <= 64 M has no limit: the Psi1 row pass stages Z in pieces
+    of a fixed size, so M=908, 909 and 4000 plan within the card's shared
+    memory, as past Q = 64; and the wrappers run at M=4000, Q=64 against
+    their plain versions."""
+    for m, q in ((908, 44), (909, 44), (4000, 44), (4000, 64), (4000, 65), (4000, 300)):
+        psi_cuda._plan(8, m, q, 4, cuda)
+    xs = _inputs(cuda, n=8, m=4000, q=64, d=4)
+    cot = (torch.randn((4000, 4), device=cuda), torch.randn((4000, 4000), device=cuda))
+    before = dict(psi_cuda.LAUNCHES)
+    got = psi_cuda.psi_fwd(*xs)
+    got_b = psi_cuda.psi_bwd(*xs, *got, *cot)
+    assert psi_cuda.LAUNCHES["fwd"] == before["fwd"] + 1
+    assert psi_cuda.LAUNCHES["bwd"] == before["bwd"] + 1
+    want = psi_cuda.psi_fused_fwd_reference(*xs)
+    want_b = psi_cuda.psi_fused_bwd_reference(*xs, *cot)
+    for a, b in zip((*got, *got_b), (*want, *want_b)):
+        assert float((a - b).abs().max()) <= chip_smoke.GRAD_TOL_F32 * float(b.abs().max())
 
 
-# Z staged as M x 64 floats (1 MB), and 32 rows of Y as 32 x D floats
-# (2.5 MB), also by the chunked kernels: past any card's shared memory per
-# block.
-@pytest.mark.parametrize("m, q, d", [(4000, 64, 4), (40, 10, 20000), (40, 100, 20000)])
+# 32 rows of Y as 32 x D floats (2.5 MB), also by the chunked kernels: past
+# any card's shared memory per block.
+@pytest.mark.parametrize("m, q, d", [(40, 10, 20000), (40, 100, 20000)])
 def test_wrappers_reject_shapes_past_shared_memory(cuda, m, q, d):
     xs = _inputs(cuda, n=8, m=m, q=q, d=d)
     before = dict(psi_cuda.LAUNCHES)
@@ -172,3 +178,46 @@ def test_wrappers_reject_shapes_past_shared_memory(cuda, m, q, d):
         psi_cuda.psi_bwd(*xs, torch.zeros((m, d), device=cuda), m_ok,
                          torch.zeros((m, d), device=cuda), m_ok)
     assert psi_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+def test_flushed_psi2_matches_plain_float64(cuda, layout):
+    """chip_smoke's flush case: every Psi2 entry below 2^-126 (sf2 = 1e-20)
+    at Q = 10; the kernels shift their exponents, so nothing flushes."""
+    before = len(chip_smoke.FAILURES)
+    res = chip_smoke.flush_case(*chip_smoke.FLUSH_CASE, device=cuda, layout=layout)
+    assert len(chip_smoke.FAILURES) == before, res
+
+
+@pytest.mark.parametrize("layout", ["nq", "qn"])
+def test_infer_latents_launches_the_kernels(cuda, layout):
+    """infer_latents on CUDA tensors computes the new points' statistics
+    (and the training statistics) with the kernels, never the plain engine;
+    and its objective's first evaluation matches the plain engine's on the
+    same inputs (chip_smoke.SLICE_TOL, as phase 7 holds it)."""
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import gplvm
+
+    y_np, _ = data.oil_flow_like(n=330, d=5, seed=2)
+    y_all = torch.tensor(y_np.T.copy() if layout == "qn" else y_np, dtype=torch.float32,
+                         device=cuda)
+    y_tr, y_new = (y_all[:, :300], y_all[:, 300:]) if layout == "qn" else (y_all[:300],
+                                                                           y_all[300:])
+    y_tr, y_new = y_tr.contiguous(), y_new.contiguous()
+    kw = dict(layout=layout, y_layout="dn" if layout == "qn" else "nd")
+    cfg = gplvm.GPLVMConfig(q=3, num_inducing=12, **kw)
+    p = gplvm.init_params(torch.Generator(cuda).manual_seed(0), y_tr, cfg)
+    keys = ("fwd_t", "bwd_t") if layout == "qn" else ("fwd", "bwd")
+    before = dict(psi_cuda.LAUNCHES)
+    mu, s, res = gplvm.infer_latents(p, y_tr, y_new, cfg, iters=4)
+    assert all(psi_cuda.LAUNCHES[k] > before[k] for k in keys), psi_cuda.LAUNCHES
+    assert mu.shape == (30, 3) and bool(torch.all(s > 0))
+    b = res.trace["bound"][:4]
+    assert np.all(np.isfinite(b)) and np.all(np.diff(b) >= 0)
+    cfg_x = gplvm.GPLVMConfig(q=3, num_inducing=12, stats_impl="xla", **kw)
+    vg, lat0 = gplvm._infer_objective(p, y_tr, y_new, cfg)
+    f, g = vg(lat0)
+    f_x, g_x = gplvm._infer_objective(p, y_tr, y_new, cfg_x)[0](lat0)
+    assert abs(float(f) - float(f_x)) <= chip_smoke.SLICE_TOL * abs(float(f_x))
+    for a, b in zip(g, g_x):
+        assert float(torch.linalg.norm(a - b)) <= chip_smoke.SLICE_TOL * float(torch.linalg.norm(b))

@@ -81,9 +81,13 @@ def test_suff_stats_block_must_divide_n(rng):
     pr, _ = _problem(rng, n=12)
     with pytest.raises(ValueError, match="multiple of block"):
         tpsi.suff_stats(*(_t(pr[k]) for k in ("y", "mu", "s", "z", "sf2", "alpha")), block=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the SGPR (s=None) statistics are computed, and take the same block rule
+    st = tpsi.suff_stats(_t(pr["y"]), _t(pr["mu"]), None, _t(pr["z"]), _t(pr["sf2"]),
+                         _t(pr["alpha"]))
+    assert all(bool(torch.all(torch.isfinite(t))) for t in st) and float(st.kl) == 0.0
+    with pytest.raises(ValueError, match="multiple of block"):
         tpsi.suff_stats(_t(pr["y"]), _t(pr["mu"]), None, _t(pr["z"]), _t(pr["sf2"]),
-                        _t(pr["alpha"]))
+                        _t(pr["alpha"]), block=5)
 
 
 @pytest.mark.parametrize("block", [None, 6])

@@ -9,10 +9,11 @@ its reductions assembled by the wrapper's own ``psi_cuda._assemble_bwd``,
 are held against
 the JAX package in float64 (``psi.psi2_sum`` and its VJP) at every Q bucket
 of the kernels, with the latents centred and offset by +5 (mu and Z
-together), at ``chip_smoke.F64_TOL``; past Q = 64 (K chunked, the exact
-shift 2^S in the row constants) at the larger of that and twice the plain
-float32 engine's own error on the same inputs, as chip_smoke holds the
-kernels there."""
+together), at ``chip_smoke.F64_TOL``; past Q = 64 (K chunked) at the
+larger of that and twice the plain float32 engine's own error on the same
+inputs, as chip_smoke holds the kernels there. At every Q the row
+constants carry the exact shift 2^S, and the model flushes an exp2 result
+below 2^-126 to zero, as the kernels' ``ex2.approx.ftz`` does."""
 
 import numpy as np
 import pytest
@@ -24,7 +25,8 @@ import jax  # noqa: E402
 from gparml_tpu.ops import psi as jpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi as tpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi_tc_model as tm  # noqa: E402
-from tools.psi_tc_numerics import BUCKETS, CONTROL, WIDE, problem, reference  # noqa: E402
+from tools.psi_tc_numerics import (  # noqa: E402
+    BUCKETS, CONTROL, FLUSH_CASE, WIDE, problem, reference)
 
 torch.set_num_threads(2)
 
@@ -102,10 +104,38 @@ def test_chunked_exponent_needs_the_shift_where_psi2_is_subnormal():
 
 
 def test_bucket_64_with_raw_alpha_needs_no_shift():
-    """The Q <= 64 kernels take no shift: at their widest bucket with the
-    raw alpha the arithmetic is still within F64_TOL of float64."""
-    errs, _ = _model_errors(*CONTROL[:1], 0.0, CONTROL[1])
+    """The shift is not what keeps the Q <= 64 arithmetic accurate: at the
+    widest bucket with the raw alpha the model without it (S = 0) is still
+    within F64_TOL of float64."""
+    errs, _ = _model_errors(*CONTROL[:1], 0.0, CONTROL[1], shift=0)
     assert max(errs.values()) <= F64_TOL, errs
+
+
+def test_flushed_psi2_at_q_up_to_64_needs_the_shift():
+    """At sf2 = 1e-20 (Q = 10) every Psi2 entry lies below 2^-126, where the
+    kernels' ex2.approx.ftz flushes to zero: without the shift the model's
+    Psi2 and every gradient leaf are zero. With it, Psi2 and the per-row
+    leaves meet F64_TOL; dz, dsf2 and dalpha also read the float32 Psi2
+    that the forward hands the backward (subnormal there, as the plain
+    float32 engine's is), and meet the floor of twice that engine's error."""
+    q, sf2 = FLUSH_CASE
+    pr = problem(N, M, q, 0.0, sf2=sf2)
+    mu, s, z, sf2_, alpha, w, dp2 = pr
+    want, vjp = jax.vjp(lambda *xs: jpsi.psi2_sum(*xs, w), mu, s, z, sf2_, alpha)
+    want_grads = vjp(dp2)
+    assert float(np.max(want)) < tm.FLUSH
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    names = ("psi2", "mu", "s", "z", "sf2", "alpha")
+    errs = {}
+    for shift in (0, None):
+        p2, grads = tm.psi2_vjp(*(t(a) for a in pr), shift=shift)
+        errs[shift] = dict(zip(names, [_rel(p2, want)] + [
+            _rel(g, gw) for g, gw in zip(grads, want_grads)]))
+    assert min(errs[0].values()) == 1.0, errs[0]
+    p2_32, grads_32 = reference(*pr, torch.float32)
+    plain = max([_rel(p2_32, want)] + [_rel(g, gw) for g, gw in zip(grads_32, want_grads)])
+    assert max(errs[None][k] for k in ("psi2", "mu", "s")) <= F64_TOL, errs[None]
+    assert max(errs[None].values()) <= F64_FLOOR_FACTOR * plain, (errs[None], plain)
 
 
 def test_exponent_tile_is_the_direct_exponent():

@@ -95,8 +95,11 @@ def test_plain_suff_stats_t_refuses_what_jax_does_not_take():
     x = [torch.tensor(_transposed(pr[k], k)) for k in ORDER]
     with pytest.raises(ValueError, match="multiple of block"):
         tpsi.suff_stats_t(x[2], x[0], x[1], *x[3:], block=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpsi.suff_stats_t(x[2], x[0], None, *x[3:])
+    # the SGPR (s_t=None) statistics are computed, and take the same block rule
+    st = tpsi.suff_stats_t(x[2], x[0], None, *x[3:])
+    assert all(bool(torch.all(torch.isfinite(t))) for t in st) and float(st.kl) == 0.0
+    with pytest.raises(ValueError, match="multiple of block"):
+        tpsi.suff_stats_t(x[2], x[0], None, *x[3:], block=5)
     with pytest.raises(ValueError, match="s=None"):
         psi_cuda.suff_stats_t(x[2], x[0], None, *x[3:])
 

@@ -7,9 +7,11 @@ product in expanded form, constants added in float32, exp2) on small random
 problems at every Q bucket and past Q = 64 (K chunked, Q = 65, 100, 256 with
 alpha scaled by 44/Q as chip_smoke.parity_case scales it, and Q = 100 with
 the raw alpha, where Psi2 lies at and below the bottom of float32's normal
-range), with
-the latents centred on the origin and
-offset by +5 (mu and Z shifted together), and prints, per case, the largest
+range), with the latents centred on the origin and offset by +5 (mu and Z
+shifted together), and at Q = 10 with sf2 = 1e-20, where every Psi2 entry
+lies below 2^-126 and the kernels' exp2 (ex2.approx.ftz, which the model
+flushes as they do) would give zero without the shift; and prints, per
+case, the largest
 error of max|ref| of sum_n w_n Psi2_n and of each gradient leaf (mu, s, z,
 sf2, alpha, against a random cotangent of Psi2) from the port's plain
 engine in float64, for:
@@ -18,7 +20,8 @@ engine in float64, for:
     products of g [zb' | zb'^2 | 1] and w e [c mu' | c] over tiles of 64
     combined in float64 ("tc"), or per pair in float32 in the centred
     direct form;
-  * past Q = 64, the exact shift 2^S folded into the row constants or not;
+  * the exact shift 2^S folded into the row constants or not (past Q = 64,
+    at the widest bucket with the raw alpha, and at sf2 = 1e-20);
 and beside them the plain float32 engine's own error on the same inputs.
 These are the numbers that chose the kernels' design (PERF.md).
 
@@ -32,16 +35,19 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BUCKETS = (2, 4, 10, 16, 32, 64)
-# Past Q = 64: (Q, raw alpha); and the Q <= 64 kernels' control at their
-# widest bucket with the raw alpha (no shift there).
+# Past Q = 64: (Q, raw alpha); the Q <= 64 kernels' control at their
+# widest bucket with the raw alpha; and (Q, sf2) of the flushed case.
 WIDE = ((65, False), (100, False), (256, False), (100, True))
 CONTROL = (64, True)
+FLUSH_CASE = (10, 1e-20)
 
 
-def problem(n, m, q, offset, seed=0, raw_alpha=False):
+def problem(n, m, q, offset, seed=0, raw_alpha=False, sf2=1.3):
     """(mu, s, z, sf2, alpha, w, dp2) as float64 numpy arrays, drawn as
     chip_smoke.parity_case draws them, the latents shifted by ``offset``;
-    past Q = 64 alpha is scaled by 44/Q unless ``raw_alpha``."""
+    past Q = 64 alpha is scaled by 44/Q unless ``raw_alpha``. The cotangent
+    dp2 scales as 1.3 / sf2, as the bound's does (through K_MM^-1), so
+    that the gradients stay in float32's normal range."""
     import numpy as np
 
     rng = np.random.default_rng(seed + 100 * q + n + m)
@@ -52,8 +58,8 @@ def problem(n, m, q, offset, seed=0, raw_alpha=False):
     if q > 64 and not raw_alpha:
         alpha *= 44.0 / q
     w = np.r_[np.ones(n - n // 10), np.zeros(n // 10)]
-    dp2 = rng.standard_normal((m, m))
-    return mu, s, z, np.asarray(1.3), alpha, w, dp2
+    dp2 = rng.standard_normal((m, m)) * (1.3 / sf2)
+    return mu, s, z, np.asarray(sf2), alpha, w, dp2
 
 
 def reference(mu, s, z, sf2, alpha, w, dp2, dtype):
@@ -77,7 +83,7 @@ def errors(got, ref):
 
 def model(mu, s, z, sf2, alpha, w, dp2, centred, form, shift=None):
     """The model's (Psi2 sum, gradient leaves); ``shift`` None: the kernels'
-    own (S past Q = 64, else 0), 0: none."""
+    own S, 0: none."""
     import torch
     from gparml_tpu_torch.ops import psi_tc_model as tm
 
@@ -124,11 +130,19 @@ def main() -> int:
             _print(q, offset, "shift 2^S" + tag, errors(model(*pr, True, "tc"), ref))
             _print(q, offset, "no shift" + tag, errors(model(*pr, True, "tc", shift=0), ref))
     q, raw = CONTROL
-    print(f"Q = {q} (bucket 64, no shift), raw alpha, centred, tc form")
+    print(f"Q = {q} (bucket 64), raw alpha, centred, tc form")
     pr = problem(args.n, args.m, q, 0.0, raw_alpha=raw)
     ref = reference(*pr, torch.float64)
     _print(q, 0.0, "plain f32 engine, raw alpha", errors(reference(*pr, torch.float32), ref))
-    _print(q, 0.0, "bucket 64, raw alpha", errors(model(*pr, True, "tc"), ref))
+    _print(q, 0.0, "shift 2^S, raw alpha", errors(model(*pr, True, "tc"), ref))
+    _print(q, 0.0, "no shift, raw alpha", errors(model(*pr, True, "tc", shift=0), ref))
+    q, sf2 = FLUSH_CASE
+    print(f"Q = {q}, sf2 = {sf2:g} (every Psi2 entry below 2^-126), centred, tc form")
+    pr = problem(args.n, args.m, q, 0.0, sf2=sf2)
+    ref = reference(*pr, torch.float64)
+    _print(q, 0.0, "plain f32 engine", errors(reference(*pr, torch.float32), ref))
+    _print(q, 0.0, "shift 2^S", errors(model(*pr, True, "tc"), ref))
+    _print(q, 0.0, "no shift (flushed)", errors(model(*pr, True, "tc", shift=0), ref))
     return 0
 
 
