@@ -59,11 +59,26 @@ Phases, one line each or more:
      (c) SGPR: BASELINE config 1 through the CLI (--fixed-embeddings, 200
      SCG iterations, the learned noise std within 0.15-0.25, then a resume
      with --load) and the API at N=1e6, Q=1, M=200 in both layouts (one
-     bound+gradient against float64, and 5 SCG iterations).
+     bound+gradient against float64, and 5 SCG iterations);
+  8. the data-parallel statistics: (a) a mesh of 4 shards on the one card
+     at the slice's shape, N=1e6 and N=1e6-3 (padded): the bound+gradient
+     with the mesh against the unsharded kernel route (phase 4's
+     tolerances), one forward and one backward kernel call per shard, the
+     padded rows' latent gradients exactly 0, s/eval of both; (b) -p remote
+     on two processes of the one card over gloo (python -m
+     gparml_tpu_torch.cli with torchrun's variables): BASELINE config 2 (300
+     SCG iterations, then --load -T 20) and the slice (5 SCG iterations,
+     --trace-timing), each with its bound at -T 0 --load against -p local
+     on the same checkpoint (rtol 1e-5), both ranks' globals equal bit for
+     bit, both partition files and the backend; (c) BASELINE config 1 (SGPR)
+     through -p remote, its noise std within 7(c)'s bounds. Rank 0's
+     summary gives the mean time of the statistics' all_reduce.
 Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run; phase 7:
-each call). The line before the last is the
-kernel table as JSON; the last line is {"ok": true, "device": {...}}. A
+each call; phase 8: the sharded evaluation, and each remote CLI run counts
+its own, which rank 0's summary reports). The line before the last is the
+kernel table as JSON (``launches_sharded``: phase 8(a)'s calls in one
+sharded evaluation); the last line is {"ok": true, "device": {...}}. A
 failed check prints a "chip_smoke check failed" line, the run goes on to
 its end for the readings, and then exits non-zero without those two lines.
 
@@ -201,6 +216,18 @@ RECON_C5 = (10_000, 1024)
 SGPR_CLI = (1000, 1, 1, 10, 200, 20, (0.15, 0.25))
 SGPR_API = (1_000_000, 1, 200, 5)
 GRAD_NAMES = ("mu", "s", "z", "sf2", "alpha", "y")
+# Phase 8, the data-parallel statistics. (a) a mesh of MESH_SHARDS shards
+# on the one card at the slice's shape (N, Q, M, D), also at N - 3 so that
+# padding runs; (b) -p remote on REMOTE_RANKS processes of a gloo group on
+# the one card: BASELINE config 2 (CONFIG2) and the slice through the CLI
+# (N, D, Q, M, SCG iterations), each process given REMOTE_TIMEOUT seconds;
+# (c) BASELINE config 1 (SGPR_CLI) through -p remote.
+MESH_SHARDS = 4
+MESH_SLICE = SLICE
+REMOTE_RANKS = 2
+REMOTE_SLICE = (1_000_000, 12, 10, 200, 5)
+REMOTE_TIMEOUT = 300
+
 
 FAILURES = []
 
@@ -1482,6 +1509,201 @@ def phase7_sgpr(dev, work):
               f"{float(1.0 / torch.sqrt(P.constrain(res.params)[3].detach())):.4f}")
 
 
+def phase8_mesh(dev, kernels):
+    """8(a): a mesh of MESH_SHARDS shards on the one card at the slice's
+    shape, at N and N - 3 (padded): neg_bound_value_and_grad with the mesh
+    against the unsharded kernel route on the same inputs, one forward and
+    one backward kernel call per shard, the padded rows' latent gradients
+    exactly 0, and s/eval of both."""
+    import torch
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import gplvm, params as P
+    from gparml_tpu_torch.ops import psi_cuda
+    from gparml_tpu_torch.parallel import mesh as mesh_lib
+
+    n0, q, m, d = MESH_SLICE
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="auto")
+    mesh = mesh_lib.Mesh([dev] * MESH_SHARDS)
+    for n in (n0, n0 - 3):
+        y_np, _ = data.oil_flow_like(n=n, d=d)
+        y = torch.tensor(y_np, dtype=torch.float32, device=dev)
+        p = gplvm.init_params(torch.Generator(dev).manual_seed(0), y, cfg)
+        ys, mus, uss, w = mesh_lib.shard_data(mesh, y, p.lat.mu.detach(), p.lat.u_s.detach())
+        pk = P.GPLVMParams(p.glob, P.LatentParams(mus.gather(), uss.gather()))
+        sharded = lambda: gplvm.neg_bound_value_and_grad(pk, ys, cfg, mesh=mesh, weights=w)
+        sec_1, (f_1, g_1) = _eval_seconds(gplvm, p, y, cfg)
+        psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+        f_k, g_k = sharded()
+        torch.cuda.synchronize()
+        launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd", "bwd")}
+        sec_k = min(_timed(sharded)[0] for _ in range(4))
+        rel_f = abs(float(f_k) - float(f_1)) / abs(float(f_1))
+        errs = {nm: float(((a[:n] if a.ndim == 2 and a.shape[0] > m else a) - b).abs().max()
+                          / b.abs().max().clamp_min(1e-30))
+                for (nm, _), a, b in zip(p.named_parameters(), g_k, g_1)}
+        pad_nonzero = sum(int(torch.count_nonzero(g[n:])) for g in g_k[4:])
+        _require(launches == {"fwd": MESH_SHARDS, "bwd": MESH_SHARDS},
+                 f"phase 8(a) N={n}: not one kernel call per shard: {launches}")
+        _require(rel_f <= VALUE_RTOL and max(errs.values()) <= GRAD_TOL_F32,
+                 f"phase 8(a) N={n} mesh vs unsharded: bound rel {rel_f}, gradients {errs}")
+        _require(tuple(g_k[4].shape) == (ys.shape[0], q) and pad_nonzero == 0,
+                 f"phase 8(a) N={n}: {pad_nonzero} non-zero gradients in padded rows")
+        if n == n0:
+            for k in kernels:
+                if k["name"] in ("psi_fwd", "psi_bwd"):
+                    k["launches_sharded"] = launches[k["name"][4:]]
+        print(f"phase 8(a) mesh of {MESH_SHARDS} shards on {dev}, N={n} (padded to "
+              f"{ys.shape[0]}) Q={q} M={m} D={d}: sharded {sec_k:.4f} s/eval, unsharded "
+              f"{sec_1:.4f} s/eval; launches per evaluation {launches}; bound rel "
+              f"{rel_f:.2e}; gradient max abs err of max|ref| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; padded rows' latent gradients non-zero: {pad_nonzero}")
+        del y, p, pk, ys, mus, uss, w, g_k, g_1
+        torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _ranks(args, work, tag):
+    """``python *args`` as REMOTE_RANKS ranks of a new process group on this
+    card, with torchrun's variables; every rank is killed once one fails or
+    REMOTE_TIMEOUT passes. Returns (their outputs, seconds)."""
+    port = str(_free_port())
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(REMOTE_RANKS):
+        env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="localhost", MASTER_PORT=port,
+                   WORLD_SIZE=str(REMOTE_RANKS), RANK=str(rank), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(REMOTE_RANKS))
+        logs.append(os.path.join(work, f"{tag}.rank{rank}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen([sys.executable, *map(str, args)], stdout=out,
+                                          stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > REMOTE_TIMEOUT or any(p.poll() for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for p, log in zip(procs, logs):
+        with open(log) as f:
+            outs.append(f.read())
+    ok = all(p.returncode == 0 for p in procs)
+    _require(ok, f"phase 8 {tag}: ranks exited {[p.returncode for p in procs]}:\n"
+             + "\n".join(o[-3000:] for o in outs))
+    return outs, time.perf_counter() - t0, ok
+
+
+def _remote_cli(argv, work, tag):
+    """The CLI under -p remote on REMOTE_RANKS ranks of this card: (rank 0's
+    summary or None, outputs, seconds); checks the backend printed, both
+    ranks' digests of the globals and the summary's agreement flag."""
+    outs, sec, ok = _ranks(["-m", "gparml_tpu_torch.cli", "-p", "remote", *argv], work, tag)
+    if not ok:
+        return None, outs, sec
+    summary = json.loads([ln for ln in outs[0].splitlines() if ln.startswith("{")][-1])
+    digests = [ln.split()[-1] for o in outs for ln in o.splitlines() if "globals sha256" in ln]
+    backends = [ln for o in outs for ln in o.splitlines() if ln.startswith("torch.distributed:")]
+    _require(len(backends) == REMOTE_RANKS and all("backend gloo" in b for b in backends),
+             f"phase 8 {tag}: backend lines {backends}")
+    _require(len(digests) == REMOTE_RANKS and len(set(digests)) == 1
+             and summary.get("globals_agree") is True,
+             f"phase 8 {tag}: the ranks' globals differ: {digests}, {summary}")
+    return summary, outs, sec
+
+
+def phase8_remote(dev, work):
+    """8(b): -p remote on two processes of this card over gloo, through
+    ``python -m gparml_tpu_torch.cli`` with torchrun's variables: BASELINE
+    config 2 (then a resume) and the slice with --trace-timing. Each run's
+    bound at -T 0 --load against -p local on the same checkpoint, both
+    ranks' globals bit for bit, both partition files, the backend."""
+    from gparml_tpu_torch import data
+
+    n2, d2, q2, m2, iters2, more2 = CONFIG2
+    for label, (n, d, q, m, iters), more, extra in (
+            ("config 2", (n2, d2, q2, m2, iters2), more2, []),
+            ("slice", REMOTE_SLICE, None, ["--trace-timing"])):
+        y_np, _ = data.oil_flow_like(n=n, d=d, seed=0)
+        folder = os.path.join(work, "remote_" + label.replace(" ", ""))
+        stats, emb = os.path.join(folder, "st"), os.path.join(folder, "emb")
+        base = ["-i", _write_inputs(folder, y_np), "-e", emb, "-s", stats, "-q", q, "-m", m,
+                "--seed", 0, "--device", dev.type]
+        s1, outs, sec1 = _remote_cli(base + ["-T", iters, *extra], work, f"(b) {label} fit")
+        if s1 is None:
+            continue
+        rows = [np.load(os.path.join(emb, f"X_mu_{r}.npy")).shape for r in range(REMOTE_RANKS)]
+        _require(rows == [(n // REMOTE_RANKS, q)] * REMOTE_RANKS,
+                 f"phase 8(b) {label}: partition files {rows}")
+        launches = s1["kernel_launches"]
+        _require(launches["fwd"] > 0 and launches["bwd"] > 0,
+                 f"phase 8(b) {label}: rank 0 skipped a kernel: {launches}")
+        hist = [r for r in _history(stats)]
+        per_eval = (sum(r["wall_s"] for r in hist) / max(s1["n_evals"] - 1, 1)
+                    if extra else float("nan"))
+        text = (f"phase 8(b) {label} -p remote, {REMOTE_RANKS} ranks on one card, N={n} D={d} "
+                f"Q={q} M={m} -T {iters}: {sec1:.2f} s, bound {hist[0]['bound']:.6g} -> "
+                f"{s1['final_bound']:.6g} ({s1['n_evals']} evaluations"
+                + (f", {per_eval:.4f} s/eval from the wall column" if extra else "")
+                + f"; the statistics' all_reduce {s1['stats_allreduce_ms']:.3f} ms "
+                f"({m * m + m * d + 4} float32)"
+                + f"); rank 0's launches {launches}; partition files {rows}; backend "
+                f"{s1['backend']}; globals equal bit for bit on both ranks")
+        if more:
+            s2, _, sec2 = _remote_cli(base + ["-T", more, "--load"], work, f"(b) {label} resume")
+            if s2 is not None:
+                _require(s2["final_bound"] >= s1["final_bound"] - 1e-5 * abs(s1["final_bound"]),
+                         f"phase 8(b) {label} resume ended below its start: {s1} -> {s2}")
+                text += (f"; resume --load -T {more}: {sec2:.2f} s, ends at "
+                         f"{s2['final_bound']:.6g}")
+        s0, _, sec0 = _remote_cli(base + ["-T", 0, "--load"], work, f"(b) {label} -T 0")
+        local, _, _ = _cli_run(base + ["-T", 0, "--load"])
+        if s0 is not None:
+            rel = abs(s0["final_bound"] - local["final_bound"]) / abs(local["final_bound"])
+            _require(rel <= 1e-5, f"phase 8(b) {label}: -T 0 --load remote "
+                     f"{s0['final_bound']} vs local {local['final_bound']}")
+            text += (f"; -T 0 --load: remote {s0['final_bound']:.8g} ({sec0:.2f} s), local "
+                     f"{local['final_bound']:.8g}, rel {rel:.2e}")
+        print(text)
+
+
+def phase8_sgpr(dev, work):
+    """8(c): BASELINE config 1 (SGPR) through -p remote: the learned noise
+    std within phase 7(c)'s bounds."""
+    import torch
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import params as P
+
+    n, d, q, m, iters, _, (lo, hi) = SGPR_CLI
+    x_np, y_np = data.synthetic_regression(n=n, seed=0)
+    folder = os.path.join(work, "remote_sgpr")
+    stats, emb = os.path.join(folder, "st"), os.path.join(folder, "emb")
+    data.save_embeddings(emb, x_np, np.zeros_like(x_np), CLI_PARTITIONS)
+    base = ["-i", _write_inputs(folder, y_np), "-e", emb, "-s", stats, "-m", m,
+            "--fixed-embeddings", "--seed", 0, "--device", dev.type]
+    s1, _, sec = _remote_cli(base + ["-T", iters], work, "(c) config 1")
+    if s1 is not None:
+        with np.load(os.path.join(stats, "checkpoint.npz")) as f:
+            g = P.global_from_numpy(P.GlobalArrays(*(f[k] for k in P.GlobalArrays._fields)),
+                                    device="cpu")
+        noise = float(1.0 / torch.sqrt(P.constrain(g)[3].detach()))
+        _require(lo <= noise <= hi, f"phase 8(c) config 1 noise std {noise} outside [{lo}, {hi}]")
+        print(f"phase 8(c) BASELINE config 1 -p remote, {REMOTE_RANKS} ranks, N={n} D={d} "
+              f"Q={q} M={m} -T {iters}: {sec:.2f} s, bound {s1['final_bound']:.6g} "
+              f"({s1['n_evals']} evaluations); noise std {noise:.4f} (true 0.2)")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gparml_tpu_torch")):
         print("chip_smoke: gparml_tpu_torch/ not found beside the script",
@@ -1568,9 +1790,15 @@ def main() -> int:
         phase7_serving(dev)
         torch.cuda.empty_cache()
         phase7_sgpr(dev, work)
+        print(f"phase 7: {time.perf_counter() - t0 + t7:.2f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase8_mesh(dev, kernels)
+        phase8_remote(dev, work)
+        phase8_sgpr(dev, work)
+        print(f"phase 8: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 7: {time.perf_counter() - t0 + t7:.2f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} checks failed", file=sys.stderr)

@@ -42,11 +42,19 @@ def save(path: str, params: nn.Module, meta: Optional[Dict[str, Any]] = None) ->
     os.replace(tmp, path)
 
 
+def holds_latents(path: str) -> bool:
+    """True when the checkpoint at ``path`` holds latent leaves (``lat/...``);
+    a ``-p remote`` run's checkpoint holds the globals only."""
+    with np.load(path) as f:
+        return any(k.startswith("lat/") for k in f.files)
+
+
 def load(path: str, like: nn.Module) -> Tuple[nn.Module, Dict[str, Any]]:
     """Load a checkpoint into the structure of ``like`` (a GPLVMParams or
-    GlobalParams template with the same parameter names). Shapes must match
-    the template's; the dtypes come from the file and the device from the
-    template.
+    GlobalParams template with the same parameter names; a GlobalParams
+    template also takes the globals of a GPLVM checkpoint). Shapes must
+    match the template's; the dtypes come from the file and the device
+    from the template.
 
     Returns (params, meta).
     """
@@ -61,6 +69,8 @@ def load(path: str, like: nn.Module) -> Tuple[nn.Module, Dict[str, Any]]:
     leaves = []
     for name, leaf in like.named_parameters():
         key = _key(name)
+        if key not in arrays and isinstance(like, P.GlobalParams):
+            key = "glob/" + key   # the globals of a GPLVM checkpoint
         if key not in arrays:
             raise KeyError(
                 f"checkpoint {path} is missing leaf {key!r}; has {sorted(arrays)}"

@@ -1,5 +1,5 @@
 """Command-line interface: the GPLVM and sparse GP regression modes of
-``gparml_tpu/cli.py`` on one GPU.
+``gparml_tpu/cli.py`` on NVIDIA GPUs.
 
 The same option surface and folder workflow as the JAX package's CLI, the
 re-design of GParML's ``parallel_GPLVM.py``: per-partition ``Y_<i>.npy``
@@ -15,6 +15,7 @@ Either package resumes from the other's folders.
 
   -i/--input         folder of per-partition Y_<i>.npy files
   -e/--embeddings    folder for X_mu_<i>.npy / X_S_<i>.npy
+  -p/--parallel      local (this process's cards) | remote (a process group)
   -T/--iterations    optimizer iterations
   -q/--latent-dim    latent dimensionality Q
   -m/--num-inducing  inducing point count M
@@ -24,12 +25,24 @@ Either package resumes from the other's folders.
 The fit runs on ``cuda:0`` through the hand-written CUDA kernels
 (``--stats-impl auto``) unless ``--device cpu`` is given, which stands in
 for the JAX package's ``JAX_PLATFORMS``; without a card ``--device cuda``
-raises. The kernels take float32: ``--dtype float64`` on the card needs
-``--stats-impl xla``. A checkpoint's leaves are cast to ``--dtype``.
-``--compile-cache`` and ``--scg-mode`` are accepted and do nothing (XLA
-compile caching and the TPU's fused SCG program have no counterpart).
-Not ported yet, and raising NotImplementedError: ``--optimizer svgp`` and
-``-p remote`` (ROADMAP.md Queue 1, items 2 and 3).
+raises. With ``-p local`` and more than one visible card the (N, Q)
+layout's statistics run over a mesh of every card (``parallel/mesh.py``),
+N padded with weight-0 rows; the checkpoint holds the unpadded latents.
+``-p remote`` runs one process per rank of a ``torch.distributed`` group,
+from MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK as
+``torchrun`` sets them (``parallel/distributed.py``; its backend is
+``nccl`` where each rank has a card of its own, ``gloo`` on the CPU or
+where ranks share a card): each process reads only its own block of rows,
+initialises from it (SGPR's globals from a sample of every process's rows),
+takes the coordinator's globals, fits, writes its own embeddings partition
+file, and the coordinator writes a checkpoint of the globals only; after
+the fit every process checks that it holds the coordinator's globals bit
+for bit. ``--load`` resumes either mode, also from the other's folders. The kernels take float32: ``--dtype float64`` on
+the card needs ``--stats-impl xla``. A checkpoint's leaves are cast to
+``--dtype``. ``--compile-cache`` and ``--scg-mode`` are accepted and do
+nothing (XLA compile caching and the TPU's fused SCG program have no
+counterpart). Not ported yet, and raising NotImplementedError:
+``--optimizer svgp`` (ROADMAP.md Queue 1, item 2).
 
 Run ``python -m gparml_tpu_torch.cli --help`` for the full surface.
 """
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import time
@@ -48,13 +62,14 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gparml_tpu_torch",
-        description="Bayesian GPLVM trainer on one NVIDIA GPU (PyTorch + CUDA)",
+        description="Bayesian GPLVM trainer on NVIDIA GPUs (PyTorch + CUDA)",
     )
     p.add_argument("-i", "--input", required=True, help="folder of Y_<i>.npy partitions")
     p.add_argument("-e", "--embeddings", required=True, help="embeddings folder")
     p.add_argument("-p", "--parallel", choices=["local", "remote"], default="local",
-                   help="local: this process's one device; remote (multi-host) "
-                        "is not ported yet")
+                   help="local: this process's cards (a mesh over all of them "
+                        "when there are several); remote: one process per rank "
+                        "of a torch.distributed group (torchrun's variables)")
     p.add_argument("-T", "--iterations", type=int, default=100)
     p.add_argument("-q", "--latent-dim", type=int, default=2, dest="q")
     p.add_argument("-m", "--num-inducing", type=int, default=10, dest="m")
@@ -116,20 +131,68 @@ def _check_ported(options) -> None:
         raise NotImplementedError(
             "--optimizer svgp (SVGP minibatch training) is not ported yet "
             "(ROADMAP.md Queue 1, item 2: SVGP)")
-    if options.parallel == "remote":
-        raise NotImplementedError(
-            "-p remote (multi-host data parallelism) is not ported yet "
-            "(ROADMAP.md Queue 1, item 3: parallel)")
 
 
 def _device(options):
+    """cuda:0, or under -p remote this rank's card; or the CPU."""
     import torch
+
+    from gparml_tpu_torch.parallel import distributed
 
     if getattr(options, "device", "cuda") == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to run on the CPU")
+    if options.parallel == "remote":
+        return distributed.local_device("cuda")
     return torch.device("cuda", 0)
+
+
+def _local_mesh(device, layout):
+    """-p local: a mesh over every visible card when there is more than
+    one (the (N, Q) layout; qn is the single-device layout), else none."""
+    import torch
+
+    from gparml_tpu_torch.parallel import mesh as mesh_lib
+
+    if device.type == "cuda" and layout == "nq" and torch.cuda.device_count() > 1:
+        return mesh_lib.make_mesh()
+    return None
+
+
+def _check_replicas(glob, mesh) -> dict:
+    """Under a process group: print this rank's digest of the globals, and
+    raise unless every rank holds the coordinator's bits. Returns the
+    summary's entries, with the statistics' mean all_reduce time."""
+    from gparml_tpu_torch.models import params as P
+    from gparml_tpu_torch.parallel import distributed
+
+    if not distributed.spans_processes(mesh):
+        return {}
+    digest = hashlib.sha256(b"".join(
+        a.tobytes() for a in P.global_to_numpy(glob))).hexdigest()
+    print(f"rank {distributed.process_index()} globals sha256 {digest}", flush=True)
+    if not distributed.replicas_agree(P.leaves(glob), mesh):
+        raise RuntimeError("the replicated globals differ across processes after the fit")
+    return {"processes": distributed.process_count(),
+            "backend": distributed.backend_name(), "globals_agree": True,
+            "stats_allreduce_ms": round(
+                mesh.allreduce_seconds / max(mesh.allreduces, 1) * 1e3, 4)}
+
+
+def _place(options, mesh, n, glob, dtype, *rows):
+    """Under a mesh: the globals replicated (under -p remote, the
+    coordinator's), and the N-sized arrays ``rows`` padded and sharded.
+    Returns (globals, sharded arrays..., weights)."""
+    from gparml_tpu_torch.models import params as P
+    from gparml_tpu_torch.parallel import distributed
+    from gparml_tpu_torch.parallel import mesh as mesh_lib
+
+    if options.parallel == "remote":
+        glob = P.global_from_numpy(distributed.broadcast_pytree(P.global_to_numpy(glob)),
+                                   device=mesh.home, dtype=dtype)
+        return (glob, *distributed.shard_data_multihost(mesh, n, *rows))
+    return (mesh_lib.replicated(mesh, glob), *mesh_lib.shard_data(mesh, *rows))
 
 
 def _scg_options(options):
@@ -192,28 +255,49 @@ def _iter_wall_extra(fit_seconds: float, history) -> dict:
 
 def run(options) -> dict:
     """Execute a full training run; returns a summary dict (also written to
-    the statistics folder). ``options`` is the parsed argparse namespace (or
-    anything with the same attributes)."""
+    the statistics folder by the coordinator). ``options`` is the parsed
+    argparse namespace (or anything with the same attributes)."""
     import torch
 
     from gparml_tpu_torch import checkpoint, data
     from gparml_tpu_torch.models import gplvm, params as P
+    from gparml_tpu_torch.ops import psi_cuda
+    from gparml_tpu_torch.parallel import distributed
     from gparml_tpu_torch.utils import init as init_utils
     from gparml_tpu_torch.utils import logging as glog
 
     _check_ported(options)
     t_start = time.perf_counter()
+    layout = getattr(options, "layout", "nq")
+    # remote: every process runs this same program on its own contiguous
+    # block of rows (the reference's per-partition workers); the data set
+    # is never gathered
+    remote = options.parallel == "remote"
+    if remote:
+        if layout == "qn":
+            raise ValueError("--layout qn is the single-device large-N mode; -p remote "
+                             "shards (N, Q) rows")
+        distributed.initialize(device_type=getattr(options, "device", "cuda"))
     device = _device(options)
     dtype = torch.float64 if options.dtype == "float64" else torch.float32
+    if remote:
+        mesh = distributed.global_mesh(device)
+        n = data.partition_rows(options.input, prefix="Y")
+        start, stop, _ = distributed.process_row_range(n, mesh.local_size)
+        rows = (start, min(stop, n))
+        y_np = data.load_rows(options.input, *rows, prefix="Y")
+        d = y_np.shape[1]
+    else:
+        mesh, rows = _local_mesh(device, layout), None
+        y_np = data.load_partitioned(options.input, prefix="Y")
+        n, d = y_np.shape
+    writer = distributed.is_coordinator()
     if options.fixed_embeddings:
-        return _run_sgpr(options, device, dtype, t_start)
+        return _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer)
     if dtype == torch.float64 and device.type == "cuda" and options.stats_impl != "xla":
         raise ValueError(
             "--dtype float64 on the card needs --stats-impl xla: the CUDA "
             f"kernels (--stats-impl {options.stats_impl}) take float32")
-
-    y_np = data.load_partitioned(options.input, prefix="Y")
-    n, d = y_np.shape
     n_partitions = options.save_partitions or len(
         data._partition_files(options.input, prefix="Y")
     )
@@ -221,7 +305,6 @@ def run(options) -> dict:
     timer = glog.Timer()
     timer.start("init")
     gen = torch.Generator(device).manual_seed(options.seed)
-    layout = getattr(options, "layout", "nq")
     cfg = gplvm.GPLVMConfig(
         q=options.q,
         num_inducing=options.m,
@@ -239,11 +322,19 @@ def run(options) -> dict:
                      dtype=dtype, device=device)
 
     if options.load and os.path.isdir(options.embeddings):
-        mu_np, s_np = data.load_embeddings(options.embeddings)
-        if mu_np.shape != (n, options.q):
-            raise ValueError(
-                f"loaded embeddings {mu_np.shape} do not match (N={n}, Q={options.q})"
-            )
+        if remote:
+            n_emb = data.partition_rows(options.embeddings, prefix="X_mu")
+            if n_emb != n:
+                raise ValueError(f"loaded embeddings have {n_emb} rows, expected N={n}")
+            mu_np, s_np = data.load_embeddings_rows(options.embeddings, *rows)
+        else:
+            mu_np, s_np = data.load_embeddings(options.embeddings)
+            if mu_np.shape != (n, options.q):
+                raise ValueError(
+                    f"loaded embeddings {mu_np.shape} do not match (N={n}, Q={options.q})"
+                )
+        if mu_np.shape[1] != options.q:
+            raise ValueError(f"loaded embeddings have Q={mu_np.shape[1]}, expected {options.q}")
         # numpy in: make_latents transposes on the host under qn, and FPS
         # picks Z from a host-side candidate subset of the rows
         np_dtype = np.dtype(options.dtype)
@@ -258,20 +349,36 @@ def run(options) -> dict:
                              bijector=options.bijector)
         params = P.GPLVMParams(glob=glob, lat=lat)
     else:
+        # under remote from this process's block (a local PCA per partition,
+        # the reference's init); the coordinator's globals are taken below
         params = gplvm.init_params(gen, y, cfg)
 
     ckpt_path = None
     if options.statistics:
         ckpt_path = os.path.join(options.statistics, "checkpoint.npz")
         if options.load and os.path.exists(ckpt_path):
-            params, meta = checkpoint.load(ckpt_path, params)
+            if remote or not checkpoint.holds_latents(ckpt_path):
+                # a remote run's checkpoint holds the globals only; the
+                # latents are the embeddings folder's, loaded above
+                glob, meta = checkpoint.load(ckpt_path, params.glob)
+                params = P.GPLVMParams(glob=glob, lat=params.lat)
+            else:
+                params, meta = checkpoint.load(ckpt_path, params)
             params = P.from_leaves([t.to(dtype) for t in P.leaves(params)])
-            print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+            if writer:
+                print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+
+    weights = None
+    if mesh is not None:
+        glob, y, mu_s, us_s, weights = _place(options, mesh, n, params.glob, dtype, y,
+                                              params.lat.mu.detach(), params.lat.u_s.detach())
+        params = P.GPLVMParams(glob=glob, lat=P.LatentParams(mu_s.gather(), us_s.gather()))
     timer.stop("init")
 
     # ---- fit ----
     timer.start("fit")
     scg_options = _scg_options(options)
+    launched = dict(psi_cuda.LAUNCHES)
     with _maybe_profile(options), _maybe_iter_timer(options) as it_timer:
         result = gplvm.fit(
             params, y, cfg,
@@ -279,15 +386,26 @@ def run(options) -> dict:
             optimizer=options.optimizer,
             learning_rate=options.learning_rate,
             scg_options=scg_options if options.optimizer == "scg" else None,
+            mesh=mesh, weights=weights,
         )
         final_bound = float(result.bound)
     fit_s = timer.stop("fit")
+    replicas = _check_replicas(result.params.glob, mesh)
 
     # ---- save ----
     timer.start("save")
     mu, s = gplvm.latents(result.params, cfg)
-    data.save_embeddings(options.embeddings, mu.detach().cpu().numpy(),
-                         s.detach().cpu().numpy(), n_partitions)
+    if remote:
+        # each process writes exactly its own rows as one partition file;
+        # the padding (all on the last process) is trimmed
+        n_valid = rows[1] - rows[0]
+        data.save_embeddings_partition(
+            options.embeddings, distributed.local_block(mu)[:n_valid],
+            distributed.local_block(s)[:n_valid], partition=distributed.process_index())
+        distributed.barrier("embeddings_saved")
+    else:
+        data.save_embeddings(options.embeddings, mu[:n].detach().cpu().numpy(),
+                             s[:n].detach().cpu().numpy(), n_partitions)
     summary = {
         "n": n, "d": d, "q": options.q, "m": options.m,
         "optimizer": options.optimizer,
@@ -295,10 +413,13 @@ def run(options) -> dict:
         "iterations": options.iterations,
         "n_evals": int(result.n_evals),
         "final_bound": final_bound,
-        "devices": 1,
+        "devices": mesh.size if mesh is not None else 1,
         "parallel": options.parallel,
+        # this process's kernel calls in the fit (0 on CPU tensors)
+        "kernel_launches": {k: v - launched[k] for k, v in psi_cuda.LAUNCHES.items()},
+        **replicas,
     }
-    if options.statistics:
+    if options.statistics and writer:
         os.makedirs(options.statistics, exist_ok=True)
         glog.write_history(
             os.path.join(options.statistics, "bound_history.jsonl"),
@@ -308,34 +429,51 @@ def run(options) -> dict:
         meta = {"iteration": options.iterations, "bound": final_bound,
                 "config": {k: v for k, v in vars(options).items()
                            if isinstance(v, (int, float, str, bool, type(None)))}}
-        checkpoint.save(ckpt_path, result.params, meta=meta)
+        if remote:
+            # globals only: the processes' embeddings partition files are
+            # the latent state
+            checkpoint.save(ckpt_path, result.params.glob, meta=meta)
+        else:
+            # the unpadded latents: a resume may run on another card count
+            lat = result.params.lat
+            if mesh is not None:
+                lat = P.LatentParams(lat.mu[:n], lat.u_s[:n])
+            checkpoint.save(ckpt_path, P.GPLVMParams(result.params.glob, lat), meta=meta)
     timer.stop("save")
     summary["wall_time_s"] = round(time.perf_counter() - t_start, 3)
     summary["timings_s"] = {k: round(v, 3) for k, v in timer.summary().items()}
-    if options.statistics:
+    if options.statistics and writer:
         with open(os.path.join(options.statistics, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
-    print(json.dumps(summary))
+    if writer:
+        print(json.dumps(summary))
     return summary
 
 
-def _run_sgpr(options, device, dtype, t_start) -> dict:
+def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -> dict:
     """The --fixed-embeddings mode: sparse GP regression of Y on the observed
-    inputs X of the embeddings folder (the JAX CLI's SGPR branch, one
-    device)."""
+    inputs X of the embeddings folder (the JAX CLI's SGPR branch). ``rows``
+    is this process's block under -p remote, else None."""
     import torch
 
     from gparml_tpu_torch import checkpoint, data
     from gparml_tpu_torch.models import params as P, sgpr
+    from gparml_tpu_torch.parallel import distributed
     from gparml_tpu_torch.utils import logging as glog
 
-    y_np = data.load_partitioned(options.input, prefix="Y")
-    n, d = y_np.shape
-    x_np, _ = data.load_embeddings(options.embeddings)
-    if x_np.shape[0] != n:
-        raise ValueError(
-            f"embeddings rows {x_np.shape[0]} != N={n}; --fixed-embeddings "
-            "needs observed inputs in the embeddings folder")
+    if rows is not None:
+        n_x = data.partition_rows(options.embeddings, prefix="X_mu")
+        if n_x != n:
+            raise ValueError(
+                f"embeddings rows {n_x} != N={n}; --fixed-embeddings "
+                "needs observed inputs in the embeddings folder")
+        x_np, _ = data.load_embeddings_rows(options.embeddings, *rows)
+    else:
+        x_np, _ = data.load_embeddings(options.embeddings)
+        if x_np.shape[0] != n:
+            raise ValueError(
+                f"embeddings rows {x_np.shape[0]} != N={n}; --fixed-embeddings "
+                "needs observed inputs in the embeddings folder")
     layout = getattr(options, "layout", "nq")
     # under qn both are stored transposed, (Q, N) and (D, N)
     host = (lambda a: a.T) if layout == "qn" else (lambda a: a)
@@ -344,13 +482,27 @@ def _run_sgpr(options, device, dtype, t_start) -> dict:
     cfg = sgpr.SGPRConfig(num_inducing=options.m, bijector=options.bijector,
                           block=options.block, fixed_beta=options.fixed_beta,
                           layout=layout, scg_mode=getattr(options, "scg_mode", "auto"))
-    g0 = sgpr.init_params(torch.Generator(device).manual_seed(options.seed), x, y, cfg)
+    gen = torch.Generator(device).manual_seed(options.seed)
+    if rows is not None:
+        # -p remote: the globals start from a sample of every process's rows
+        # (the JAX package's start from the coordinator's block alone, which
+        # covers part of the input domain when the rows are ordered by X)
+        x_s, y_s = distributed.sample_rows(options.m, options.seed, x_np, y_np)
+        g0 = sgpr.init_params(gen, torch.tensor(x_s, dtype=dtype, device=device),
+                              torch.tensor(y_s, dtype=dtype, device=device), cfg)
+    else:
+        g0 = sgpr.init_params(gen, x, y, cfg)
     ckpt_path = (os.path.join(options.statistics, "checkpoint.npz")
                  if options.statistics else None)
     if options.load and ckpt_path and os.path.exists(ckpt_path):
         g0, meta = checkpoint.load(ckpt_path, g0)
         g0 = P.from_leaves([t.detach().to(dtype) for t in g0.parameters()])
-        print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+        if writer:
+            print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+    weights = None
+    if mesh is not None:
+        # init used this process's rows only: the globals are the coordinator's
+        g0, y, x, weights = _place(options, mesh, n, g0, dtype, y, x)
 
     timer = glog.Timer()
     timer.start("fit")
@@ -358,17 +510,19 @@ def _run_sgpr(options, device, dtype, t_start) -> dict:
         result = sgpr.fit(
             g0, x, y, cfg, iters=options.iterations, optimizer=options.optimizer,
             learning_rate=options.learning_rate,
-            scg_options=_scg_options(options) if options.optimizer == "scg" else None)
+            scg_options=_scg_options(options) if options.optimizer == "scg" else None,
+            mesh=mesh, weights=weights)
         final_bound = float(result.bound)
     fit_s = timer.stop("fit")
     summary = {
         "mode": "sgpr", "n": n, "d": d, "m": options.m,
         "optimizer": options.optimizer, "iterations": options.iterations,
         "n_evals": int(result.n_evals), "final_bound": final_bound,
-        "devices": 1, "parallel": options.parallel,
+        "devices": mesh.size if mesh is not None else 1, "parallel": options.parallel,
+        **_check_replicas(result.params, mesh),
         "wall_time_s": round(time.perf_counter() - t_start, 3),
     }
-    if options.statistics:
+    if options.statistics and writer:
         os.makedirs(options.statistics, exist_ok=True)
         glog.write_history(
             os.path.join(options.statistics, "bound_history.jsonl"),
@@ -379,7 +533,8 @@ def _run_sgpr(options, device, dtype, t_start) -> dict:
                         meta={"iteration": options.iterations, "bound": final_bound})
         with open(os.path.join(options.statistics, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
-    print(json.dumps(summary))
+    if writer:
+        print(json.dumps(summary))
     return summary
 
 
@@ -389,4 +544,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from gparml_tpu_torch.parallel import distributed
+
     main()
+    distributed.shutdown()

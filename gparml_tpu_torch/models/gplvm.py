@@ -9,7 +9,16 @@ points), ``infer_latents`` (q(x*) of new observations) and ``reconstruct``
 diag(s_n)) are (N, Q) leaves, or (Q, N) under ``layout='qn'``, optimized
 jointly with the globals; Y is (N, D), or (D, N) under ``y_layout='dn'``.
 
-Not ported yet (it raises NotImplementedError; see ROADMAP.md): a ``mesh``.
+Every function takes a ``mesh`` (``parallel/mesh.py``) and the padding
+``weights`` of ``mesh.shard_data``: Y and the weights split over the
+mesh's shards (``Sharded`` row blocks or tensors), the latent leaves one
+(N', Q) tensor, the statistics summed over the shards and, over a process
+group (``parallel/distributed.py``), over the processes, each of which
+holds its own rows. There ``neg_bound_value_and_grad`` assembles the
+gradient in two stages (``distributed.value_and_grad``) and SCG's scalars
+are sums over the processes (``distributed.LeafReduce``). Under a mesh the
+latents are (N, Q) rows: ``fit`` raises for ``layout='qn'``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ from gparml_tpu_torch.models.sgpr import scg_trace
 from gparml_tpu_torch.ops import bound as bound_ops
 from gparml_tpu_torch.ops import psi, psi_cuda
 from gparml_tpu_torch.opt import optax_adapter, scg
-from gparml_tpu_torch.parallel.stats import suff_stats_auto
+from gparml_tpu_torch.parallel import distributed
+from gparml_tpu_torch.parallel.mesh import Sharded
+from gparml_tpu_torch.parallel.stats import shard_sum, suff_stats_auto
 from gparml_tpu_torch.utils import init as init_utils
 from gparml_tpu_torch.utils import transforms
 
@@ -136,7 +147,10 @@ def _qn_native(config: GPLVMConfig, mesh, cuda: bool) -> bool:
     return impl == "pallas"
 
 
-def _stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None, weights=None):
+def _stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None, weights=None,
+           across_processes=True):
+    """The statistics; ``across_processes=False`` keeps a process group's
+    mesh to this process's shards, with their graph."""
     _check_config(config)
     z, sf2, alpha, _ = P.constrain(p.glob, config.bijector)
     if config.layout == "qn" and mesh is None:
@@ -148,8 +162,13 @@ def _stats(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None, weights=None):
         return engine(y_t, mu_t, s_t, z, sf2, alpha, block=config.block,
                       weights=weights)
     mu, s = P.constrain_latents(p.lat, config.bijector, config.layout)
+    if isinstance(y, Sharded) and config.y_layout == "dn":
+        raise ValueError("a Sharded Y holds (N, D) row blocks: use y_layout='nd'")
     # the kernels take a contiguous (N, D) Y: one copy when Y is (D, N)
     y_nd = y.T.contiguous() if config.y_layout == "dn" else y
+    if mesh is not None and not across_processes:
+        return shard_sum(y_nd, mu, s, z, sf2, alpha, mesh=mesh, block=config.block,
+                         weights=weights, impl=config.stats_impl)
     return suff_stats_auto(
         y_nd, mu, s, z, sf2, alpha, mesh=mesh, block=config.block,
         weights=weights, impl=config.stats_impl,
@@ -172,10 +191,23 @@ def log_bound(p: P.GPLVMParams, y, config: GPLVMConfig, mesh=None,
 
 def neg_bound_value_and_grad(p: P.GPLVMParams, y, config: GPLVMConfig,
                              mask=None, mesh=None, weights=None):
-    """(-bound, gradient leaves in ``named_parameters`` order)."""
+    """(-bound, gradient leaves in ``named_parameters`` order). Over a
+    process group's mesh the gradient is assembled in two stages
+    (``distributed.value_and_grad``): the four global leaves are
+    replicated, the latents hold this process's rows."""
     leaves = list(p.parameters())
-    f = -log_bound(p, y, config, mesh=mesh, weights=weights)
-    grads = list(torch.autograd.grad(f, leaves))
+    if distributed.spans_processes(mesh):
+        def objective(st):
+            z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
+            return -bound_ops.bound_from_stats(st, z, sf2, alpha, beta,
+                                               d=_d_of(y, config), jitter=config.jitter)
+
+        f, grads = distributed.value_and_grad(
+            lambda: _stats(p, y, config, mesh=mesh, weights=weights, across_processes=False),
+            objective, leaves, 4, mesh)
+    else:
+        f = -log_bound(p, y, config, mesh=mesh, weights=weights)
+        grads = list(torch.autograd.grad(f, leaves))
     if mask is not None:
         grads = P.apply_mask(grads, mask)
     return f.detach(), grads
@@ -237,7 +269,8 @@ def fit(
         res = optax_adapter.minimize(vg, P.leaves(p0), iters, optimizer=optimizer,
                                      learning_rate=learning_rate)
         return FitResult(P.from_leaves(res.x), -res.f_now, -res.history, res.n_evals)
-    st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters))
+    st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters),
+                      reduce=distributed.scg_reduce(mesh, [False] * 4 + [True] * 2))
     return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f,
                      st.n_evals, scg_trace(st))
 
@@ -287,17 +320,23 @@ def _infer_objective(p: P.GPLVMParams, y_train, y_new, config: GPLVMConfig, mesh
     """(vg, lat0) of ``infer_latents``: vg maps the new latents' leaves [mu,
     u_s] (the config's layout) to (-F, their gradient), F the collapsed
     bound of the training and the new data with every trained parameter
-    held; lat0 are the leaves of the nearest-neighbour init."""
+    held; lat0 are the leaves of the nearest-neighbour init (over a process
+    group, the nearest of every process's rows)."""
     _check_config(config)
     glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob)))
     z, sf2, alpha, beta = (t.detach() for t in P.constrain(glob, config.bijector))
     with torch.no_grad():
         stats_train = _stats(p, y_train, config, mesh=mesh, weights=weights)
         # the init runs row-major; views of (D, N) storage
-        y_tr_rows = y_train.T if config.y_layout == "dn" else y_train
+        y_tr_rows = y_train.gather() if isinstance(y_train, Sharded) else (
+            y_train.T if config.y_layout == "dn" else y_train)
         y_new_rows = y_new.T if config.y_layout == "dn" else y_new
         mu_tr, _ = P.constrain_latents(p.lat, config.bijector, config.layout)
-        mu0 = mu_tr[_nearest_rows(y_new_rows, y_tr_rows)]
+        idx = _nearest_rows(y_new_rows, y_tr_rows)
+        mu0 = mu_tr[idx]
+        if distributed.spans_processes(mesh):
+            d2 = torch.sum((y_new_rows - y_tr_rows[idx]) ** 2, dim=1)
+            mu0 = distributed.nearest_over_processes(d2, mu0, mesh)
         lat0 = P.make_latents(mu0, torch.full_like(mu0, config.s0),
                               bijector=config.bijector, layout=config.layout)
     d = y_new_rows.shape[1]

@@ -10,6 +10,9 @@ vanishes, and the parameters are the globals alone (Z, the kernel hypers and
 the noise precision). The statistics are plain matrix products in both
 packages (cuBLAS on the card); no hand-written kernel is involved. X is
 (N, Q) and Y (N, D), or X (Q, N) and Y (D, N) under ``layout='qn'``.
+With a ``mesh`` (``parallel/mesh.py``), X, Y and the padding weights split
+over its shards and, over a process group, its processes, as in
+``models/gplvm.py``; every leaf is replicated.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from gparml_tpu_torch.models import params as P
 from gparml_tpu_torch.ops import bound as bound_ops
 from gparml_tpu_torch.ops import psi
 from gparml_tpu_torch.opt import optax_adapter, scg
-from gparml_tpu_torch.parallel.stats import suff_stats_auto
+from gparml_tpu_torch.parallel import distributed
+from gparml_tpu_torch.parallel.stats import shard_sum, suff_stats_auto
 from gparml_tpu_torch.utils import init as init_utils
 
 
@@ -94,7 +98,10 @@ def init_params(
     return P.make_global(z, sf2, alpha, beta, bijector=config.bijector)
 
 
-def _stats(g: P.GlobalParams, x, y, config: SGPRConfig, mesh=None, weights=None):
+def _stats(g: P.GlobalParams, x, y, config: SGPRConfig, mesh=None, weights=None,
+           across_processes=True):
+    """The statistics; ``across_processes=False`` keeps a process group's
+    mesh to this process's shards, with their graph."""
     _check_layout(config)
     z, sf2, alpha, _ = P.constrain(g, config.bijector)
     if config.layout == "qn":
@@ -104,6 +111,9 @@ def _stats(g: P.GlobalParams, x, y, config: SGPRConfig, mesh=None, weights=None)
                 "the data shard over (N, Q) rows: use layout='nq'")
         return psi.suff_stats_t(y, x, None, z, sf2, alpha, block=config.block,
                                 weights=weights)
+    if mesh is not None and not across_processes:
+        return shard_sum(y, x, None, z, sf2, alpha, mesh=mesh, block=config.block,
+                         weights=weights)
     return suff_stats_auto(y, x, None, z, sf2, alpha, mesh=mesh, block=config.block,
                            weights=weights)
 
@@ -128,9 +138,22 @@ def log_bound(g: P.GlobalParams, x, y, config: SGPRConfig, mesh=None,
 
 def neg_bound_value_and_grad(g: P.GlobalParams, x, y, config: SGPRConfig, mask=None,
                              mesh=None, weights=None):
-    """(-F, gradient leaves in ``named_parameters`` order, masked)."""
-    f = -log_bound(g, x, y, config, mesh=mesh, weights=weights)
-    grads = list(torch.autograd.grad(f, list(g.parameters())))
+    """(-F, gradient leaves in ``named_parameters`` order, masked); over a
+    process group's mesh in two stages (``distributed.value_and_grad``)."""
+    leaves = list(g.parameters())
+    if distributed.spans_processes(mesh):
+        def objective(st):
+            z, sf2, alpha, beta = P.constrain(g, config.bijector)
+            return -bound_ops.bound_from_stats(st, z, sf2, alpha, beta,
+                                               d=_d_of(y, config), jitter=config.jitter)
+
+        f, grads = distributed.value_and_grad(
+            lambda: _stats(g, x, y, config, mesh=mesh, weights=weights,
+                           across_processes=False),
+            objective, leaves, 4, mesh)
+    else:
+        f = -log_bound(g, x, y, config, mesh=mesh, weights=weights)
+        grads = list(torch.autograd.grad(f, leaves))
     if mask is not None:
         grads = P.apply_mask(grads, mask)
     return f.detach(), grads
@@ -172,7 +195,8 @@ def fit(
         res = optax_adapter.minimize(vg, P.leaves(g0), iters, optimizer=optimizer,
                                      learning_rate=learning_rate)
         return FitResult(P.from_leaves(res.x), -res.f_now, -res.history, res.n_evals)
-    st = scg.minimize(vg, P.leaves(g0), scg_options or scg.SCGOptions(max_iters=iters))
+    st = scg.minimize(vg, P.leaves(g0), scg_options or scg.SCGOptions(max_iters=iters),
+                      reduce=distributed.scg_reduce(mesh, [False] * 4))
     return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f, st.n_evals,
                      scg_trace(st))
 

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -63,8 +64,11 @@ from gparml_tpu_torch.ops import _build
 from gparml_tpu_torch.ops.psi import SufficientStats, kl_qp
 from gparml_tpu_torch.ops import psi as psi_plain
 
-# Kernel launches per wrapper: each successful kernel call adds one.
+# Kernel launches per wrapper: each successful kernel call adds one, under
+# the lock (a mesh over several cards runs its shards' backwards on
+# autograd's per-device threads).
 LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 # Most bytes of one grid's float64 per-split partials.
 PARTIAL_BYTES = 1 << 29
@@ -253,7 +257,8 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
             n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
             p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
-    LAUNCHES[key] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
     return p1y_part.sum(0).to(mu.dtype), p2_part.sum(0).to(mu.dtype)
 
 
@@ -284,7 +289,8 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
             *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
             torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_bwd")
-    LAUNCHES[key] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
     dal_sum = dal.sum(0 if layout == "nq" else 1)
     dz, dsf2, dalpha = _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal_sum,
                                      a_part.sum(0).to(mu.dtype),

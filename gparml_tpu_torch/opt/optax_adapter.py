@@ -5,7 +5,10 @@ an optax rule under ``lax.scan``. Here the rule is ``torch.optim.Adam`` or
 ``torch.optim.SGD`` and the loop is a host loop. At their defaults they do
 what ``optax.adam`` and ``optax.sgd`` do: Adam with b1 = 0.9, b2 = 0.999,
 eps = 1e-8 added to sqrt(v-hat) (optax's eps_root = 0) and bias-corrected
-moments; SGD without momentum, x - lr g.
+moments; SGD without momentum, x - lr g. Both update each element from its
+own gradient, so under a process group (``parallel/distributed.py``) they
+need no sum over the processes: the objective's value and the replicated
+leaves' gradients already agree on every process.
 """
 
 from __future__ import annotations

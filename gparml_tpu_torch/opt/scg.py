@@ -85,12 +85,24 @@ def _resolve_options(options: SCGOptions, dtype) -> SCGOptions:
     )
 
 
-def _dot(a, b) -> np.float64:
-    return np.float64(float(tree_dot(a, b)))
+class LocalReduce:
+    """The loop's scalars over leaves that this process holds whole: the
+    dot product and largest magnitude of leaf lists, and their element
+    count. ``parallel.distributed.LeafReduce`` takes them over a process
+    group's processes, the latent leaves holding each one's rows; in the
+    JAX package a sharded ``vdot`` is global by itself."""
+
+    def dot(self, a, b) -> np.float64:
+        return np.float64(float(tree_dot(a, b)))
+
+    def max_abs(self, x) -> np.float64:
+        return np.float64(max(float(torch.max(torch.abs(t))) for t in x))
+
+    def numel(self, x) -> int:
+        return sum(t.numel() for t in x)
 
 
-def _max_abs(x) -> np.float64:
-    return np.float64(max(float(torch.max(torch.abs(t))) for t in x))
+LOCAL = LocalReduce()
 
 
 def _initial_state(x0, f0, g0, options: SCGOptions) -> SCGState:
@@ -107,20 +119,20 @@ def _initial_state(x0, f0, g0, options: SCGOptions) -> SCGState:
 
 
 def _step(vg: Callable, st: SCGState, options: SCGOptions, nparams: int,
-          kappa_floor: float) -> SCGState:
+          kappa_floor: float, reduce: LocalReduce) -> SCGState:
     """One SCG iteration (the JAX package's ``_make_body``); ``vg`` maps
     leaves to (f, grad leaves)."""
     d, mu, kappa, theta, n_evals = st.d, st.mu, st.kappa, st.theta, st.n_evals
     # --- (re)compute direction scalars + curvature probe on success ---
     if st.success:
-        mu = _dot(d, st.g_new)
+        mu = reduce.dot(d, st.g_new)
         if mu >= 0:  # not a descent direction: restart
             d = tree_neg(st.g_new)
-            mu = _dot(d, st.g_new)
-        kappa = max(_dot(d, d), np.float64(kappa_floor))
+            mu = reduce.dot(d, st.g_new)
+        kappa = max(reduce.dot(d, d), np.float64(kappa_floor))
         sigma = options.sigma0 / np.sqrt(kappa)
         _, g_plus = vg(tree_axpy(sigma, d, st.x))
-        theta = (_dot(d, g_plus) - mu) / sigma
+        theta = (reduce.dot(d, g_plus) - mu) / sigma
         n_evals += 1
 
     # --- scale curvature: delta = theta + lam * kappa, force positive ---
@@ -144,9 +156,9 @@ def _step(vg: Callable, st: SCGState, options: SCGOptions, nparams: int,
         x, f_now, nsuccess, g_old, g_new = x_new, f_new, nsuccess + 1, st.g_new, g_cand
 
     # convergence tests (relative to parameter and objective scale)
-    small_step = abs(alpha) * _max_abs(d) < options.xtol * (1.0 + _max_abs(st.x))
+    small_step = abs(alpha) * reduce.max_abs(d) < options.xtol * (1.0 + reduce.max_abs(st.x))
     small_df = abs(f_new - st.f_old) < options.ftol * (1.0 + abs(f_new))
-    gg = _dot(g_new, g_new)
+    gg = reduce.dot(g_new, g_new)
     done = bool((ok and small_step and small_df) or gg < options.gtol)
     f_old = f_new if ok else st.f_old
 
@@ -163,7 +175,7 @@ def _step(vg: Callable, st: SCGState, options: SCGOptions, nparams: int,
         d = tree_neg(g_new)
         nsuccess = 0
     elif ok:
-        gamma = (_dot(g_old, g_new) - gg) / mu
+        gamma = (reduce.dot(g_old, g_new) - gg) / mu
         d = [gamma * di - gi for di, gi in zip(d, g_new)]
 
     i = st.iteration
@@ -183,14 +195,16 @@ def minimize(
     value_and_grad_fn: Callable,
     x0: list,
     options: SCGOptions = SCGOptions(),
+    reduce: LocalReduce = LOCAL,
 ) -> SCGState:
     """Minimize ``value_and_grad_fn`` (leaves -> (f tensor, grad leaves)).
+    ``reduce`` takes the loop's scalars (``LocalReduce``).
 
     Returns the final SCGState; ``state.x`` are the optimized leaves and
     ``state.history`` the per-iteration trace.
     """
     with np.errstate(all="ignore"):
-        nparams = sum(t.numel() for t in x0)
+        nparams = reduce.numel(x0)
         f0, g0 = value_and_grad_fn(x0)
         options = _resolve_options(options, f0.dtype)
         kappa_floor = 1e-300 if f0.dtype == torch.float64 else 1e-30
@@ -198,7 +212,7 @@ def minimize(
         if options.trace_timing and options.max_iters > 0:
             glog.stamp_iteration(-1)
         while state.iteration < options.max_iters and not state.done:
-            state = _step(value_and_grad_fn, state, options, nparams, kappa_floor)
+            state = _step(value_and_grad_fn, state, options, nparams, kappa_floor, reduce)
             if options.trace_timing:
                 glog.stamp_iteration(state.iteration - 1)
     return state

@@ -215,9 +215,16 @@ def test_option_strings_match_jax():
                                           "item 2: SVGP"),
                                          (["-p", "remote"], "item 3: parallel")])
 def test_unported_modes_raise(tmp_path, extra, item):
+    """--optimizer svgp raises and names its ROADMAP item; -p remote, once
+    unported, now runs, here as one process without a process group."""
     tdata.save_partitioned(str(tmp_path / "in"), np.ones((8, 2)), 1)
+    argv = ["-i", str(tmp_path / "in"), "-e", str(tmp_path / "e"), *CPU, *extra]
+    if "remote" in extra:
+        summary = tcli.main(argv + ["-T", "1", "-q", "1", "-m", "2", "--init", "random"])
+        assert summary["parallel"] == "remote" and summary["devices"] == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tcli.main(["-i", str(tmp_path / "in"), "-e", str(tmp_path / "e"), *CPU, *extra])
+        tcli.main(argv)
 
 
 def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):

@@ -17,6 +17,7 @@ from gparml_tpu.utils import init as jinit  # noqa: E402
 from gparml_tpu_torch import data as tdata  # noqa: E402
 from gparml_tpu_torch.models import gplvm as tg  # noqa: E402
 from gparml_tpu_torch.models import params as TP  # noqa: E402
+from gparml_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from gparml_tpu_torch.utils import init as tinit  # noqa: E402
 
 torch.set_num_threads(2)
@@ -189,24 +190,28 @@ def test_fit_improves_bound_on_cpu():
 
 @pytest.mark.parametrize("case", ["adam", "gd", "qn", "dn", "mesh"])
 def test_outside_slice_raises_not_implemented(case):
-    """What is not ported raises. The qn and dn layouts and the Adam/GD
-    optimizers are ported; what stays outside for them is a mesh (the
-    data-parallel statistics)."""
-    y = torch.zeros(6, 3, dtype=torch.float64)
+    """What raised NotImplementedError for want of a mesh now runs: under a
+    mesh of two CPU shards the Adam and GD fits, the bound in the qn and dn
+    layouts (transposed at the boundary, as in the JAX package) and the
+    nq bound equal the same calls without a mesh."""
+    y = torch.tensor(np.random.default_rng(1).standard_normal((6, 3)))
     cfg = tg.GPLVMConfig(q=2, num_inducing=3)
     p = tg.init_params(torch.Generator().manual_seed(0), torch.randn(6, 3, dtype=torch.float64), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case in ("adam", "gd"):
-            tg.fit(p, y, cfg, iters=1, optimizer=case, mesh=object())
-        elif case == "qn":
-            cfg_qn = tg.GPLVMConfig(q=2, num_inducing=3, layout="qn", y_layout="dn")
-            p_qn = tg.init_params(torch.Generator().manual_seed(0), y.T, cfg_qn)
-            tg.log_bound(p_qn, y.T, cfg_qn, mesh=object())
-        elif case == "dn":
-            tg.log_bound(p, y.T, tg.GPLVMConfig(q=2, num_inducing=3, y_layout="dn"),
-                         mesh=object())
-        else:
-            tg.log_bound(p, y, cfg, mesh=object())
+    mesh = tmesh.Mesh(["cpu"] * 2)
+    if case in ("adam", "gd"):
+        with_mesh = tg.fit(p, y, cfg, iters=3, optimizer=case, mesh=mesh)
+        np.testing.assert_allclose(with_mesh.history,
+                                   tg.fit(p, y, cfg, iters=3, optimizer=case).history,
+                                   rtol=1e-12)
+        return
+    if case == "qn":
+        cfg = tg.GPLVMConfig(q=2, num_inducing=3, layout="qn", y_layout="dn")
+        p = tg.init_params(torch.Generator().manual_seed(0), y.T, cfg)
+        y = y.T
+    elif case == "dn":
+        cfg, y = tg.GPLVMConfig(q=2, num_inducing=3, y_layout="dn"), y.T
+    np.testing.assert_allclose(float(tg.log_bound(p, y, cfg, mesh=mesh).detach()),
+                               float(tg.log_bound(p, y, cfg).detach()), rtol=1e-12)
 
 
 def test_tpu_only_knobs_are_no_ops():

@@ -21,6 +21,7 @@ from gparml_tpu_torch.models import gplvm as tg  # noqa: E402
 from gparml_tpu_torch.models import params as TP  # noqa: E402
 from gparml_tpu_torch.ops import psi as tpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi_cuda  # noqa: E402
+from gparml_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -294,12 +295,15 @@ def test_qn_native_random_init():
 
 
 def test_qn_under_a_mesh_raises():
+    """fit raises for qn under a mesh, as in the JAX package; the bound
+    under a mesh takes the (N, Q) rows and equals the single-device one."""
     y_t = torch.tensor(np.random.default_rng(5).standard_normal((3, 16)))
     cfg = tg.GPLVMConfig(q=2, num_inducing=4, layout="qn", y_layout="dn")
     p = tg.init_params(torch.Generator().manual_seed(0), y_t, cfg)
+    mesh = Mesh(["cpu"] * 4)
     with pytest.raises(ValueError, match="layout='qn'"):
-        tg.fit(p, y_t, cfg, iters=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tg.log_bound(p, y_t, cfg, mesh=object())
+        tg.fit(p, y_t, cfg, iters=1, mesh=mesh)
+    np.testing.assert_allclose(float(tg.log_bound(p, y_t, cfg, mesh=mesh).detach()),
+                               float(tg.log_bound(p, y_t, cfg).detach()), rtol=1e-12)
     with pytest.raises(ValueError, match="y_layout"):
         tg.log_bound(p, y_t, tg.GPLVMConfig(q=2, num_inducing=4, y_layout="nd_"))
