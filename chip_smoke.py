@@ -72,11 +72,24 @@ Phases, one line each or more:
      on the same checkpoint (rtol 1e-5), both ranks' globals equal bit for
      bit, both partition files and the backend; (c) BASELINE config 1 (SGPR)
      through -p remote, its noise std within 7(c)'s bounds. Rank 0's
-     summary gives the mean time of the statistics' all_reduce.
+     summary gives the mean time of the statistics' all_reduce;
+  9. SVGP minibatch training (models/svgp.py: cuBLAS and cuSOLVER, no
+     hand-written kernel): (a) the API at the JAX package's production
+     shape, N=2e6, Q=4, D=3, M=100, batch 4096 (tools/svgp_bench.py's
+     generator), 2000 Adam steps in nq, then in qn: steps/s, peak memory,
+     qn's history against nq's, the final ELBO's estimator (4 batches), the
+     learned noise std, the RMSE at 1e4 fresh points, one ELBO+gradient
+     against float64 on the card, and 20 steps under
+     torch.cuda.set_sync_debug_mode("error"); (b) a mesh of 4 shards on the
+     card at N=2e6-3: elbo_sharded against elbo, and 500 steps against
+     unsharded; (c) --optimizer svgp through the CLI on BASELINE config 1's
+     folders in both layouts, then a resume; (d) the same under -p remote on
+     two processes of the card, the ranks' glob, q_mu and q_sqrt bit for bit.
 Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run; phase 7:
 each call; phase 8: the sharded evaluation, and each remote CLI run counts
-its own, which rank 0's summary reports). The line before the last is the
+its own, which rank 0's summary reports; phase 9: each fit and CLI run,
+which launch none). The line before the last is the
 kernel table as JSON (``launches_sharded``: phase 8(a)'s calls in one
 sharded evaluation); the last line is {"ok": true, "device": {...}}. A
 failed check prints a "chip_smoke check failed" line, the run goes on to
@@ -227,6 +240,41 @@ MESH_SLICE = SLICE
 REMOTE_RANKS = 2
 REMOTE_SLICE = (1_000_000, 12, 10, 200, 5)
 REMOTE_TIMEOUT = 300
+# Phase 9, SVGP at the JAX package's production shape (docs/DESIGN.md §6,
+# tools/svgp_bench.py's generator, ``_svgp_data``): (N, Q, D, M, batch,
+# Adam steps, learning rate). The learned noise std must fall within
+# SVGP_NOISE (true 0.1) and the predictive mean's RMSE against tanh(x W) at
+# SVGP_TEST_POINTS fresh points stay below SVGP_RMSE. Both were rehearsed on
+# the CPU with the JAX package and the port at N=2e5, seeds 0-2
+# (tools/svgp_rehearsal.py): the JAX package's noise std read 0.1175,
+# 0.1330, 0.1066, so the bound 0.08-0.13 is widened to its seed-0 result
+# plus the spread of the three (0.1175 + 0.0264); its RMSE read 0.033-0.083.
+# qn's history must be within SVGP_QN_RTOL of nq's. One ELBO and gradient
+# at a fixed window of `batch` rows at the initial parameters, float32 on
+# the card, is held against float64 on the card within 2x the CPU's float32
+# distance plus SVGP_F64_FLOOR (norm-scaled). The first SVGP_SYNC_STEPS steps run again under
+# torch.cuda.set_sync_debug_mode("error"). (b) a mesh of MESH_SHARDS shards on
+# the card at N - 3: elbo_sharded against elbo (SVGP_MESH_RTOL) and
+# SVGP_MESH_STEPS sharded steps; (c) the CLI on BASELINE config 1's folders
+# (SGPR_CLI's N, M and noise bounds): -T, then --load -T, with --batch-size
+# and --learning-rate (SVGP_CLI), in both layouts, the resumed ELBO at most
+# SVGP_RESUME_DROP below the first. The rate is the JAX package's CLI tests'
+# 0.05: at the default 0.01, 600 steps leave the noise std at 0.3376 in the
+# JAX CLI and 0.2908 in the port's (seed 0, tools/svgp_rehearsal.py --cli),
+# outside 7(c)'s bounds; at 0.05 they read 0.2220-0.2244 and 0.2374.
+# (d) -p remote on REMOTE_RANKS processes: -T, then --load -T (SVGP_REMOTE).
+SVGP_API = (2_000_000, 4, 3, 100, 4096, 2000, 1e-2)
+SVGP_NOISE = (0.08, 0.144)
+SVGP_RMSE = 0.1
+SVGP_TEST_POINTS = 10_000
+SVGP_QN_RTOL = 1e-4
+SVGP_F64_FLOOR = 1e-5
+SVGP_SYNC_STEPS = 20
+SVGP_MESH_RTOL = 1e-5
+SVGP_MESH_STEPS = 500
+SVGP_CLI = (600, 100, 256, 0.05)
+SVGP_RESUME_DROP = 5.0
+SVGP_REMOTE = (300, 100)
 
 
 FAILURES = []
@@ -1600,7 +1648,7 @@ def _ranks(args, work, tag):
         with open(log) as f:
             outs.append(f.read())
     ok = all(p.returncode == 0 for p in procs)
-    _require(ok, f"phase 8 {tag}: ranks exited {[p.returncode for p in procs]}:\n"
+    _require(ok, f"phase {tag}: ranks exited {[p.returncode for p in procs]}:\n"
              + "\n".join(o[-3000:] for o in outs))
     return outs, time.perf_counter() - t0, ok
 
@@ -1616,10 +1664,10 @@ def _remote_cli(argv, work, tag):
     digests = [ln.split()[-1] for o in outs for ln in o.splitlines() if "globals sha256" in ln]
     backends = [ln for o in outs for ln in o.splitlines() if ln.startswith("torch.distributed:")]
     _require(len(backends) == REMOTE_RANKS and all("backend gloo" in b for b in backends),
-             f"phase 8 {tag}: backend lines {backends}")
+             f"phase {tag}: backend lines {backends}")
     _require(len(digests) == REMOTE_RANKS and len(set(digests)) == 1
              and summary.get("globals_agree") is True,
-             f"phase 8 {tag}: the ranks' globals differ: {digests}, {summary}")
+             f"phase {tag}: the ranks' globals differ: {digests}, {summary}")
     return summary, outs, sec
 
 
@@ -1640,7 +1688,7 @@ def phase8_remote(dev, work):
         stats, emb = os.path.join(folder, "st"), os.path.join(folder, "emb")
         base = ["-i", _write_inputs(folder, y_np), "-e", emb, "-s", stats, "-q", q, "-m", m,
                 "--seed", 0, "--device", dev.type]
-        s1, outs, sec1 = _remote_cli(base + ["-T", iters, *extra], work, f"(b) {label} fit")
+        s1, outs, sec1 = _remote_cli(base + ["-T", iters, *extra], work, f"8(b) {label} fit")
         if s1 is None:
             continue
         rows = [np.load(os.path.join(emb, f"X_mu_{r}.npy")).shape for r in range(REMOTE_RANKS)]
@@ -1661,13 +1709,13 @@ def phase8_remote(dev, work):
                 + f"); rank 0's launches {launches}; partition files {rows}; backend "
                 f"{s1['backend']}; globals equal bit for bit on both ranks")
         if more:
-            s2, _, sec2 = _remote_cli(base + ["-T", more, "--load"], work, f"(b) {label} resume")
+            s2, _, sec2 = _remote_cli(base + ["-T", more, "--load"], work, f"8(b) {label} resume")
             if s2 is not None:
                 _require(s2["final_bound"] >= s1["final_bound"] - 1e-5 * abs(s1["final_bound"]),
                          f"phase 8(b) {label} resume ended below its start: {s1} -> {s2}")
                 text += (f"; resume --load -T {more}: {sec2:.2f} s, ends at "
                          f"{s2['final_bound']:.6g}")
-        s0, _, sec0 = _remote_cli(base + ["-T", 0, "--load"], work, f"(b) {label} -T 0")
+        s0, _, sec0 = _remote_cli(base + ["-T", 0, "--load"], work, f"8(b) {label} -T 0")
         local, _, _ = _cli_run(base + ["-T", 0, "--load"])
         if s0 is not None:
             rel = abs(s0["final_bound"] - local["final_bound"]) / abs(local["final_bound"])
@@ -1692,7 +1740,7 @@ def phase8_sgpr(dev, work):
     data.save_embeddings(emb, x_np, np.zeros_like(x_np), CLI_PARTITIONS)
     base = ["-i", _write_inputs(folder, y_np), "-e", emb, "-s", stats, "-m", m,
             "--fixed-embeddings", "--seed", 0, "--device", dev.type]
-    s1, _, sec = _remote_cli(base + ["-T", iters], work, "(c) config 1")
+    s1, _, sec = _remote_cli(base + ["-T", iters], work, "8(c) config 1")
     if s1 is not None:
         with np.load(os.path.join(stats, "checkpoint.npz")) as f:
             g = P.global_from_numpy(P.GlobalArrays(*(f[k] for k in P.GlobalArrays._fields)),
@@ -1702,6 +1750,264 @@ def phase8_sgpr(dev, work):
         print(f"phase 8(c) BASELINE config 1 -p remote, {REMOTE_RANKS} ranks, N={n} D={d} "
               f"Q={q} M={m} -T {iters}: {sec:.2f} s, bound {s1['final_bound']:.6g} "
               f"({s1['n_evals']} evaluations); noise std {noise:.4f} (true 0.2)")
+
+
+def _svgp_data(n, seed=0, n_test=0):
+    """tools/svgp_bench.py's generator, float32: x ~ U(-2, 2)^(n x Q), W ~
+    N(0, 1)^(Q x D), y = tanh(x W) + 0.1 eps; then ``n_test`` fresh points
+    and their noise-free targets. Returns (x, y, x_test, f_test)."""
+    _, q, d = SVGP_API[:3]
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (n, q)).astype(np.float32)
+    w = rng.standard_normal((q, d)).astype(np.float32)
+    y = (np.tanh(x @ w) + 0.1 * rng.standard_normal((n, d))).astype(np.float32)
+    x_test = rng.uniform(-2, 2, (n_test, q)).astype(np.float32)
+    return x, y, x_test, np.tanh(x_test @ w)
+
+
+def _svgp_noise(params):
+    from gparml_tpu_torch.models import params as P
+
+    return float(P.constrain(params.glob)[3].detach()) ** -0.5
+
+
+def _svgp_f64_check(dev, p, x, y, n_total, cfg):
+    """One ELBO and gradient at the rows (x, y) in float32 on the card
+    against float64 on the card, each leaf norm-scaled, within 2x the CPU's
+    float32 distance from the same float64 plus SVGP_F64_FLOOR. Returns
+    (errors on the card, tolerances)."""
+    import torch
+    from gparml_tpu_torch.models import svgp
+
+    def run(device, dtype):
+        q = svgp.from_leaves([t.detach().to(device, dtype) for t in p.parameters()])
+        val = svgp.elbo(q, x.to(device, dtype), y.to(device, dtype), n_total, cfg)
+        return [t.detach().double().cpu() for t in
+                [val, *torch.autograd.grad(val, list(q.parameters()))]]
+
+    ref = run(dev, torch.float64)
+    card, cpu = run(dev, torch.float32), run("cpu", torch.float32)
+    names = ["elbo"] + [k for k, _ in p.named_parameters()]
+    err = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-300))
+    errs = {k: err(a, b) for k, a, b in zip(names, card, ref)}
+    tols = {k: 2.0 * err(a, b) + SVGP_F64_FLOOR for k, a, b in zip(names, cpu, ref)}
+    _require(all(errs[k] <= tols[k] for k in names),
+             f"phase 9(a) float32 ELBO+gradient vs float64: {errs} against {tols}")
+    return errs, tols
+
+
+def phase9_api(dev):
+    """9(a): SVGP through the API at the production shape, nq then qn from
+    the same generator; the learned noise, the predictions at fresh points,
+    the final ELBO's estimator; one ELBO+gradient against float64; the step
+    loop under the sync debug mode. Returns (data, nq params)."""
+    import torch
+    from gparml_tpu_torch.models import svgp
+    from gparml_tpu_torch.ops import psi_cuda
+
+    n, q, d, m, batch, steps, lr = SVGP_API
+    x_np, y_np, xt_np, ft = _svgp_data(n, seed=0, n_test=SVGP_TEST_POINTS)
+    x = torch.tensor(x_np, device=dev)
+    y = torch.tensor(y_np, device=dev)
+    runs, inits = {}, {}
+    for layout in ("nq", "qn"):
+        cfg = svgp.SVGPConfig(num_inducing=m, batch_size=batch, layout=layout)
+        xs, ys = (x, y) if layout == "nq" else (x.T.contiguous(), y.T.contiguous())
+        p0 = svgp.init_params(torch.Generator(dev).manual_seed(0), xs, ys, cfg)
+        svgp.fit(p0, xs, ys, cfg, steps=3, learning_rate=lr)   # warm-up (cuBLAS, cuSOLVER)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+        sec, res = _timed(lambda: svgp.fit(p0, xs, ys, cfg, steps=steps, learning_rate=lr,
+                                           seed=0))
+        launches = dict(psi_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            mean, var = svgp.predict(res.params, torch.tensor(xt_np, device=dev), cfg)
+        rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - ft) ** 2)))
+        noise = _svgp_noise(res.params)
+        lo, hi = SVGP_NOISE
+        _require(np.all(np.isfinite(res.history)) and math.isfinite(res.elbo),
+                 f"phase 9(a) {layout}: ELBO not finite")
+        _require(res.elbo_exact is False and res.elbo_n == 4 * batch,
+                 f"phase 9(a) {layout}: final ELBO estimator {res.elbo_exact}, {res.elbo_n}")
+        _require(lo <= noise <= hi, f"phase 9(a) {layout}: noise std {noise} outside [{lo}, {hi}]")
+        _require(rmse < SVGP_RMSE and bool((var > 0).all()),
+                 f"phase 9(a) {layout}: RMSE {rmse}, least variance {float(var.min())}")
+        runs[layout], inits[layout] = res, p0
+        print(f"phase 9(a) SVGP API {layout} N={n} Q={q} D={d} M={m} batch {batch}, {steps} "
+              f"Adam steps at lr {lr}: {sec:.2f} s, {steps / sec:.1f} steps/s (with the "
+              f"permutation and the final ELBO); peak {peak / 1e9:.3f} GB "
+              f"({(peak - base) / 1e9:.3f} GB above the data); ELBO {res.history[0]:.8g} -> "
+              f"{res.history[-1]:.8g}, final {res.elbo:.8g} (exact {res.elbo_exact}, "
+              f"{res.elbo_n} rows); noise std {noise:.4f} (true 0.1); RMSE at "
+              f"{SVGP_TEST_POINTS} fresh points {rmse:.4f}; least variance "
+              f"{float(var.min()):.3e}; kernel launches {launches} (SVGP runs none)")
+    h_nq, h_qn = runs["nq"].history, runs["qn"].history
+    rel = float(np.max(np.abs(h_qn - h_nq) / np.abs(h_nq)))
+    _require(rel <= SVGP_QN_RTOL, f"phase 9(a) qn history vs nq: max rel {rel}")
+    print(f"phase 9(a) qn vs nq: history max rel {rel:.3e}, bitwise equal "
+          f"{bool(np.array_equal(h_qn, h_nq))}; final ELBO {runs['qn'].elbo:.8g} vs "
+          f"{runs['nq'].elbo:.8g}")
+
+    # at the start, where the gradients are O(1): past a few steps the
+    # float32 gradient is a difference of nearly equal terms (1e-3..6e-2 of
+    # float64 on the CPU after 2000 steps, tools/svgp_rehearsal.py)
+    cfg = svgp.SVGPConfig(num_inducing=m, batch_size=batch)
+    p = runs["nq"].params
+    errs, tols = _svgp_f64_check(dev, inits["nq"], x[:batch], y[:batch], n, cfg)
+    print(f"phase 9(a) one ELBO+gradient at the first {batch} rows at the initial "
+          f"parameters, float32 on the card vs "
+          f"float64 on the card (norm-scaled; tolerance 2x the CPU's float32 + "
+          f"{SVGP_F64_FLOOR:g}): " + ", ".join(f"{k} {errs[k]:.2e} ({tols[k]:.2e})"
+                                              for k in errs))
+
+    # the step loop alone under the sync debug mode: no host sync may occur
+    perm, starts = svgp._draw(torch.Generator().manual_seed(1), n, SVGP_SYNC_STEPS)
+    plan = svgp._plan(x, y, [perm], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    error = None
+    try:
+        svgp._steps(p, plan, [starts], cfg, lr)
+    except RuntimeError as exc:
+        error = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _require(error is None, f"phase 9(a) the step loop synchronizes with the card: {error}")
+    sec = min(_timed(lambda: svgp._steps(p, plan, [starts], cfg, lr))[0] for _ in range(3))
+    print(f"phase 9(a) {SVGP_SYNC_STEPS} steps under set_sync_debug_mode('error'): no sync; "
+          f"the loop alone {SVGP_SYNC_STEPS / sec:.1f} steps/s")
+    _svgp_profile(lambda: svgp._steps(p, plan, [starts], cfg, lr), SVGP_SYNC_STEPS)
+    return x, y, p
+
+
+def _svgp_profile(run, steps):
+    """torch.profiler over ``run`` (``steps`` SVGP steps): the device's busy
+    share of the window, its kernels a step and their time, the largest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_name = {}
+    for e in prof.events():
+        # kernels, copies and sets; not the ranges that user annotations
+        # (Optimizer.step) draw around them on the device's timeline
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            us, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    busy = sum(us for us, _ in per_name.values()) / 1e6
+    calls = sum(c for _, c in per_name.values())
+    top = sorted(((us, c, k) for k, (us, c) in per_name.items()), reverse=True)[:4]
+    print(f"phase 9(a) profile of {steps} steps: {wall / steps * 1e3:.3f} ms/step traced, "
+          f"device busy {busy / wall:.1%}, {calls / steps:.0f} device calls and "
+          f"{busy / steps * 1e3:.3f} device ms a step; largest: " + "; ".join(
+              f"{k[:60]} {us / steps:.1f} us x{c / steps:.0f}" for us, c, k in top))
+
+
+def phase9_mesh(dev, x, y, p):
+    """9(b): a mesh of MESH_SHARDS shards on the card at N - 3 (weight-0
+    padding): the full-batch elbo_sharded against elbo, and SVGP_MESH_STEPS
+    sharded steps against unsharded."""
+    import torch
+    from gparml_tpu_torch.models import svgp
+    from gparml_tpu_torch.parallel import mesh as mesh_lib
+
+    n = SVGP_API[0] - 3
+    _, _, _, m, batch, _, lr = SVGP_API
+    cfg = svgp.SVGPConfig(num_inducing=m, batch_size=batch)
+    x, y = x[:n], y[:n]
+    mesh = mesh_lib.Mesh([dev] * MESH_SHARDS)
+    ys, xs, w = mesh_lib.shard_data(mesh, y, x)
+    with torch.no_grad():
+        full = float(svgp.elbo(p, x, y, n, cfg))
+        sharded = float(svgp.elbo_sharded(p, xs, ys, cfg, mesh=mesh, weights=w))
+    rel = abs(sharded - full) / abs(full)
+    _require(rel <= SVGP_MESH_RTOL, f"phase 9(b) elbo_sharded {sharded} vs elbo {full}")
+    p0 = svgp.init_params(torch.Generator(dev).manual_seed(0), x, y, cfg)
+    sec_1, r1 = _timed(lambda: svgp.fit(p0, x, y, cfg, steps=SVGP_MESH_STEPS, learning_rate=lr))
+    sec_k, rk = _timed(lambda: svgp.fit(p0, xs, ys, cfg, steps=SVGP_MESH_STEPS,
+                                        learning_rate=lr, mesh=mesh, weights=w))
+    b_local = batch // MESH_SHARDS
+    _require(np.all(np.isfinite(rk.history)) and rk.elbo_exact is False
+             and rk.elbo_n == 4 * b_local * MESH_SHARDS,
+             f"phase 9(b) sharded fit: {rk.history[-3:]}, {rk.elbo_exact}, {rk.elbo_n}")
+    print(f"phase 9(b) mesh of {MESH_SHARDS} shards on {dev}, N={n} (padded to {ys.shape[0]}): "
+          f"full-batch elbo_sharded {sharded:.8g} vs elbo {full:.8g} (rel {rel:.2e}); "
+          f"{SVGP_MESH_STEPS} steps sharded {SVGP_MESH_STEPS / sec_k:.1f} steps/s, unsharded "
+          f"{SVGP_MESH_STEPS / sec_1:.1f} steps/s; final ELBO sharded {rk.elbo:.8g} "
+          f"({rk.elbo_n} rows), unsharded {r1.elbo:.8g}")
+
+
+def _svgp_folders(work, tag):
+    """BASELINE config 1's folders (SGPR_CLI's N) under ``work``."""
+    from gparml_tpu_torch import data
+
+    x_np, y_np = data.synthetic_regression(n=SGPR_CLI[0], seed=0)
+    folder = os.path.join(work, tag)
+    emb = os.path.join(folder, "emb")
+    data.save_embeddings(emb, x_np, np.zeros_like(x_np), CLI_PARTITIONS)
+    return folder, ["-i", _write_inputs(folder, y_np), "-e", emb, "-m", SGPR_CLI[3],
+                    "--fixed-embeddings", "--optimizer", "svgp", "--seed", 0]
+
+
+def _checkpoint_noise(stats):
+    with np.load(os.path.join(stats, "checkpoint.npz")) as f:
+        return float(np.exp(-0.5 * f["glob/u_beta"]))
+
+
+def phase9_cli(dev, work):
+    """9(c): --fixed-embeddings --optimizer svgp on BASELINE config 1's
+    folders, then a resume, in both layouts."""
+    iters, more, batch, lr = SVGP_CLI
+    lo, hi = SGPR_CLI[6]
+    folder, base = _svgp_folders(work, "svgp")
+    for layout in ("nq", "qn"):
+        stats = os.path.join(folder, f"st_{layout}")
+        argv = base + ["-s", stats, "--batch-size", batch, "--learning-rate", lr,
+                       "--layout", layout, "--device", dev.type]
+        s1, l1, sec1 = _cli_run(argv + ["-T", iters])
+        noise = _checkpoint_noise(stats)
+        s2, _, sec2 = _cli_run(argv + ["-T", more, "--load"])
+        _require(s1["mode"] == "svgp" and lo <= noise <= hi,
+                 f"phase 9(c) {layout}: noise std {noise} outside [{lo}, {hi}]")
+        _require(s2["final_elbo"] >= s1["final_elbo"] - SVGP_RESUME_DROP,
+                 f"phase 9(c) {layout}: resumed ELBO {s2['final_elbo']} below "
+                 f"{s1['final_elbo']} - {SVGP_RESUME_DROP}")
+        print(f"phase 9(c) BASELINE config 1 through the CLI, --optimizer svgp --layout "
+              f"{layout} -T {iters} --batch-size {batch} --learning-rate {lr}: {sec1:.2f} s, "
+              f"final ELBO "
+              f"{s1['final_elbo']:.6g} (exact {s1['final_elbo_exact']}); noise std "
+              f"{noise:.4f} (true 0.2); launches {l1}; resume --load -T {more}: {sec2:.2f} s, "
+              f"ELBO {s2['final_elbo']:.6g}")
+
+
+def phase9_remote(dev, work):
+    """9(d): --optimizer svgp under -p remote on REMOTE_RANKS processes of
+    the card, then a resume: the ranks' glob, q_mu and q_sqrt bit for bit
+    (``_remote_cli``), the ELBO finite."""
+    iters, more = SVGP_REMOTE
+    folder, base = _svgp_folders(work, "remote_svgp")
+    argv = base + ["-s", os.path.join(folder, "st"), "--batch-size", SVGP_CLI[2],
+                   "--learning-rate", SVGP_CLI[3], "--device", dev.type]
+    text = f"phase 9(d) --optimizer svgp -p remote, {REMOTE_RANKS} ranks on one card"
+    for label, extra in (("fit", ["-T", iters]), ("resume", ["-T", more, "--load"])):
+        s, _, sec = _remote_cli(argv + extra, work, f"9(d) svgp {label}")
+        if s is None:
+            continue
+        _require(math.isfinite(s["final_elbo"]) and s["devices"] == REMOTE_RANKS,
+                 f"phase 9(d) {label}: {s}")
+        text += (f"; {label} {' '.join(map(str, extra))}: {sec:.2f} s, ELBO "
+                 f"{s['final_elbo']:.6g}, the data term's all_reduce "
+                 f"{s['stats_allreduce_ms']:.3f} ms, replicas equal bit for bit")
+    print(text)
 
 
 def main() -> int:
@@ -1797,6 +2103,15 @@ def main() -> int:
         phase8_remote(dev, work)
         phase8_sgpr(dev, work)
         print(f"phase 8: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        x9, y9, p9 = phase9_api(dev)
+        phase9_mesh(dev, x9, y9, p9)
+        del x9, y9, p9
+        torch.cuda.empty_cache()
+        phase9_cli(dev, work)
+        phase9_remote(dev, work)
+        print(f"phase 9: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from gparml_tpu_torch.models import params as P
+from gparml_tpu_torch.models import svgp
 
 _META_KEY = "__gparml_meta__"
 
@@ -50,11 +51,11 @@ def holds_latents(path: str) -> bool:
 
 
 def load(path: str, like: nn.Module) -> Tuple[nn.Module, Dict[str, Any]]:
-    """Load a checkpoint into the structure of ``like`` (a GPLVMParams or
-    GlobalParams template with the same parameter names; a GlobalParams
-    template also takes the globals of a GPLVM checkpoint). Shapes must
-    match the template's; the dtypes come from the file and the device
-    from the template.
+    """Load a checkpoint into the structure of ``like`` (a GPLVMParams,
+    GlobalParams or SVGPParams template with the same parameter names; a
+    GlobalParams template also takes the globals of a GPLVM or SVGP
+    checkpoint). Shapes must match the template's; the dtypes come from the
+    file and the device from the template.
 
     Returns (params, meta).
     """
@@ -70,7 +71,7 @@ def load(path: str, like: nn.Module) -> Tuple[nn.Module, Dict[str, Any]]:
     for name, leaf in like.named_parameters():
         key = _key(name)
         if key not in arrays and isinstance(like, P.GlobalParams):
-            key = "glob/" + key   # the globals of a GPLVM checkpoint
+            key = "glob/" + key   # the globals of a GPLVM or SVGP checkpoint
         if key not in arrays:
             raise KeyError(
                 f"checkpoint {path} is missing leaf {key!r}; has {sorted(arrays)}"
@@ -82,4 +83,6 @@ def load(path: str, like: nn.Module) -> Tuple[nn.Module, Dict[str, Any]]:
                 f"expected {tuple(leaf.shape)}: wrong N/Q/M configuration?"
             )
         leaves.append(torch.tensor(arr, device=leaf.device))
+    if isinstance(like, svgp.SVGPParams):
+        return svgp.from_leaves(leaves), meta
     return P.from_leaves(leaves), meta

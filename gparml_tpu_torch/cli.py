@@ -10,7 +10,11 @@ partition files, ``bound_history.jsonl``, ``checkpoint.npz`` and
 ``summary.json``. With ``--fixed-embeddings`` the embeddings folder holds
 observed inputs X (its ``X_mu_<i>.npy``, one row per row of Y) and the run
 fits sparse GP regression (``models/sgpr.py``): Z and the hypers only,
-``--load`` resuming from ``checkpoint.npz``, the summary's ``mode`` "sgpr".
+``--load`` resuming from ``checkpoint.npz``, the summary's ``mode`` "sgpr";
+with ``--optimizer svgp`` as well, the uncollapsed SVGP by minibatch Adam
+(``models/svgp.py``: ``--batch-size``, ``--learning-rate``; Z, the hypers
+and q(u); ``elbo_history.jsonl``, the summary's ``mode`` "svgp" with the
+final ELBO's estimator, ``final_elbo_exact`` and ``final_elbo_n``).
 Either package resumes from the other's folders.
 
   -i/--input         folder of per-partition Y_<i>.npy files
@@ -33,16 +37,16 @@ from MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK as
 ``torchrun`` sets them (``parallel/distributed.py``; its backend is
 ``nccl`` where each rank has a card of its own, ``gloo`` on the CPU or
 where ranks share a card): each process reads only its own block of rows,
-initialises from it (SGPR's globals from a sample of every process's rows),
-takes the coordinator's globals, fits, writes its own embeddings partition
-file, and the coordinator writes a checkpoint of the globals only; after
-the fit every process checks that it holds the coordinator's globals bit
-for bit. ``--load`` resumes either mode, also from the other's folders. The kernels take float32: ``--dtype float64`` on
+initialises from it (SGPR's globals and SVGP's parameters from a sample of
+every process's rows), takes the coordinator's globals, fits, writes its own
+embeddings partition file, and the coordinator writes a checkpoint of the
+globals only (SVGP: its parameters); after the fit every process checks that
+it holds the coordinator's globals (SVGP: glob, q_mu and q_sqrt) bit for
+bit. ``--load`` resumes either mode, also from the other's folders. The kernels take float32: ``--dtype float64`` on
 the card needs ``--stats-impl xla``. A checkpoint's leaves are cast to
 ``--dtype``. ``--compile-cache`` and ``--scg-mode`` are accepted and do
 nothing (XLA compile caching and the TPU's fused SCG program have no
-counterpart). Not ported yet, and raising NotImplementedError:
-``--optimizer svgp`` (ROADMAP.md Queue 1, item 2).
+counterpart).
 
 Run ``python -m gparml_tpu_torch.cli --help`` for the full surface.
 """
@@ -82,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load", action="store_true",
                    help="resume: load existing embeddings (and checkpoint if present)")
     p.add_argument("--optimizer", choices=["scg", "adam", "gd", "svgp"], default="scg",
-                   help="svgp is not ported yet")
+                   help="svgp: minibatch SVGP (with --fixed-embeddings)")
     p.add_argument("--xtol", type=float, default=1e-8,
                    help="SCG: min relative step size before convergence")
     p.add_argument("--ftol", type=float, default=1e-8,
@@ -125,14 +129,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(options) -> None:
-    """Raise for the modes the port does not have yet."""
-    if options.optimizer == "svgp":
-        raise NotImplementedError(
-            "--optimizer svgp (SVGP minibatch training) is not ported yet "
-            "(ROADMAP.md Queue 1, item 2: SVGP)")
-
-
 def _device(options):
     """cuda:0, or under -p remote this rank's card; or the CPU."""
     import torch
@@ -160,19 +156,20 @@ def _local_mesh(device, layout):
     return None
 
 
-def _check_replicas(glob, mesh) -> dict:
-    """Under a process group: print this rank's digest of the globals, and
-    raise unless every rank holds the coordinator's bits. Returns the
-    summary's entries, with the statistics' mean all_reduce time."""
+def _check_replicas(params, mesh) -> dict:
+    """Under a process group: print this rank's digest of the replicated
+    parameters (the globals; SVGP's glob, q_mu and q_sqrt), and raise unless
+    every rank holds the coordinator's bits. Returns the summary's entries,
+    with the mean time of the sums' all_reduce."""
     from gparml_tpu_torch.models import params as P
     from gparml_tpu_torch.parallel import distributed
 
     if not distributed.spans_processes(mesh):
         return {}
-    digest = hashlib.sha256(b"".join(
-        a.tobytes() for a in P.global_to_numpy(glob))).hexdigest()
+    leaves = P.leaves(params)
+    digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in leaves)).hexdigest()
     print(f"rank {distributed.process_index()} globals sha256 {digest}", flush=True)
-    if not distributed.replicas_agree(P.leaves(glob), mesh):
+    if not distributed.replicas_agree(leaves, mesh):
         raise RuntimeError("the replicated globals differ across processes after the fit")
     return {"processes": distributed.process_count(),
             "backend": distributed.backend_name(), "globals_agree": True,
@@ -180,19 +177,22 @@ def _check_replicas(glob, mesh) -> dict:
                 mesh.allreduce_seconds / max(mesh.allreduces, 1) * 1e3, 4)}
 
 
-def _place(options, mesh, n, glob, dtype, *rows):
-    """Under a mesh: the globals replicated (under -p remote, the
-    coordinator's), and the N-sized arrays ``rows`` padded and sharded.
-    Returns (globals, sharded arrays..., weights)."""
-    from gparml_tpu_torch.models import params as P
+def _place(options, mesh, n, params, dtype, rebuild, *rows):
+    """Under a mesh: the replicated parameters (under -p remote, the
+    coordinator's, rebuilt from their leaves by ``rebuild``), and the
+    N-sized arrays ``rows`` padded and sharded. Returns (parameters,
+    sharded arrays..., weights)."""
+    import torch
+
     from gparml_tpu_torch.parallel import distributed
     from gparml_tpu_torch.parallel import mesh as mesh_lib
 
     if options.parallel == "remote":
-        glob = P.global_from_numpy(distributed.broadcast_pytree(P.global_to_numpy(glob)),
-                                   device=mesh.home, dtype=dtype)
-        return (glob, *distributed.shard_data_multihost(mesh, n, *rows))
-    return (mesh_lib.replicated(mesh, glob), *mesh_lib.shard_data(mesh, *rows))
+        leaves = distributed.broadcast_pytree([t.detach().cpu().numpy()
+                                               for t in params.parameters()])
+        params = rebuild([torch.tensor(a, device=mesh.home, dtype=dtype) for a in leaves])
+        return (params, *distributed.shard_data_multihost(mesh, n, *rows))
+    return (mesh_lib.replicated(mesh, params), *mesh_lib.shard_data(mesh, *rows))
 
 
 def _scg_options(options):
@@ -266,7 +266,6 @@ def run(options) -> dict:
     from gparml_tpu_torch.utils import init as init_utils
     from gparml_tpu_torch.utils import logging as glog
 
-    _check_ported(options)
     t_start = time.perf_counter()
     layout = getattr(options, "layout", "nq")
     # remote: every process runs this same program on its own contiguous
@@ -293,7 +292,8 @@ def run(options) -> dict:
         n, d = y_np.shape
     writer = distributed.is_coordinator()
     if options.fixed_embeddings:
-        return _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer)
+        mode = _run_svgp if options.optimizer == "svgp" else _run_sgpr
+        return mode(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer)
     if dtype == torch.float64 and device.type == "cuda" and options.stats_impl != "xla":
         raise ValueError(
             "--dtype float64 on the card needs --stats-impl xla: the CUDA "
@@ -370,8 +370,9 @@ def run(options) -> dict:
 
     weights = None
     if mesh is not None:
-        glob, y, mu_s, us_s, weights = _place(options, mesh, n, params.glob, dtype, y,
-                                              params.lat.mu.detach(), params.lat.u_s.detach())
+        glob, y, mu_s, us_s, weights = _place(options, mesh, n, params.glob, dtype,
+                                              P.from_leaves, y, params.lat.mu.detach(),
+                                              params.lat.u_s.detach())
         params = P.GPLVMParams(glob=glob, lat=P.LatentParams(mu_s.gather(), us_s.gather()))
     timer.stop("init")
 
@@ -450,16 +451,14 @@ def run(options) -> dict:
     return summary
 
 
-def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -> dict:
-    """The --fixed-embeddings mode: sparse GP regression of Y on the observed
-    inputs X of the embeddings folder (the JAX CLI's SGPR branch). ``rows``
-    is this process's block under -p remote, else None."""
+def _observed(options, device, dtype, y_np, n, rows):
+    """The --fixed-embeddings modes' data: the observed inputs X of the
+    embeddings folder (this process's ``rows`` under -p remote), checked
+    against Y's N, and (X numpy, X, Y, layout) with X and Y on ``device``,
+    stored (Q, N) and (D, N) under --layout qn."""
     import torch
 
-    from gparml_tpu_torch import checkpoint, data
-    from gparml_tpu_torch.models import params as P, sgpr
-    from gparml_tpu_torch.parallel import distributed
-    from gparml_tpu_torch.utils import logging as glog
+    from gparml_tpu_torch import data
 
     if rows is not None:
         n_x = data.partition_rows(options.embeddings, prefix="X_mu")
@@ -475,10 +474,24 @@ def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -
                 f"embeddings rows {x_np.shape[0]} != N={n}; --fixed-embeddings "
                 "needs observed inputs in the embeddings folder")
     layout = getattr(options, "layout", "nq")
-    # under qn both are stored transposed, (Q, N) and (D, N)
     host = (lambda a: a.T) if layout == "qn" else (lambda a: a)
     x = torch.tensor(np.ascontiguousarray(host(x_np)), dtype=dtype, device=device)
     y = torch.tensor(np.ascontiguousarray(host(y_np)), dtype=dtype, device=device)
+    return x_np, x, y, layout
+
+
+def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -> dict:
+    """The --fixed-embeddings mode: sparse GP regression of Y on the observed
+    inputs X of the embeddings folder (the JAX CLI's SGPR branch). ``rows``
+    is this process's block under -p remote, else None."""
+    import torch
+
+    from gparml_tpu_torch import checkpoint
+    from gparml_tpu_torch.models import params as P, sgpr
+    from gparml_tpu_torch.parallel import distributed
+    from gparml_tpu_torch.utils import logging as glog
+
+    x_np, x, y, layout = _observed(options, device, dtype, y_np, n, rows)
     cfg = sgpr.SGPRConfig(num_inducing=options.m, bijector=options.bijector,
                           block=options.block, fixed_beta=options.fixed_beta,
                           layout=layout, scg_mode=getattr(options, "scg_mode", "auto"))
@@ -502,7 +515,7 @@ def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -
     weights = None
     if mesh is not None:
         # init used this process's rows only: the globals are the coordinator's
-        g0, y, x, weights = _place(options, mesh, n, g0, dtype, y, x)
+        g0, y, x, weights = _place(options, mesh, n, g0, dtype, P.from_leaves, y, x)
 
     timer = glog.Timer()
     timer.start("fit")
@@ -531,6 +544,71 @@ def _run_sgpr(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -
         )
         checkpoint.save(ckpt_path, result.params,
                         meta={"iteration": options.iterations, "bound": final_bound})
+        with open(os.path.join(options.statistics, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    if writer:
+        print(json.dumps(summary))
+    return summary
+
+
+def _run_svgp(options, device, dtype, t_start, y_np, n, d, mesh, rows, writer) -> dict:
+    """The --fixed-embeddings --optimizer svgp mode: SVGP of Y on the
+    observed inputs X by minibatch Adam (the JAX CLI's SVGP branch).
+    ``rows`` is this process's block under -p remote, else None."""
+    import torch
+
+    from gparml_tpu_torch import checkpoint
+    from gparml_tpu_torch.models import svgp
+    from gparml_tpu_torch.parallel import distributed
+    from gparml_tpu_torch.utils import logging as glog
+
+    x_np, x, y, layout = _observed(options, device, dtype, y_np, n, rows)
+    cfg = svgp.SVGPConfig(num_inducing=options.m, bijector=options.bijector,
+                          batch_size=options.batch_size, fixed_beta=options.fixed_beta,
+                          layout=layout)
+    gen = torch.Generator(device).manual_seed(options.seed)
+    if rows is not None:
+        # -p remote: the start from a sample of every process's rows, as SGPR's
+        x_s, y_s = distributed.sample_rows(options.m, options.seed, x_np, y_np)
+        p0 = svgp.init_params(gen, torch.tensor(x_s, dtype=dtype, device=device),
+                              torch.tensor(y_s, dtype=dtype, device=device), cfg)
+    else:
+        p0 = svgp.init_params(gen, x, y, cfg)
+    ckpt_path = (os.path.join(options.statistics, "checkpoint.npz")
+                 if options.statistics else None)
+    if options.load and ckpt_path and os.path.exists(ckpt_path):
+        p0, meta = checkpoint.load(ckpt_path, p0)
+        p0 = svgp.from_leaves([t.detach().to(dtype) for t in p0.parameters()])
+        if writer:
+            print(f"resumed from {ckpt_path} (iteration {meta.get('iteration')})")
+    weights = None
+    if mesh is not None:
+        p0, y, x, weights = _place(options, mesh, n, p0, dtype, svgp.from_leaves, y, x)
+
+    timer = glog.Timer()
+    timer.start("fit")
+    with _maybe_profile(options):
+        result = svgp.fit(p0, x, y, cfg, steps=options.iterations,
+                          learning_rate=options.learning_rate, seed=options.seed,
+                          mesh=mesh, weights=weights)
+    timer.stop("fit")
+    summary = {
+        "mode": "svgp", "n": n, "d": d, "m": options.m,
+        "iterations": options.iterations, "batch_size": cfg.batch_size,
+        "final_elbo": result.elbo,
+        # exact full-data ELBO, or an unbiased estimate over final_elbo_n rows
+        "final_elbo_exact": bool(result.elbo_exact),
+        "final_elbo_n": int(result.elbo_n),
+        "devices": mesh.size if mesh is not None else 1, "parallel": options.parallel,
+        **_check_replicas(result.params, mesh),
+        "wall_time_s": round(time.perf_counter() - t_start, 3),
+    }
+    if options.statistics and writer:
+        os.makedirs(options.statistics, exist_ok=True)
+        glog.write_history(os.path.join(options.statistics, "elbo_history.jsonl"),
+                           result.history)
+        checkpoint.save(ckpt_path, result.params,
+                        meta={"iteration": options.iterations, "bound": result.elbo})
         with open(os.path.join(options.statistics, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
     if writer:

@@ -33,6 +33,10 @@ the coordinator; the latent leaves keep their own process's. (An
 ``torch.distributed.nn``'s does, would count dF/dS once per process, and
 summing the whole gradient would count the direct part once per process.)
 
+SVGP takes the same two stages with one partial sum, the weighted data
+term S_r of this process's batch rows, and F = -(scale S - KL(theta)):
+the data term's gradient summed over processes, the KL's added once.
+
 The value F and the replicated gradients come out of that second
 ``all_reduce`` as the coordinator's value and one sum, so every process
 holds the same bits, and the optimizer's scalars (``LeafReduce``) are one
@@ -49,7 +53,6 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from gparml_tpu_torch.ops.psi import SufficientStats
 from gparml_tpu_torch.parallel.mesh import (Mesh, Sharded, pad_and_place, pad_to_multiple,
                                             replicated)
 
@@ -104,17 +107,19 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
-    device_type: Optional[str] = None,
+    device_type: str = "cuda",
 ) -> None:
     """Join the process group (idempotent). Explicit arguments are used
     where given ("host:port", the world size, this process's rank), else
     MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK from the environment, as
     ``torchrun`` sets them. With neither, a single process needs no group
-    and this returns without one. ``backend`` defaults to ``backend_for``
-    the device type ('cuda' where a card is visible, else 'cpu'); the
-    backend in use is printed."""
+    and this returns without one. ``device_type`` is 'cuda' (the default:
+    raises, as ``local_device`` does, where there is no card) or 'cpu';
+    ``backend`` defaults to ``backend_for`` it; the backend in use is
+    printed."""
     if is_initialized():
         return
+    device = local_device(device_type)
     if coordinator_address is None and "MASTER_ADDR" in os.environ:
         coordinator_address = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '')}"
     world = num_processes if num_processes is not None else _env_int("WORLD_SIZE")
@@ -127,11 +132,9 @@ def initialize(
             "a process group needs the coordinator's address, the number of "
             f"processes and this process's rank; got {given} (arguments or "
             "MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK)")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     backend = backend or backend_for(device_type)
     if backend == "nccl":
-        torch.cuda.set_device(local_device("cuda"))
+        torch.cuda.set_device(device)
     address = coordinator_address.removeprefix("tcp://")
     _dist().init_process_group(backend, init_method=f"tcp://{address}",
                                world_size=world, rank=rank)
@@ -287,11 +290,18 @@ def _unflatten(flat: torch.Tensor, like) -> list:
     return out
 
 
-def all_reduce_stats(st: SufficientStats, mesh: Mesh) -> SufficientStats:
-    """The statistics summed over the mesh's processes, without their graph:
-    one ``all_reduce`` of M^2 + M D + 4 values, counted and timed on the
-    mesh (``allreduces``, ``allreduce_seconds``) from a synchronized
-    start."""
+def _like(st, fields):
+    """``fields`` in the container type of ``st``: a NamedTuple such as
+    ``SufficientStats``, or a plain tuple."""
+    return type(st)(*fields) if hasattr(st, "_fields") else tuple(fields)
+
+
+def all_reduce_stats(st: Sequence[torch.Tensor], mesh: Mesh):
+    """Partial sums (``SufficientStats``: M^2 + M D + 4 values; SVGP's
+    data term: one) summed over the mesh's processes without their graph,
+    in one ``all_reduce``, counted and timed on the mesh (``allreduces``,
+    ``allreduce_seconds``) from a synchronized start. Returns the same
+    container type."""
     flat = _flatten([t.detach() for t in st])
     if flat.is_cuda:
         torch.cuda.synchronize(flat.device)
@@ -299,43 +309,47 @@ def all_reduce_stats(st: SufficientStats, mesh: Mesh) -> SufficientStats:
     total = _all_reduce(flat, mesh)
     mesh.allreduce_seconds += time.perf_counter() - t0
     mesh.allreduces += 1
-    return SufficientStats(*_unflatten(total, st))
+    return _like(st, _unflatten(total, st))
 
 
 class _ProcessSum(torch.autograd.Function):
-    """The statistics summed over processes, for a value only. Its backward
+    """Partial sums summed over processes, for a value only. Its backward
     raises: the gradient across processes is ``value_and_grad``'s."""
 
     @staticmethod
     def forward(ctx, mesh, *fields):
-        return tuple(all_reduce_stats(SufficientStats(*fields), mesh))
+        return tuple(all_reduce_stats(fields, mesh))
 
     @staticmethod
     def backward(ctx, *grads):
         raise RuntimeError(
-            "statistics summed over processes carry no gradient: differentiate "
-            "the bound with neg_bound_value_and_grad (parallel.distributed."
-            "value_and_grad), which sums the replicated leaves' gradients once")
+            "sums over processes carry no gradient: differentiate the objective "
+            "with parallel.distributed.value_and_grad (neg_bound_value_and_grad, "
+            "svgp.fit), which sums the replicated leaves' gradients once")
 
 
-def sum_over_processes(st: SufficientStats, mesh: Mesh) -> SufficientStats:
-    """The forward of the sum over processes (``log_bound``, predictions)."""
-    return SufficientStats(*_ProcessSum.apply(mesh, *st))
+def sum_over_processes(st, mesh: Mesh):
+    """The forward of the sum over processes (``log_bound``, predictions,
+    ``svgp.elbo_sharded``), in ``st``'s container type."""
+    return _like(st, _ProcessSum.apply(mesh, *st))
 
 
-def value_and_grad(local_stats: Callable[[], SufficientStats],
-                   objective: Callable[[SufficientStats], torch.Tensor],
+def value_and_grad(local_stats: Callable[[], Sequence[torch.Tensor]],
+                   objective: Callable[[Sequence[torch.Tensor]], torch.Tensor],
                    leaves: Sequence[torch.Tensor], n_replicated: int,
                    mesh: Mesh):
     """(objective value, gradient of every leaf) across the mesh's
-    processes. ``local_stats()`` gives this process's statistics with their
-    graph into ``leaves``; ``objective(S)`` the objective of the summed
-    statistics (it may read the replicated leaves directly). The first
-    ``n_replicated`` leaves are replicated (the globals), the rest hold this
-    process's rows (the latents). Two ``all_reduce``s: the statistics, then
-    the replicated leaves' gradients and the value."""
+    processes. ``local_stats()`` gives this process's partial sums (the
+    statistics, or SVGP's ``(data_term,)``: any tuple of tensors) with
+    their graph into ``leaves``; ``objective(S)`` the objective of the sums
+    over processes (it may read the replicated leaves directly: the KL, the
+    bound's K_MM terms). The first ``n_replicated`` leaves are replicated
+    (the globals, q(u)), the rest hold this process's rows (the latents).
+    Two ``all_reduce``s: the sums, then the replicated leaves' gradients
+    and the value."""
     st_local = local_stats()
-    st_in = SufficientStats(*(t.detach().requires_grad_() for t in all_reduce_stats(st_local, mesh)))
+    st_in = _like(st_local, (t.detach().requires_grad_()
+                             for t in all_reduce_stats(st_local, mesh)))
     f = objective(st_in)
     rep = list(leaves[:n_replicated])
     grads = torch.autograd.grad(f, rep + list(st_in), allow_unused=True)

@@ -215,16 +215,19 @@ def test_option_strings_match_jax():
                                           "item 2: SVGP"),
                                          (["-p", "remote"], "item 3: parallel")])
 def test_unported_modes_raise(tmp_path, extra, item):
-    """--optimizer svgp raises and names its ROADMAP item; -p remote, once
-    unported, now runs, here as one process without a process group."""
+    """The two modes that raised NotImplementedError before their ROADMAP
+    items were ported now run: --fixed-embeddings --optimizer svgp, and -p
+    remote, here as one process without a process group."""
     tdata.save_partitioned(str(tmp_path / "in"), np.ones((8, 2)), 1)
     argv = ["-i", str(tmp_path / "in"), "-e", str(tmp_path / "e"), *CPU, *extra]
     if "remote" in extra:
         summary = tcli.main(argv + ["-T", "1", "-q", "1", "-m", "2", "--init", "random"])
         assert summary["parallel"] == "remote" and summary["devices"] == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+    x = np.linspace(-1.0, 1.0, 8)[:, None]
+    tdata.save_embeddings(str(tmp_path / "e"), x, np.zeros_like(x), n_partitions=1)
+    summary = tcli.main(argv + ["-T", "3", "-m", "2", "--batch-size", "4"])
+    assert summary["mode"] == "svgp" and np.isfinite(summary["final_elbo"])
 
 
 def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
@@ -320,3 +323,51 @@ def test_cli_resume_matches_jax(tmp_path):
     assert [r["accepted"] for r in ht] == [r["accepted"] for r in hj]
     np.testing.assert_allclose(st["final_bound"], sj["final_bound"], rtol=1e-8)
     assert st["n_evals"] == sj["n_evals"]
+
+
+# --- SVGP mode (tests/test_io_cli.py) ----------------------------------------
+
+def _svgp_folders(tmp_path, rng, n=200):
+    x = rng.uniform(-2, 2, (n, 1))
+    y = np.sin(2 * x) + 0.1 * rng.standard_normal((n, 1))
+    tdata.save_partitioned(str(tmp_path / "inputs"), y, 2, prefix="Y")
+    tdata.save_embeddings(str(tmp_path / "emb"), x, np.full_like(x, 1e-6), n_partitions=2)
+    return ["-i", str(tmp_path / "inputs"), "-e", str(tmp_path / "emb"), "-q", "1",
+            "--fixed-embeddings", "--optimizer", "svgp", "--batch-size", "64",
+            "--learning-rate", "0.05"]
+
+
+@pytest.mark.parametrize("layout", ["nq", "qn"])
+def test_cli_svgp_mode_and_resume(tmp_path, rng, layout):
+    """--fixed-embeddings --optimizer svgp: a fit, then --load restores the
+    SVGP parameters and goes on (a cold start of the same length ends
+    lower)."""
+    argv = _svgp_folders(tmp_path, rng) + ["-m", "8", "--layout", layout, *CPU]
+    stats = ["-s", str(tmp_path / "st")]
+    s1 = tcli.main(argv + stats + ["-T", "150"])
+    assert s1["mode"] == "svgp" and np.isfinite(s1["final_elbo"])
+    assert s1["final_elbo_exact"] is True and s1["final_elbo_n"] == 200
+    with np.load(tmp_path / "st" / "checkpoint.npz") as f:
+        meta = json.loads(bytes(f["__gparml_meta__"].tobytes()).decode())
+    assert meta == {"iteration": 150, "bound": s1["final_elbo"]}
+    s2 = tcli.main(argv + stats + ["-T", "50", "--load"])
+    assert s2["final_elbo"] >= s1["final_elbo"] - 25.0
+    s_cold = tcli.main(argv + ["-T", "50", "-s", str(tmp_path / "st2")])
+    assert s2["final_elbo"] > s_cold["final_elbo"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_svgp_checkpoint_resumes_across_packages(tmp_path, rng, writer):
+    """One package fits and writes checkpoint.npz; then --load -T 0 in both
+    CLIs, float64, evaluates the exact ELBO of the loaded parameters: the
+    same value (the rows summed in other orders)."""
+    argv = _svgp_folders(tmp_path, rng, n=120) + ["-m", "6", "--dtype", "float64"]
+    run = tmp_path / "run"
+    first = jcli.main if writer == "jax" else (lambda a: tcli.main(a + CPU))
+    first(argv + ["-s", str(run), "-T", "40"])
+    for who in ("jax", "port"):
+        shutil.copytree(run, tmp_path / who)
+    sj = jcli.main(argv + ["-s", str(tmp_path / "jax"), "-T", "0", "--load"])
+    st = tcli.main(argv + ["-s", str(tmp_path / "port"), "-T", "0", "--load", *CPU])
+    assert st["final_elbo_exact"] is sj["final_elbo_exact"] is True
+    np.testing.assert_allclose(st["final_elbo"], sj["final_elbo"], rtol=1e-10)

@@ -55,7 +55,8 @@ def test_port_sources_never_name_jax():
 @pytest.mark.parametrize("module", ["gparml_tpu_torch.cli", "gparml_tpu_torch.checkpoint",
                                     "gparml_tpu_torch.utils.logging",
                                     "gparml_tpu_torch.opt.optax_adapter",
-                                    "gparml_tpu_torch.models.sgpr"])
+                                    "gparml_tpu_torch.models.sgpr",
+                                    "gparml_tpu_torch.models.svgp"])
 def test_cli_modules_load_no_jax(module):
     """Each module of the CLI path, imported alone in a fresh process, loads
     neither jax nor the JAX package."""

@@ -100,6 +100,24 @@ def test_backend_rule_and_no_group_without_variables(monkeypatch):
     assert distributed.broadcast_pytree({"a": 1}) == {"a": 1}
 
 
+def test_initialize_without_a_card_raises(monkeypatch):
+    """The default device type is 'cuda': without a card initialize raises,
+    as local_device does, whether or not the variables ask for a group, and
+    joins none; 'cpu' is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize()
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize()
+    assert not distributed.is_initialized()
+
+
 @pytest.fixture(scope="module")
 def two_rank_api(tmp_path_factory):
     """Both ranks' outputs of tests/torch_multihost_worker.py."""
@@ -212,3 +230,27 @@ def test_remote_gplvm_train_save_resume(tmp_path):
     assert s2["final_bound"] >= s1["final_bound"] - 1e-6
     s3 = _local_cli(base + ["-T", 2, "--load"])
     assert s3["final_bound"] >= s2["final_bound"] - 1e-6
+
+
+def test_remote_svgp_train_resume(sgpr_folders):
+    """SVGP over two ranks (--optimizer svgp -p remote): each rank draws
+    windows from its own rows, the data term's gradient is summed over the
+    ranks and the KL's added once, so both end with the same glob, q_mu and
+    q_sqrt bit for bit (the CLI raises otherwise); then both resume from the
+    coordinator's checkpoint."""
+    tmp_path, inputs, emb = sgpr_folders
+    st = tmp_path / "svst"
+    base = ["-i", inputs, "-e", emb, "-s", st, "-m", 8, "--fixed-embeddings",
+            "--optimizer", "svgp", "--batch-size", 32, "--learning-rate", 0.05]
+    s1, outs = _remote_cli(base + ["-T", 40])
+    assert np.isfinite(s1["final_elbo"]) and s1["devices"] == 2
+    assert s1["parallel"] == "remote" and s1["globals_agree"] and s1["backend"] == "gloo"
+    assert s1["final_elbo_exact"] is True and s1["final_elbo_n"] == 96
+    digests = [line.split()[-1] for text in outs for line in text.splitlines()
+               if "globals sha256" in line]
+    assert len(digests) == 2 and digests[0] == digests[1]
+    with np.load(st / "checkpoint.npz") as f:
+        assert f["q_sqrt"].shape == (1, 8, 8) and f["q_mu"].shape == (8, 1)
+    s2, _ = _remote_cli(base + ["-T", 20, "--load"])
+    assert s2["iterations"] == 20 and s2["globals_agree"]
+    assert s2["final_elbo"] >= s1["final_elbo"] - 5.0

@@ -307,3 +307,59 @@ def test_qn_under_a_mesh_raises():
                                float(tg.log_bound(p, y_t, cfg).detach()), rtol=1e-12)
     with pytest.raises(ValueError, match="y_layout"):
         tg.log_bound(p, y_t, tg.GPLVMConfig(q=2, num_inducing=4, y_layout="nd_"))
+
+
+def test_svgp_qn_layout_matches_nq():
+    """SVGP with layout='qn' (X (Q, N), Y (D, N)) starts from the same
+    parameters and draws the same permutation and windows as nq from the
+    same seed; each window is transposed into a row-major block, so the
+    trajectory is nq's bit for bit (the JAX package's test allows 1e-4).
+    Under a mesh qn raises, as in the JAX package."""
+    from gparml_tpu_torch.models import svgp as tv
+
+    rng = np.random.default_rng(17)
+    n, q, d, m = 300, 2, 3, 12
+    x = rng.standard_normal((n, q)).astype(np.float32)
+    w = rng.standard_normal((q, d)).astype(np.float32)
+    y = (x @ w + 0.1 * rng.standard_normal((n, d))).astype(np.float32)
+    cfg = tv.SVGPConfig(num_inducing=m, batch_size=64)
+    cfg_qn = tv.SVGPConfig(num_inducing=m, batch_size=64, layout="qn")
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    p0 = tv.init_params(torch.Generator().manual_seed(5), xt, yt, cfg)
+    p0_qn = tv.init_params(torch.Generator().manual_seed(5), xt.T.contiguous(),
+                           yt.T.contiguous(), cfg_qn)
+    for a, b in zip(p0.parameters(), p0_qn.parameters()):
+        assert torch.equal(a, b)
+    r1 = tv.fit(p0, xt, yt, cfg, steps=25, seed=9)
+    r2 = tv.fit(p0_qn, xt.T.contiguous(), yt.T.contiguous(), cfg_qn, steps=25, seed=9)
+    np.testing.assert_array_equal(r2.history, r1.history)
+    for a, b in zip(r1.params.parameters(), r2.params.parameters()):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(r2.elbo, r1.elbo, rtol=1e-6)
+    with pytest.raises(ValueError, match="layout='qn'"):
+        tv.fit(p0_qn, xt.T.contiguous(), yt.T.contiguous(), cfg_qn, steps=1,
+               mesh=Mesh(["cpu"] * 2))
+
+
+def test_cli_qn_svgp(tmp_path):
+    """--layout qn --optimizer svgp through the port's CLI: the same
+    trajectory as the nq run on the same folders, and a resume."""
+    from gparml_tpu_torch import cli as tcli
+    from gparml_tpu_torch import data as tdata
+
+    rng = np.random.default_rng(23)
+    x = np.sort(rng.uniform(-2, 2, (120, 1)), axis=0)
+    y = np.sin(2 * x) + 0.1 * rng.standard_normal((120, 1))
+    inputs, emb = tmp_path / "inputs", tmp_path / "emb"
+    tdata.save_partitioned(str(inputs), y, 3, prefix="Y")
+    tdata.save_embeddings(str(emb), x, np.full_like(x, 1e-6), n_partitions=3)
+    base = ["-i", str(inputs), "-e", str(emb), "-m", "12", "--fixed-embeddings",
+            "--optimizer", "svgp", "-T", "30", "--batch-size", "48", "--device", "cpu"]
+    s_nq = tcli.main(base + ["-s", str(tmp_path / "nq")])
+    s_qn = tcli.main(base + ["-s", str(tmp_path / "qn"), "--layout", "qn"])
+    assert s_qn["mode"] == "svgp" and np.isfinite(s_qn["final_elbo"])
+    np.testing.assert_allclose(s_qn["final_elbo"], s_nq["final_elbo"], rtol=1e-6)
+    hist = [(tmp_path / k / "elbo_history.jsonl").read_text() for k in ("nq", "qn")]
+    assert hist[0] == hist[1]
+    s2 = tcli.main(base + ["-s", str(tmp_path / "qn"), "--layout", "qn", "--load", "-T", "10"])
+    assert s2["final_elbo"] >= s_qn["final_elbo"] - 25.0
