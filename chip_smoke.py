@@ -7,15 +7,16 @@ Phases, one line each or more:
   2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
      (one process per source, all started together), prints ptxas's
      registers and spills, and counts the HGMMA instructions of every
-     tensor-core Psi2 kernel (the Q <= 64 buckets and the K-chunked kernels
-     past Q = 64) in the library's SASS (none fails);
+     tensor-core kernel (Psi2's Q <= 64 buckets and K-chunked kernels past
+     Q = 64, Psi1's Q <= 16 buckets and K-chunked instantiation past it) in
+     the library's SASS (none fails);
   3. kernel parity: the forward and backward kernels against their plain
      PyTorch versions through a scalar probe objective, in float32 and
      against the plain version in float64, in the nq layout (mu, s (N, Q),
      Y (N, D)) and in the qn layout (mu^T, s^T (Q, N), Y^T (D, N)), also
      with the latents offset by +5 from the origin, and at Q = 100 with
      alpha unscaled, where every Psi2 entry is below float32's normal range;
-     at M=1000, Q=44 (Z staged in pieces by the Psi1 row pass); and the
+     at M=1000, Q=44 (the Psi1 passes walk 16 tiles of points); and the
      flush case: the slice's shape at sf2 = 1e-20, every Psi2 entry below
      2^-126, Psi2 and the gradients of a Psi2 probe against the plain
      version in float64;
@@ -85,6 +86,10 @@ Phases, one line each or more:
      unsharded; (c) --optimizer svgp through the CLI on BASELINE config 1's
      folders in both layouts, then a resume; (d) the same under -p remote on
      two processes of the card, the ranks' glob, q_mu and q_sqrt bit for bit.
+Phases 4, 5 (config 5), 6(b), 6(c) and 7(a) (the statistics of
+infer_latents' 1e3 rows) also print the device ms a call of every
+``__global__`` the wrappers launch (torch.profiler; the kernel table's
+``globals_ms``).
 Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run; phase 7:
 each call; phase 8: the sharded evaluation, and each remote CLI run counts
@@ -96,8 +101,13 @@ failed check prints a "chip_smoke check failed" line, the run goes on to
 its end for the readings, and then exits non-zero without those two lines.
 
 Run from the repository root: python3 chip_smoke.py
+`--phases 3` (or any of the digits 3-9, e.g. `--phases 89`) runs phases 1
+and 2 and those alone, each check as in the whole run; it prints which
+checks failed and not the last two lines (phase 7(b) needs phase 5). The
+short first call after a kernel change is `python3 chip_smoke.py --phases 3`.
 """
 
+import argparse
 import contextlib
 import functools
 import json
@@ -157,8 +167,8 @@ MUFU_PER_CLOCK_SM = 16
 # (N, M, Q, D, rows with zero weight): the flat-kernel shape of the JAX
 # smoke, a weighted N=1000, the top of the TPU's flat window (M=512), a
 # ragged shape with D > 16 (the backward's D chunking), and Q=44 (bucket 64),
-# also at M=908 (Z filled the shared memory before the Psi1 row pass staged
-# it in pieces); then
+# also at M=908 (where Z once filled the shared memory of the direct-form
+# Psi1 row pass); then
 # one case for each other Q bucket of csrc/psi_common.cuh: Q=2 (the
 # default GPLVMConfig), Q=3 (bucket 4), Q=16 and Q=27 (bucket 32). Then the
 # windows of the TPU's other kernels (`_fwd_kernel`, `_bwd_kernel_stair`,
@@ -171,7 +181,7 @@ MUFU_PER_CLOCK_SM = 16
 # seventh, True, keeps alpha unscaled past Q = 64 (``parity_case``): at
 # Q = 100 every Psi2 entry is then below float32's normal range, which the
 # chunked kernels' exact shift of the exponents is for. After them, Q=44
-# past M=908, at M=1000: the Psi1 row pass stages Z in six pieces.
+# past M=908, at M=1000: the Psi1 passes walk 16 tiles of inducing points.
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
     (1000, 200, 10, 12, 300),
@@ -405,6 +415,33 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _global_ms(fn, reps=2):
+    """{``__global__`` kernel: device ms a call of fn} over ``reps`` calls
+    after a warm-up, from torch.profiler's device events (the template
+    argument kept, the parameter list and namespace dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        torch.ones(1, device="cuda").add_(1)   # the window's last kernel is not one of fn's
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "gparml::" in e.name:
+            name = e.name.split("(")[0].split("gparml::")[-1]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def _ms_text(ms):
+    return ", ".join(f"{k} {v:.3f}" for k, v in sorted(ms.items()))
+
+
 def _max_rel(a, b):
     return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
                for x, y in zip(a, b))
@@ -415,9 +452,10 @@ def _max_abs(a, b):
 
 
 def _ptxas(log):
-    """{kernel: (registers, spill-store bytes)} of the Q-bucket-10
-    instantiations, of the tensor-core Psi2 kernels' bucket 64 and of the
-    chunked kernels (Q > 64), from nvcc's -Xptxas -v output."""
+    """{kernel: (registers, spill-store bytes)} from nvcc's -Xptxas -v
+    output: the Q-bucket-10 instantiation of every kernel, the tensor-core
+    kernels' buckets 32 and 64 and their K-chunked forms (Psi1's past
+    Q = 16 is its instantiation 0), and the Psi1 row pass's finish."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -425,9 +463,9 @@ def _ptxas(log):
             rest = mangled.split("gparml", 1)[1]
             digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
             ident = rest[len(digits):len(digits) + int(digits)]
-            name = (ident + ("<64>" if "ILi64E" in mangled else "")
-                    if "ILi10E" in mangled or "chunked" in ident
-                    or ("_tc_" in ident and "ILi64E" in mangled) else None)
+            qm = mangled.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in mangled else ""
+            keep = (qm == "10" or not qm or ("_tc_" in ident and qm in ("0", "32", "64")))
+            name = (ident + (f"<{qm}>" if qm and qm != "10" else "")) if keep else None
         elif name and "spill stores" in ln:
             spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
         elif name and "Used" in ln and "registers" in ln:
@@ -472,57 +510,117 @@ def _mufu_rate():
     return MUFU_PER_CLOCK_SM * sms * mhz * 1e6
 
 
+# The tensor-core kernel instantiations phase 2 finds HGMMA in: Psi2's
+# three passes at the six Q buckets and K-chunked, and Psi1's three at its
+# four buckets (Q <= 16) and K-chunked (instantiation 0).
+TC_KERNELS = 3 * (6 + 1) + 3 * (4 + 1)
+
+
 def _globals(kind, q):
     """The ``__global__`` kernels a forward or backward wrapper call
-    launches at latent width q (csrc/psi_{fwd,bwd}.cu)."""
-    if q > 64:
-        names = (("psi2_fwd_tc_chunked_kernel", "psi1y_fwd_chunked_kernel") if kind == "fwd" else
-                 ("psi2_bwd_rows_tc_chunked_kernel", "psi1_bwd_rows_chunked_kernel",
-                  "psi2_bwd_cells_tc_chunked_kernel", "psi1_bwd_m_chunked_kernel"))
-        return list(names)
-    qm = next(b for b in (2, 4, 10, 16, 32, 64) if q <= b)
-    names = (("psi2_fwd_tc_kernel", "psi1y_fwd_kernel") if kind == "fwd" else
-             ("psi2_bwd_rows_tc_kernel", "psi1_bwd_rows_kernel", "psi2_bwd_cells_tc_kernel",
-              "psi1_bwd_m_kernel"))
-    return [f"{k}<{qm}>" for k in names]
+    launches at latent width q (csrc/psi_{fwd,bwd}.cu), Psi1's last. The
+    backward's Psi1 row pass adds ``psi1_bwd_rows_finish_kernel`` when the
+    plan splits its inducing points (small N)."""
+    qm = next((b for b in (2, 4, 10, 16, 32, 64) if q <= b), 0)
+    p1 = qm if qm <= 16 else 0
+    if qm:
+        psi2 = (["psi2_fwd_tc_kernel"] if kind == "fwd" else
+                ["psi2_bwd_rows_tc_kernel", "psi2_bwd_cells_tc_kernel"])
+        psi2 = [f"{k}<{qm}>" for k in psi2]
+    else:
+        psi2 = (["psi2_fwd_tc_chunked_kernel"] if kind == "fwd" else
+                ["psi2_bwd_rows_tc_chunked_kernel", "psi2_bwd_cells_tc_chunked_kernel"])
+    psi1 = (["psi1y_fwd_tc_kernel"] if kind == "fwd" else
+            ["psi1_bwd_rows_tc_kernel", "psi1_bwd_m_tc_kernel"])
+    return psi2 + [f"{k}<{p1}>" for k in psi1]
 
 
 def _set_bounds(entry, kind, n, m, q, d):
     """A kernel-table entry's bounds: ``bound_ms`` / ``bound_by``, the FP32
-    direct form (``_bound``), and, since the Psi2 exponents come from the
+    direct form (``_bound``), and, since the exponents come from the
     tensor cores at every Q, ``bound_tc_ms`` / ``bound_tc_by``
-    (``_bound_tc``); and ``globals``, the kernels the call launches."""
+    (``_bound_tc``); the same two of its Psi1 kernels alone,
+    ``psi1_bound_ms`` and ``psi1_bound_tc_ms`` (``_psi1_bounds``); and
+    ``globals``, the kernels the call launches."""
     entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
     entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate())
+    entry["psi1_bound_ms"], entry["psi1_bound_tc_ms"] = _psi1_bounds(kind, n, m, q, d,
+                                                                     _mufu_rate())
     entry["globals"] = _globals(kind, q)
+
+
+def _psi1_pair(kind, q, d):
+    """Psi1's work a (row, inducing point) pair of a forward ('fwd') or
+    backward ('bwd') wrapper call, each piece computed once: (float32
+    operations of the direct form, an expf as one and an FMA as two; K of
+    the TF32 products of the tensor-core form, a multiply-add each; float32
+    operations left on the CUDA cores beside those products).
+    Forward: the exponent 4Q + 4 and p y 2D; as products the exponent
+    (K = 2Q) and p Y (D), leaving the constant add and the weighting (2).
+    Backward: the exponent 4Q + 4, y . dPsi1Y_m and dY += p dPsi1Y_m 4D, h
+    and H 2, T and U 4Q, B 2Q; as products the exponent (2Q), the dot
+    y . dPsi1Y (D), dY = p dPsi1Y (D), the centred row sums (2Q) and point
+    sums (2Q) (the least they could cost: the kernels take them pair by
+    pair, for accuracy), leaving the constant add, the weighting, h = p dot
+    and its sum (4)."""
+    if kind == "fwd":
+        return 4 * q + 4 + 2 * d, 2 * q + d, 2
+    return 10 * q + 6 + 4 * d, 2 * q + 2 * d + 4 * q, 4
+
+
+def _psi1_elems(kind, n, m, q, d):
+    """Elements Psi1's part of a wrapper call must move: each input read
+    once (mu, s, Y, w, Z, alpha, sf2; the backward also dPsi1Y) and each
+    output written once (the forward Psi1^T (w Y); the backward dmu, ds, dY,
+    dZ, dalpha and dsf2)."""
+    inputs = n * (2 * q + d + 1) + m * q + q + 1
+    if kind == "fwd":
+        return inputs + m * d
+    return inputs + m * d + n * (2 * q + d) + m * q + q + 1
+
+
+def _psi1_bounds(kind, n, m, q, d, mufu_rate):
+    """(FP32 direct bound ms, tensor-core bound ms) of a wrapper call's Psi1
+    kernels alone: the larger of their float32 operations (``_psi1_pair``)
+    at the float32 peak and their bytes (``_psi1_elems``) at the memory
+    rate; and the largest of the exp of each (row, point) pair on the MUFU,
+    the TF32 products, the float32 rest and the bytes."""
+    pairs = n * m
+    ops, k1, rest = _psi1_pair(kind, q, d)
+    t_bytes = 4 * _psi1_elems(kind, n, m, q, d) / HBM_RATE
+    fp32 = max(ops * pairs / F32_PEAK, t_bytes)
+    tc = max(pairs / mufu_rate, 2 * k1 * pairs / TF32_PEAK, rest * pairs / F32_PEAK, t_bytes)
+    return fp32 * 1e3, tc * 1e3
 
 
 def _entry_text(k):
     """A kernel-table entry's times and bounds, for the phase lines."""
     tc = (f", tensor-core form {k['bound_tc_ms']:.2f} ms by {k['bound_tc_by']}"
           if "bound_tc_ms" in k else "")
+    p1 = (f"; Psi1 kernels' bound {k['psi1_bound_ms']:.3f} ms, tensor-core form "
+          f"{k['psi1_bound_tc_ms']:.3f} ms" if "psi1_bound_ms" in k else "")
     return (f"{k['name']} {k['ms']:.2f} ms (plain {k['plain_ms']:.2f} ms, bound "
-            f"{k['bound_ms']:.2f} ms{tc})")
+            f"{k['bound_ms']:.2f} ms{tc}{p1})")
 
 
 def _bound_tc(kind, n, m, q, d, mufu_rate):
-    """(bound ms, what bounds it) of a wrapper call whose Psi2 work runs on
-    the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
+    """(bound ms, what bounds it) of a wrapper call whose Psi2 and Psi1 work
+    runs on the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
     on the MUFU; the TF32 products at the tensor cores' rate, 2 FLOP a
-    multiply-add, each counted once: the Psi2 exponent (K = 2Q) and, in the
-    backward, the row sums [zb' | zb'^2 | 1] (2Q + 1) and the cell sums
-    [c mu' | c] (2Q); the float32 operations left on the CUDA cores: a
-    pair's two constant adds and the weighting (forward: w e added, 3;
-    backward: g = K w e and w e, 3), and the Psi1 part as ``_work`` counts
-    it less its exp; and the bytes."""
+    multiply-add, each counted once: the exponents (K = 2Q a pair of either
+    kind) and, for Psi2, the backward's row sums [zb' | zb'^2 | 1] (2Q + 1)
+    and cell sums [c mu' | c] (2Q); for Psi1, ``_psi1_pair``'s; the float32
+    operations left on the CUDA cores: per Psi2 pair the two constant adds
+    and the weighting (forward: w e added, 3; backward: g = K w e and w e,
+    3), per Psi1 pair ``_psi1_pair``'s; and the bytes."""
     _, nbytes = _work(kind, n, m, q, d)
     pairs2, pairs1 = n * (m * (m + 1) // 2), n * m
     k_sum = 2 * q if kind == "fwd" else 2 * q + (2 * q + 1) + 2 * q
-    psi1_ops = (4 * q + 3 + 2 * d) if kind == "fwd" else (10 * q + 5 + 4 * d)
+    _, k1_sum, rest1 = _psi1_pair(kind, q, d)
     times = {
         "exp (MUFU)": (pairs2 + pairs1) / mufu_rate,
-        "TF32 products": 2 * k_sum * pairs2 / TF32_PEAK,
-        "float32 operations": (5 * pairs2 + psi1_ops * pairs1) / F32_PEAK,
+        "TF32 products": 2 * (k_sum * pairs2 + k1_sum * pairs1) / TF32_PEAK,
+        "float32 operations": (5 * pairs2 + rest1 * pairs1) / F32_PEAK,
         "bytes": nbytes / HBM_RATE,
     }
     by = max(times, key=times.get)
@@ -536,20 +634,19 @@ def _work(kind, n, m, q, d):
     operation, an FMA as two), and each input read and each output written
     once."""
     cells = m * (m + 1) // 2
+    ops1 = _psi1_pair(kind, q, d)[0]
     if kind == "fwd":
         # Psi2: per q a difference, a product, an FMA; then two adds, the
-        # exp and the weighted FMA: 4Q + 5. Psi1^T Y: 4Q + 4 + 2D.
-        ops = n * (cells * (4 * q + 5) + m * (4 * q + 4 + 2 * d))
-        elems = n * (2 * q + d + 1) + (m * q + q + 1) + (m * d + m * m)
+        # exp and the weighted FMA: 4Q + 5. Out: Psi2 beside Psi1^T (w Y).
+        ops = n * (cells * (4 * q + 5) + m * ops1)
+        elems = _psi1_elems(kind, n, m, q, d) + m * m
     else:
         # Psi2: the exponent once, 4Q + 4 (as in the forward, times w);
         # g = K w e and G += g, 2; t_q += g d_q, u_q += g d_q^2, 4Q; the
         # centred cell sum A_q += w e (c_q d_q), one FMA on the exponent's
-        # product, 2Q: 10Q + 6. Psi1: the exponent 4Q + 4, y . dPsi1Y_m and
-        # dY += p dPsi1Y_m 4D, h and H 2, T and U 4Q, B 2Q: 10Q + 6 + 4D.
-        ops = n * (cells * (10 * q + 6) + m * (10 * q + 6 + 4 * d))
-        elems = (n * (2 * q + d + 1) + (m * q + q + 1) + 2 * (m * d + m * m)
-                 + n * (2 * q + d) + (m * q + q + 1))
+        # product, 2Q: 10Q + 6. In: also Psi1^T (w Y), Psi2 and dPsi2.
+        ops = n * (cells * (10 * q + 6) + m * ops1)
+        elems = _psi1_elems(kind, n, m, q, d) + m * d + 2 * m * m
     return ops, 4 * elems
 
 
@@ -748,9 +845,13 @@ def phase4(dev, kernels):
     for k, kind in zip(entries, ("fwd", "bwd")):
         _set_bounds(k, kind, n, m, q, d)
         k["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
+    entries[0]["globals_ms"] = _global_ms(lambda: psi_cuda.psi_fwd(*fwd_in), 3)
+    entries[1]["globals_ms"] = _global_ms(lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot), 3)
     del fwd_k, fwd_in
     print("phase 4 kernels at the slice shape: "
           + "; ".join(map(_entry_text, entries)) + "; " + text)
+    print("phase 4 device ms a call at the slice shape: "
+          + _ms_text({**entries[0]["globals_ms"], **entries[1]["globals_ms"]}))
 
     # the main path: bound+gradient evaluations and a 5-iteration SCG fit
     psi_cuda.LAUNCHES.update(fwd=0, bwd=0)
@@ -975,11 +1076,13 @@ def phase5_config5(dev, kernels):
                  "replaces": "gparml_tpu/ops/psi_pallas.py:" + ("671" if kind == "fwd" else "820"),
                  "launches": launches[kind + "_t"],
                  "max_abs_err": max(vs_plain[k][0] for k in names),
-                 "ms": _cuda_ms(fn, reps), "plain_ms": pms}
+                 "ms": _cuda_ms(fn, reps), "plain_ms": pms, "globals_ms": _global_ms(fn, 1)}
         _set_bounds(entry, kind, n, m, q, d)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         kernels.append(entry)
     print("phase 5 config 5 kernels: " + "; ".join(map(_entry_text, kernels[-2:])))
+    print("phase 5 config 5 device ms a call: " + _ms_text(
+        {**kernels[-2]["globals_ms"], **kernels[-1]["globals_ms"]}))
     return p, y_t
 
 
@@ -1057,11 +1160,14 @@ def _kernel_entries(label, fwd_in, cot, block, shape, launches, replaces):
                  "source": f"gparml_tpu_torch/csrc/psi_{kind}.cu",
                  "replaces": f"gparml_tpu/ops/psi_pallas.py:{line}",
                  "launches": launches[kind], "max_abs_err": err,
-                 "ms": _cuda_ms(fn, reps), "plain_ms": _cuda_ms(ref, 1)}
+                 "ms": _cuda_ms(fn, reps), "plain_ms": _cuda_ms(ref, 1),
+                 "globals_ms": _global_ms(fn)}
         _set_bounds(entry, kind, n, m, q, d)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         entries.append(entry)
     print(f"{label} kernels: " + "; ".join(map(_entry_text, entries)) + "; " + text)
+    print(f"{label} device ms a call: " + _ms_text(
+        {**entries[0]["globals_ms"], **entries[1]["globals_ms"]}))
     return entries
 
 
@@ -1376,6 +1482,15 @@ def phase7_serving(dev):
     print(f"phase 7(a) infer_latents {n_inf} rows, {inf_iters} SCG iterations: {sec:.3f} s "
           f"({done} iterations, {inf.n_evals} evaluations, {sec / max(done, 1):.4f} s per "
           f"iteration), bound {bound[0]:.8g} -> {bound[done - 1]:.8g}; launches {launches}")
+    z_, sf2_, al_, _ = (t.detach().contiguous() for t in P.constrain(p.glob, cfg.bijector))
+    inf_in = (mu_s.detach().contiguous(), s_s.detach().contiguous(), z_, sf2_, al_, y_new,
+              torch.ones(n_inf, device=dev))
+    cot = _cotangents(m, d, dev)
+    p_inf = psi_cuda.psi_fwd(*inf_in)
+    print(f"phase 7(a) infer_latents' statistics N={n_inf} M={m} Q={q} D={d}, device ms a "
+          f"call: " + _ms_text({**_global_ms(lambda: psi_cuda.psi_fwd(*inf_in), 5),
+                                **_global_ms(lambda: psi_cuda.psi_bwd(*inf_in, *p_inf, *cot), 5)}))
+    del inf_in, p_inf
     vg, lat0 = gplvm._infer_objective(p, y, y_new, cfg)
     f_k, g_k = vg(lat0)
     f_x, g_x = gplvm._infer_objective(p, y, y_new, cfg_x)[0](lat0)
@@ -2010,7 +2125,55 @@ def phase9_remote(dev, work):
     print(text)
 
 
-def main() -> int:
+def phase2():
+    """Build the kernels; print ptxas's registers and spills and each
+    tensor-core kernel's HGMMA instructions (none fails the run)."""
+    from gparml_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{_build.last_build_seconds:.2f} s); ptxas at Q=10, the tensor-core kernels "
+          f"at Q=32, 64 and K-chunked: " + ", ".join(
+              f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
+                  (_build.library_path().parent / "nvcc.log").read_text()).items()))
+    hgmma = _hgmma_counts(_build.library_path())
+    _require(len(hgmma) == TC_KERNELS and min(hgmma.values()) > 0,
+             f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
+    print("phase 2 HGMMA instructions in the SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(hgmma.items())))
+
+
+def phase3(dev):
+    """Kernel parity in both layouts, the flush case, and the windows'
+    times."""
+    t0 = time.perf_counter()
+    for case in PARITY_CASES:
+        for layout in LAYOUTS:
+            res = parity_case(*case, layout=layout)
+            print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
+                  f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:] else ''}: "
+                  + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
+    for layout in LAYOUTS:
+        res = flush_case(*FLUSH_CASE, layout=layout)
+        print("phase 3 flush {} N={} M={} Q={} D={} sf2={:g}: ".format(layout, *FLUSH_CASE)
+              + " ".join(f"{k}={e:.2e} (plain f32 {e32:.2e})" for k, (e, e32) in res.items()))
+    for case in [c for c in PARITY_CASES[10:] if not c[6:]]:
+        print("phase 3 times nq N={} M={} Q={} D={}: fwd {:.3f} ms, bwd {:.3f} ms; plain "
+              "fwd {:.3f} ms, bwd {:.3f} ms".format(*case[:4], *_window_times(case, dev)))
+    print(f"phase 3: {time.perf_counter() - t0:.2f} s")
+
+
+ALL_PHASES = "3456789"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=ALL_PHASES,
+                    help="the phases after the device and the build to run (digits 3-9)")
+    run = set(ap.parse_args(argv).phases)
+    if not run <= set(ALL_PHASES):
+        ap.error(f"--phases takes digits of {ALL_PHASES}")
     if not os.path.isdir(os.path.join(ROOT, "gparml_tpu_torch")):
         print("chip_smoke: gparml_tpu_torch/ not found beside the script",
               file=sys.stderr)
@@ -2033,91 +2196,73 @@ def main() -> int:
     print(f"phase 1 device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; tf32 off")
 
-    # phase 2: build
-    from gparml_tpu_torch.ops import _build
-
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.last_build_seconds:.2f} s); ptxas at Q=10, the tensor-core kernels "
-          f"at Q=64, and Q > 64: " + ", ".join(
-              f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
-                  (_build.library_path().parent / "nvcc.log").read_text()).items()))
-    hgmma = _hgmma_counts(_build.library_path())
-    _require(len(hgmma) == 21 and min(hgmma.values()) > 0,
-             f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
-    print("phase 2 HGMMA instructions in the SASS: " + ", ".join(
-        f"{k} {v}" for k, v in sorted(hgmma.items())))
-
-    # phase 3: kernel parity, both layouts
-    t0 = time.perf_counter()
-    for case in PARITY_CASES:
-        for layout in LAYOUTS:
-            res = parity_case(*case, layout=layout)
-            print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
-                  f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:] else ''}: "
-                  + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
-    for layout in LAYOUTS:
-        res = flush_case(*FLUSH_CASE, layout=layout)
-        print("phase 3 flush {} N={} M={} Q={} D={} sf2={:g}: ".format(layout, *FLUSH_CASE)
-              + " ".join(f"{k}={e:.2e} (plain f32 {e32:.2e})" for k, (e, e32) in res.items()))
-    for case in [c for c in PARITY_CASES[10:] if not c[6:]]:
-        print("phase 3 times nq N={} M={} Q={} D={}: fwd {:.3f} ms, bwd {:.3f} ms; plain "
-              "fwd {:.3f} ms, bwd {:.3f} ms".format(*case[:4], *_window_times(case, dev)))
-    print(f"phase 3: {time.perf_counter() - t0:.2f} s")
+    phase2()
+    if "3" in run:
+        phase3(dev)
 
     kernels = []
-    t0 = time.perf_counter()
-    phase4(dev, kernels)
-    print(f"phase 4: {time.perf_counter() - t0:.2f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    phase5_small(dev)
-    torch.cuda.empty_cache()
-    p5 = phase5_config5(dev, kernels)
-    print(f"phase 5: {time.perf_counter() - t0:.2f} s")
-    t7 = time.perf_counter()
-    phase7_config5(dev, *p5)
-    t7 = time.perf_counter() - t7
+    if "4" in run:
+        t0 = time.perf_counter()
+        phase4(dev, kernels)
+        print(f"phase 4: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+    p5, t7 = None, 0.0
+    if "5" in run:
+        t0 = time.perf_counter()
+        phase5_small(dev)
+        torch.cuda.empty_cache()
+        p5 = phase5_config5(dev, kernels)
+        print(f"phase 5: {time.perf_counter() - t0:.2f} s")
+    if "7" in run and p5 is not None:
+        t7 = time.perf_counter()
+        phase7_config5(dev, *p5)
+        t7 = time.perf_counter() - t7
     del p5
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(ROOT, "build"))
     try:
-        phase6_config2(dev, work)
-        phase6_large(dev, work, kernels)
-        torch.cuda.empty_cache()
-        phase6_wide_q(dev, work, kernels)
-        print(f"phase 6: {time.perf_counter() - t0:.2f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        phase7_serving(dev)
-        torch.cuda.empty_cache()
-        phase7_sgpr(dev, work)
-        print(f"phase 7: {time.perf_counter() - t0 + t7:.2f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        phase8_mesh(dev, kernels)
-        phase8_remote(dev, work)
-        phase8_sgpr(dev, work)
-        print(f"phase 8: {time.perf_counter() - t0:.2f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        x9, y9, p9 = phase9_api(dev)
-        phase9_mesh(dev, x9, y9, p9)
-        del x9, y9, p9
-        torch.cuda.empty_cache()
-        phase9_cli(dev, work)
-        phase9_remote(dev, work)
-        print(f"phase 9: {time.perf_counter() - t0:.2f} s")
+        if "6" in run:
+            t0 = time.perf_counter()
+            phase6_config2(dev, work)
+            phase6_large(dev, work, kernels)
+            torch.cuda.empty_cache()
+            phase6_wide_q(dev, work, kernels)
+            print(f"phase 6: {time.perf_counter() - t0:.2f} s")
+            torch.cuda.empty_cache()
+        if "7" in run:
+            t0 = time.perf_counter()
+            phase7_serving(dev)
+            torch.cuda.empty_cache()
+            phase7_sgpr(dev, work)
+            print(f"phase 7: {time.perf_counter() - t0 + t7:.2f} s")
+            torch.cuda.empty_cache()
+        if "8" in run:
+            t0 = time.perf_counter()
+            phase8_mesh(dev, kernels)
+            phase8_remote(dev, work)
+            phase8_sgpr(dev, work)
+            print(f"phase 8: {time.perf_counter() - t0:.2f} s")
+            torch.cuda.empty_cache()
+        if "9" in run:
+            t0 = time.perf_counter()
+            x9, y9, p9 = phase9_api(dev)
+            phase9_mesh(dev, x9, y9, p9)
+            del x9, y9, p9
+            torch.cuda.empty_cache()
+            phase9_cli(dev, work)
+            phase9_remote(dev, work)
+            print(f"phase 9: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} checks failed", file=sys.stderr)
         return 1
+    if run != set(ALL_PHASES):
+        print(f"chip_smoke: phases 1, 2 and {''.join(sorted(run))} passed; failed checks: none")
+        return 0
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

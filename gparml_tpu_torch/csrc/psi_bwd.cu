@@ -20,62 +20,65 @@
 //        u_q = sum g (zb - mu)^2 (g = K w Psi2) on the tensor cores
 //        (psi_tc.cuh); it writes dmu = 2 c t, ds = -c G + 2 c^2 u and the
 //        row's share of dalpha, -(s/den) G - u / den^2.
-//      psi1_bwd_rows_kernel walks the inducing points (Z staged in pieces
-//        of a fixed size, so at any M) with
-//        h = w Psi1 (y_n . dPsi1Y_m), adds -c1 T, -c1 H/2 + c1^2 U/2 and
-//        -(s/den1) H/2 - U/(2 den1^2) (T, U, H the h-sums as above), and
-//        writes dY = sum_m w Psi1 dPsi1Y_m.
+//      psi1_bwd_rows_tc_kernel<QM>, a block per 128 data rows, walks the
+//        inducing points in tiles of 64 (split over blocks at small N):
+//        per tile the exponents, y_n . dPsi1Y_m (K = D) and dY = p dPsi1Y
+//        on the tensor cores (p = w Psi1), and with h = p (y_n . dPsi1Y_m)
+//        the sums H = sum h, t = sum h (mu - z) and u = sum h (mu - z)^2
+//        pair by pair; it adds -c1 t, -c1 H/2 + c1^2 u/2 and -(s/den1) H/2
+//        - u/(2 den1^2) and writes dY.
 //  * column passes (reductions over n, one float64 partial per N-split):
 //      psi2_bwd_cells_tc_kernel (Q <= 64), per block of packed cells:
 //        A_q = sum_n w e c_nq (mu_nq - zb_q) with e = Psi2[n, m, m'], the
 //        exponents and the sums on the tensor cores, each 64-row tile's
-//        sums added into float64;//      psi1_bwd_m_kernel, per inducing point m:
-//        B_q = sum_n h c1_nq (mu_nq - z_mq), at most kPsi1RowsMax rows a
-//        split in one launch (the launcher runs the grid again for further
-//        rows when the partials' memory budget lowers the split count).
+//        sums added into float64;
+//      psi1_bwd_m_tc_kernel<QM>, per block of 128 or 256 inducing points:
+//        B_q = sum_n h c1_nq (mu_nq - z_mq), the exponents and the dot on
+//        the tensor cores, the sum pair by pair, each 64-row tile's sums
+//        added into float64 totals in shared memory.
 //    Both sums are centred on the cell (the inducing point), so dZ never
 //    forms them as differences of two large uncentred sums.
 //    The wrapper sums the partials and assembles dZ, dalpha's cell share and
 //    dsf2 with small tensor operations (gparml_tpu_torch/ops/psi_cuda.py).
 //
-// Past Q = 64 (any Q) the four passes have twins, which replace the TPU's
-// `_bwd_kernel_stair` (:409) and `_bwd_kernel` (:249), launched by
+// Past Q = 64 (any Q) the Psi2 passes have twins and, past Q = 16, the
+// Psi1 passes their K-chunked instantiations (QM = 0); they replace the
+// TPU's `_bwd_kernel_stair` (:409) and `_bwd_kernel` (:249), launched by
 // `_psi_fused_bwd` outside the flat window; the Q <= 64 kernels take the
 // rest of those windows. The Psi2 passes, psi2_bwd_rows_tc_chunked_kernel
 // and psi2_bwd_cells_tc_chunked_kernel, are the tensor-core passes with K
 // walked in chunks of kTcQChunk latent dimensions (psi_tc.cuh), the
 // reductions taken one dimension chunk at a time into float64 totals in
-// shared memory. Every Psi2 pass, at any Q, adds an exact shift 2^S to its
-// row constants that keeps exp2 clear of float32's subnormal range (the
-// totals are scaled by 2^-S).
-// The Psi1 passes (*_chunked) keep no Q-long vector in registers: each
-// walks the latent dimensions in chunks of kQChunk twice, first to sum the
-// exponents of a group (kGroup inducing points of one data row, or a
-// staged chunk of rows of one inducing point, held in the thread's own
-// column of shared memory) before expf, then for the per-dimension sums of
-// that group, which it adds into float64: the row pass into a (2, Q, N)
-// scratch of the row's totals t_q and u_q, the column pass into its
-// partials.
+// shared memory; the Psi1 passes take their centred sums a dimension
+// chunk at a time at every Q. Every pass, at any Q, adds an exact shift (2^S for
+// Psi2, 2^S1 for Psi1) to its row constants that keeps exp2 clear of
+// float32's subnormal range (the totals are scaled back). No pass keeps a
+// per-row scratch in device memory: a Psi1 row pass whose float64 totals
+// (Y's columns and the dimensions) would outgrow kP1RowCols takes them in
+// passes over the grid's z axis, the exponents recomputed in each.
 //
 // What bounds it on an H100: operations. The backward sweeps the
-// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells); the Psi2 passes
-// form each tile's exponents and its reductions on the tensor cores and
-// spend a pair's exp2 on the MUFU and a few float32 operations in the
-// epilogue; the per-tile operand builds (the rows' in the cell pass, the
-// cells' in the row pass) are shared by the block's warpgroups; past Q = 64
-// both operands of a tile are rebuilt chunk by chunk (the dimensions twice:
-// for the exponent and for the reductions), and the reductions' float64
-// totals are read and written in shared memory once per tile. Device
-// memory traffic is O(N (Q + D)): a row pass reads its rows once and every
-// cell's Z and K per tile, a cell pass its cells once and the rows once per
-// cell block (from L2: the grid's x axis, cells, varies fastest, so the
-// blocks of one N-split read the same rows together).
+// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells) and the N M (n,
+// point) pairs twice; every pass forms each tile's exponents on the tensor
+// cores and spends a pair's exp2 on the MUFU and a few float32 operations
+// in the epilogue; the Psi2 passes' reductions run on the tensor cores, the
+// Psi1 passes' centred sums pair by pair on the CUDA cores (~4 Q float32
+// operations a pair: the tensor-core form of them, an expansion around
+// zeta, cancels where the latents lie far from zeta, ~1e-5 of float64 on
+// the slice's data); the per-tile operand builds
+// (the rows' in the cell and point passes, the cells' or points' in the
+// row passes, Y's and dPsi1Y's chunks in the Psi1 passes) are shared by a
+// block's warpgroups; past Q = 64 (Psi1: 32) both operands of a tile are
+// rebuilt chunk by chunk (the dimensions twice: for the exponent and for
+// the reductions), and the reductions' float64 totals are read and written
+// in shared memory once per tile. Device memory traffic is O(N (Q + D)): a
+// row pass reads its rows once and every cell's or point's Z (and K) per
+// tile, a column pass its cells or points once and the rows once per block
+// (from L2: the grid's x axis varies fastest, so the blocks of one N-split
+// read the same rows together).
 #include "psi_tc.cuh"
 
 namespace gparml {
-
-// Threads of a row-pass block (the direct-form and chunked row passes).
-constexpr int kRowThreads = 128;
 
 // Rows of one block of psi2_bwd_rows_tc_kernel (64 a warpgroup), and its
 // shared memory: the rows' operand, constants and weights, one cell tile's
@@ -196,116 +199,6 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
     dmu[i] = 2.f * c * t;
     ds[i] = -c * gs + 2.f * c * c * u;
     dal[i] = -(s[i] / den) * gs - u / (den * den);
-  }
-}
-
-constexpr int kDChunk = 16;
-
-// The Psi1 row pass (Q <= 64): a thread per data row walks the inducing
-// points with h = w Psi1 (y_n . dPsi1Y_m) and adds the row's shares (see
-// the file's head). Z is staged in pieces of mp inducing points (mp x QM
-// floats, the plan's kZPieceBytes at most), so M has no limit: every thread
-// of the block, a row or not, reaches each piece's barriers. The row's
-// sums tt, uu and hsum run on across the pieces in registers, in the order
-// of one whole stage, and dY's partial sums over a D chunk leave the
-// registers between pieces through dY itself (a float32 stored and loaded
-// back unchanged): a piece changes no sum, only where it is kept.
-template <int QM>
-__global__ void __launch_bounds__(128)
-psi1_bwd_rows_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                     Strides ls, const float* __restrict__ y, Strides ys,
-                     const float* __restrict__ w,
-                     const float* __restrict__ z,
-                     const float* __restrict__ alpha,
-                     const float* __restrict__ sf2,
-                     const float* __restrict__ r1, int n, int m, int q, int d, int mp,
-                     float* __restrict__ dmu, float* __restrict__ ds,
-                     float* __restrict__ dal, float* __restrict__ dy) {
-  extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < n;
-
-  float mv[QM], c[QM], tt[QM], uu[QM];
-  float lsum = 0.f;
-#pragma unroll
-  for (int k = 0; k < QM; ++k) {
-    mv[k] = 0.f;
-    c[k] = 0.f;
-    tt[k] = 0.f;
-    uu[k] = 0.f;
-    if (live && k < q) {
-      const float a = alpha[k];
-      const float den = a * s[ls.at(row, k)] + 1.f;
-      mv[k] = mu[ls.at(row, k)];
-      c[k] = a / den;
-      lsum += logf(den);
-    }
-  }
-  const float l1 = logf(*sf2) - 0.5f * lsum;
-  const float wn = live ? w[row] : 0.f;
-  float hsum = 0.f;
-
-  for (int m0 = 0; m0 < m; m0 += mp) {
-    const int np = min(mp, m - m0);
-    __syncthreads();  // the previous piece is read
-    stage_z<QM>(z + (size_t)m0 * q, np, q, zs);
-    __syncthreads();
-    if (!live) continue;
-    // h is linear in y_n . dPsi1Y_m, so D is walked in chunks of kDChunk
-    // (Psi1 is recomputed per chunk only when D > kDChunk).
-    for (int d0 = 0; d0 < d; d0 += kDChunk) {
-      float yv[kDChunk], gy[kDChunk];
-#pragma unroll
-      for (int j = 0; j < kDChunk; ++j) {
-        yv[j] = d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
-        gy[j] = m0 > 0 && d0 + j < d ? dy[ys.at(row, d0 + j)] : 0.f;
-      }
-      for (int mi = 0; mi < np; ++mi) {
-        const float2* zm = reinterpret_cast<const float2*>(zs + mi * QM);
-        float dd[QM];
-        float qd = 0.f;
-#pragma unroll
-        for (int k2 = 0; k2 < QM / 2; ++k2) {
-          const float2 v = zm[k2];
-          dd[2 * k2] = mv[2 * k2] - v.x;
-          dd[2 * k2 + 1] = mv[2 * k2 + 1] - v.y;
-          qd = fmaf(c[2 * k2] * dd[2 * k2], dd[2 * k2], qd);
-          qd = fmaf(c[2 * k2 + 1] * dd[2 * k2 + 1], dd[2 * k2 + 1], qd);
-        }
-        const float p = wn * expf(l1 - 0.5f * qd);
-        const float* rr = r1 + (size_t)(m0 + mi) * d + d0;
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < kDChunk; ++j) {
-          if (d0 + j < d) {
-            const float rv = __ldg(rr + j);
-            dot = fmaf(yv[j], rv, dot);
-            gy[j] = fmaf(p, rv, gy[j]);
-          }
-        }
-        const float h = p * dot;
-        hsum += h;
-#pragma unroll
-        for (int k = 0; k < QM; ++k) {
-          const float hd = h * dd[k];
-          tt[k] += hd;
-          uu[k] = fmaf(hd, dd[k], uu[k]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kDChunk; ++j)
-        if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
-    }
-  }
-  if (!live) return;
-
-  for (int k = 0; k < q; ++k) {
-    const size_t i = ls.at(row, k);
-    const float den = alpha[k] * s[i] + 1.f;
-    dmu[i] += -c[k] * tt[k];
-    ds[i] += -0.5f * c[k] * hsum + 0.5f * c[k] * c[k] * uu[k];
-    dal[i] += -0.5f * (s[i] / den) * hsum - 0.5f * uu[k] / (den * den);
   }
 }
 
@@ -431,93 +324,8 @@ psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
   }
 }
 
-template <int QM>
-__global__ void __launch_bounds__(128)
-psi1_bwd_m_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                  Strides ls, const float* __restrict__ y, Strides ys,
-                  const float* __restrict__ w,
-                  const float* __restrict__ z, const float* __restrict__ alpha,
-                  const float* __restrict__ sf2,
-                  const float* __restrict__ r1, int n_begin, int n, int m,
-                  int q, int d, int rows_per_split, double* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi1 * QM;
-  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
-
-  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = mi < m;
-  float zm[QM];
-#pragma unroll
-  for (int k = 0; k < QM; ++k)
-    zm[k] = (active && k < q) ? z[(size_t)mi * q + k] : 0.f;
-  const float* rm = r1 + (size_t)(active ? mi : 0) * d;
-
-  float acc[QM];
-#pragma unroll
-  for (int k = 0; k < QM; ++k) acc[k] = 0.f;
-
-  const float logsf2 = logf(*sf2);
-  const int lo = n_begin + blockIdx.x * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
-    __syncthreads();
-    stage_rows<QM, kRowsPsi1>(mu, s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0,
-                              hi, s_mc, s_lw);
-    stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
-    __syncthreads();
-    // y_n . dPsi1Y_m first, so one register array of kRowsPsi1 is live
-    // (a second one for w Psi1 spilled at Q=10).
-    float dot[kRowsPsi1];
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) dot[r] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float rv = __ldg(rm + k);
-#pragma unroll
-      for (int r = 0; r < kRowsPsi1; ++r) dot[r] = fmaf(s_y[r * d + k], rv, dot[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) {
-      const float2 lw = s_lw[r];
-      const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
-      float qd = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float4 v = mc[k2];
-        const float t0 = v.x - zm[2 * k2];
-        const float t1 = v.z - zm[2 * k2 + 1];
-        qd = fmaf(v.y * t0, t0, qd);
-        qd = fmaf(v.w * t1, t1, qd);
-      }
-      const float hr = lw.y * expf(lw.x - 0.5f * qd) * dot[r];
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float4 v = mc[k2];
-        acc[2 * k2] = fmaf(hr * v.y, v.x - zm[2 * k2], acc[2 * k2]);
-        acc[2 * k2 + 1] =
-            fmaf(hr * v.w, v.z - zm[2 * k2 + 1], acc[2 * k2 + 1]);
-      }
-    }
-  }
-
-  if (active) {
-    // out: (splits, q, M) float64: the grid's first launch writes it, a
-    // further one adds to it
-    double* o = out + (size_t)blockIdx.x * q * m + mi;
-#pragma unroll
-    for (int k = 0; k < QM; ++k) {
-      if (k < q) o[(size_t)k * m] = n_begin == 0 ? acc[k] : o[(size_t)k * m] + acc[k];
-    }
-  }
-}
-
 // The most rows of one N-split of a cell pass.
 constexpr int kCellRowsMax = 262144;
-
-// Shared memory of the chunked Psi1 row pass: a group's inducing points of
-// one chunk, and each thread's exponents of that group in its own column
-// (s_h[c * kRowThreads + threadIdx.x]).
-constexpr size_t kRowGroupSmem = (size_t)kGroup * (kQChunk + kRowThreads) * sizeof(float);
 
 // Warpgroups of a Psi2 pass past Q = 64, and the rows (cell pass) or
 // cells (row pass) the block walks a step: a 64-tile a warpgroup.
@@ -734,150 +542,6 @@ psi2_bwd_rows_tc_chunked_kernel(const float* __restrict__ mu, const float* __res
   }
 }
 
-// psi1_bwd_rows_kernel for any Q: the inducing points in groups of kGroup,
-// each walked over the dimension chunks of kQChunk twice, first to sum
-// each point's exponent (in the thread's own column of shared memory)
-// before expf, then for the per-dimension sums t_q, u_q of the group, which
-// it adds into the row's float64 totals tu[0][q][n], tu[1][q][n] (the
-// caller zero-fills them).
-__global__ void __launch_bounds__(kRowThreads)
-psi1_bwd_rows_chunked_kernel(const float* __restrict__ mu,
-                             const float* __restrict__ s, Strides ls,
-                             const float* __restrict__ y, Strides ys,
-                             const float* __restrict__ w,
-                             const float* __restrict__ z,
-                             const float* __restrict__ alpha,
-                             const float* __restrict__ sf2,
-                             const float* __restrict__ r1, int n, int m,
-                             int q, int d, float* __restrict__ dmu,
-                             float* __restrict__ ds, float* __restrict__ dal,
-                             float* __restrict__ dy,
-                             double* __restrict__ tu) {
-  extern __shared__ float4 smem4[];
-  float* s_z = reinterpret_cast<float*>(smem4);
-  float* s_h = s_z + kGroup * kQChunk + threadIdx.x;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < n;
-
-  double lsum = 0.0;  // over Q, in double as stage_lw's sums
-  if (live)
-    for (int k = 0; k < q; ++k) lsum += logf(alpha[k] * s[ls.at(row, k)] + 1.f);
-  const float l1 = logf(*sf2) - 0.5f * (float)lsum;
-  const float wn = live ? w[row] : 0.f;
-  double* tt = tu + row;
-  double* uu = tu + (size_t)q * n + row;
-  float hsum = 0.f;
-
-  // h is linear in y_n . dPsi1Y_m, so D is walked in chunks of kDChunk as
-  // in psi1_bwd_rows_kernel.
-  for (int d0 = 0; d0 < d; d0 += kDChunk) {
-    float yv[kDChunk], gy[kDChunk];
-#pragma unroll
-    for (int j = 0; j < kDChunk; ++j) {
-      yv[j] = live && d0 + j < d ? y[ys.at(row, d0 + j)] : 0.f;
-      gy[j] = 0.f;
-    }
-    for (int m0 = 0; m0 < m; m0 += kGroup) {
-      const int nc = min(kGroup, m - m0);
-      for (int k0 = 0; k0 < q; k0 += kQChunk) {
-        __syncthreads();
-        stage_group(z, m, q, m0, k0, s_z);
-        __syncthreads();
-        float mv[kQChunk], cc[kQChunk];
-        load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
-#pragma unroll 2
-        for (int c = 0; c < nc; ++c) {
-          const float4* zc = reinterpret_cast<const float4*>(s_z + c * kQChunk);
-          float qd = k0 == 0 ? 0.f : s_h[c * kRowThreads];
-#pragma unroll
-          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
-            const float4 v = zc[k4];
-            const float e0_ = mv[4 * k4] - v.x, e1 = mv[4 * k4 + 1] - v.y;
-            const float e2 = mv[4 * k4 + 2] - v.z, e3 = mv[4 * k4 + 3] - v.w;
-            qd = fmaf(cc[4 * k4] * e0_, e0_, qd);
-            qd = fmaf(cc[4 * k4 + 1] * e1, e1, qd);
-            qd = fmaf(cc[4 * k4 + 2] * e2, e2, qd);
-            qd = fmaf(cc[4 * k4 + 3] * e3, e3, qd);
-          }
-          s_h[c * kRowThreads] = qd;
-        }
-      }
-      for (int c = 0; c < nc; ++c) {
-        const float p = wn * expf(l1 - 0.5f * s_h[c * kRowThreads]);
-        const float* rr = r1 + (size_t)(m0 + c) * d + d0;
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < kDChunk; ++j) {
-          if (d0 + j < d) {
-            const float rv = __ldg(rr + j);
-            dot = fmaf(yv[j], rv, dot);
-            gy[j] = fmaf(p, rv, gy[j]);
-          }
-        }
-        const float h = p * dot;
-        s_h[c * kRowThreads] = h;
-        hsum += h;
-      }
-      for (int k0 = 0; k0 < q; k0 += kQChunk) {
-        __syncthreads();
-        stage_group(z, m, q, m0, k0, s_z);
-        __syncthreads();
-        float mv[kQChunk], cc[kQChunk], tp[kQChunk], up[kQChunk];
-        load_row_chunk(mu, s, ls, alpha, 1.f, q, row, live, k0, mv, cc);
-#pragma unroll
-        for (int k = 0; k < kQChunk; ++k) {
-          tp[k] = 0.f;
-          up[k] = 0.f;
-        }
-#pragma unroll 2
-        for (int c = 0; c < nc; ++c) {
-          const float4* zc = reinterpret_cast<const float4*>(s_z + c * kQChunk);
-          const float h = s_h[c * kRowThreads];
-#pragma unroll
-          for (int k4 = 0; k4 < kQChunk / 4; ++k4) {
-            const float4 v = zc[k4];
-            const float dv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int k = 4 * k4 + j;
-              const float dd = mv[k] - dv[j];
-              const float hd = h * dd;
-              tp[k] += hd;
-              up[k] = fmaf(hd, dd, up[k]);
-            }
-          }
-        }
-        if (live) {
-#pragma unroll
-          for (int k = 0; k < kQChunk; ++k) {
-            if (k0 + k < q) {
-              tt[(size_t)(k0 + k) * n] += tp[k];
-              uu[(size_t)(k0 + k) * n] += up[k];
-            }
-          }
-        }
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < kDChunk; ++j)
-        if (d0 + j < d) dy[ys.at(row, d0 + j)] = gy[j];
-    }
-  }
-
-  if (!live) return;
-  for (int k = 0; k < q; ++k) {
-    const size_t i = ls.at(row, k);
-    const float a = alpha[k];
-    const float den = a * s[i] + 1.f;
-    const float c = a / den;
-    const float t = (float)tt[(size_t)k * n], u = (float)uu[(size_t)k * n];
-    dmu[i] += -c * t;
-    ds[i] += -0.5f * c * hsum + 0.5f * c * c * u;
-    dal[i] += -0.5f * (s[i] / den) * hsum - 0.5f * u / (den * den);
-  }
-}
-
 // psi2_bwd_cells_tc_kernel for any Q > 64, with K in chunks: per block of
 // 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
 // (mu'_nq - zb'_q), centred on the cell. The split's rows are walked 128
@@ -960,130 +624,729 @@ psi2_bwd_cells_tc_chunked_kernel(const float* __restrict__ mu, const float* __re
   }
 }
 
-// Shared memory of the chunked inducing-point pass with D columns of Y:
-// a staged chunk of kRowsPsi1 rows and Y rows, and each thread's h of
-// those rows in its own column.
-constexpr size_t psi1_m_chunk_smem(int d) {
-  return smem_rows_chunk(kRowsPsi1, d) + (size_t)kRowsPsi1 * 128 * sizeof(float);
+// --- the Psi1 passes ---------------------------------------------------------
+
+// Latent dimensions whose floats (mu', z', c1) a Psi1 pass keeps in shared
+// memory at once for its per-pair sums: all of a bucket's, a chunk past it.
+__host__ __device__ constexpr int p1_qdims(int qm) { return qm ? qm : kTcQChunk; }
+
+// The Psi1 row pass's reductions come in chunks: for Y, kTcDChunk columns
+// of dY (p dPsi1Y); for the latent dimensions, kTcQChunk of them, 2
+// kTcQChunk columns [t | u] (sum h (mu - z), sum h (mu - z)^2). A block
+// keeps the float64
+// totals of at most kP1RowCols such columns of its rows in shared memory;
+// the chunks, the Y chunks first, are packed in that order into as few
+// passes (the grid's z axis) as fit, each pass recomputing the exponents.
+// p1_row_plan returns the number of passes and, with range, pass `want`'s
+// Y chunks [range[0], range[1]) and dimension chunks [range[2], range[3]).
+constexpr int kP1RowCols = 96;
+__host__ __device__ inline int p1_row_plan(int q, int d, int want, int* range) {
+  const int ny = (d + kTcDChunk - 1) / kTcDChunk, nt = (q + kTcQChunk - 1) / kTcQChunk;
+  int pass = 0, used = 0, c0 = 0;
+  for (int c = 0; c <= ny + nt; ++c) {
+    const int width = c < ny ? kTcDChunk : 2 * kTcQChunk;
+    if (c == ny + nt || (used > 0 && used + width > kP1RowCols)) {
+      if (pass == want && range) {
+        range[0] = c0 < ny ? c0 : ny;
+        range[1] = c < ny ? c : ny;
+        range[2] = c0 > ny ? c0 - ny : 0;
+        range[3] = c > ny ? c - ny : 0;
+      }
+      ++pass;
+      used = 0;
+      c0 = c;
+    }
+    used += width;
+  }
+  return pass;
+}
+// Row stride (doubles) of a row pass's totals: its widest pass's columns,
+// then the column of H = sum h.
+__host__ __device__ inline int p1_row_ld(int q, int d) {
+  const int ny = (d + kTcDChunk - 1) / kTcDChunk, nt = (q + kTcQChunk - 1) / kTcQChunk;
+  const int cols = kTcDChunk * ny + 2 * kTcQChunk * nt;
+  return (cols < kP1RowCols ? cols : kP1RowCols) + 1;
 }
 
-// psi1_bwd_m_kernel for any Q: per staged chunk of kRowsPsi1 rows the
-// exponents are summed over the dimension chunks (in the thread's column of
-// shared memory), then the chunks are walked again and each chunk's
-// centred sums B_q over those rows are added into the split's float64
-// partial.
-__global__ void __launch_bounds__(128)
-psi1_bwd_m_chunked_kernel(const float* __restrict__ mu,
-                          const float* __restrict__ s, Strides ls,
-                          const float* __restrict__ y, Strides ys,
-                          const float* __restrict__ w,
-                          const float* __restrict__ z,
-                          const float* __restrict__ alpha,
-                          const float* __restrict__ sf2,
-                          const float* __restrict__ r1, int n_begin, int n,
-                          int m, int q, int d, int rows_per_split,
-                          double* __restrict__ out) {
+// Shared memory of the Psi1 row pass (bucket qm, or 0) with totals of ld
+// doubles a row: the rows' operand (kP1Fixed rows) and the points' (or K
+// chunks of them); the rows' mu' and the points' z' as floats (p1_qdims
+// of them); the rows' constants and weights; the dot's operands (the rows'
+// Y chunk, the points' dPsi1Y chunk) and dPsi1Y's transposed chunk; the
+// float64 totals (kP1Fixed x ld, whose room holds the rows' raw stage at
+// the start) and the emulation's scratch.
+__host__ __device__ constexpr size_t tc_p1_rows_smem(int qm, int ld) {
+  return (qm ? tc_operand_bytes(kP1Fixed, qm) + tc_operand_bytes(kTcRows, qm)
+             : tc_chunk_operand_bytes(kP1Fixed) + tc_chunk_operand_bytes(kTcRows)) +
+         tc_region((size_t)(kP1Fixed + kTcRows) * p1_qdims(qm) * sizeof(float)) +
+         2 * tc_region(kP1Fixed * sizeof(float)) +
+         2 * tc_region((size_t)kP1Fixed * kTcDChunk * sizeof(float)) + 2 * tc_b2_bytes(kTcDChunk) +
+         tc_region((size_t)kP1Fixed * ld * sizeof(double) > tc_stage_bytes(kP1Fixed, qm)
+                       ? (size_t)kP1Fixed * ld * sizeof(double)
+                       : tc_stage_bytes(kP1Fixed, qm)) +
+         tc_scratch_bytes(kP1Wg);
+}
+
+// Elements of dmu, ds and dalpha's row shares a thread updates at once in
+// the Psi1 row pass's epilogue: all their loads issued before any store.
+constexpr int kP1GradBatch = 4;
+
+// The Psi1 row terms of dmu, ds and dalpha's row share at one element (s
+// and alpha of it) from the row's float64 sums over the inducing points
+// (already x 2^-S1) H = sum h, t = sum h (mu - z) and u = sum h (mu - z)^2:
+// -c1 t, -c1 H / 2 + c1^2 u / 2 and -(s/den1) H / 2 - u / (2 den1^2).
+struct P1Grads {
+  float dmu, ds, dal;
+};
+__device__ inline P1Grads p1_grad_terms(float s, float a, double g, double t, double u) {
+  const float gs = (float)g, tf = (float)t, uf = (float)u;
+  const float den = a * s + 1.f;
+  const float c = a / den;
+  return {-c * tf, -0.5f * c * gs + 0.5f * c * c * uf,
+          -0.5f * (s / den) * gs - 0.5f * uf / (den * den)};
+}
+
+// Add the Psi1 row terms (p1_grad_terms) to dmu, ds and dalpha's row share
+// at elements i0, i0 + stride, ... (kP1GradBatch of them, those below
+// total), element e at (row, k) = at(e) with the row's sums sums(e, &H, &t,
+// &u), added to what the Psi2 row pass wrote. Every load of the batch is
+// issued before its stores, so that their latencies overlap.
+template <class At, class Sums>
+__device__ inline void p1_row_grads(const float* __restrict__ s, Strides ls,
+                                    const float* __restrict__ alpha, int i0, int stride,
+                                    int total, At at, Sums sums, float* __restrict__ dmu,
+                                    float* __restrict__ ds, float* __restrict__ dal) {
+  size_t idx[kP1GradBatch];
+  int kk[kP1GradBatch];
+  bool live[kP1GradBatch];
+  float sv[kP1GradBatch], o0[kP1GradBatch], o1[kP1GradBatch], o2[kP1GradBatch];
+#pragma unroll
+  for (int b = 0; b < kP1GradBatch; ++b) {
+    const int e = i0 + b * stride;
+    int row;
+    live[b] = e < total && at(e, &row, &kk[b]);
+    if (!live[b]) continue;
+    idx[b] = ls.at(row, kk[b]);
+    sv[b] = s[idx[b]];
+    o0[b] = dmu[idx[b]];
+    o1[b] = ds[idx[b]];
+    o2[b] = dal[idx[b]];
+  }
+#pragma unroll
+  for (int b = 0; b < kP1GradBatch; ++b) {
+    if (!live[b]) continue;
+    double g, t, u;
+    sums(i0 + b * stride, &g, &t, &u);
+    const P1Grads gr = p1_grad_terms(sv[b], alpha[kk[b]], g, t, u);
+    dmu[idx[b]] = o0[b] + gr.dmu;
+    ds[idx[b]] = o1[b] + gr.ds;
+    dal[idx[b]] = o2[b] + gr.dal;
+  }
+}
+
+// The Psi1 row pass: a block owns kP1Fixed data rows (grid x; 64 a
+// warpgroup, on the tile's M axis; their operand [c1 mu' | -c1/2] log2e and
+// constants, with the shift S1, built once) and walks its split's inducing
+// points (grid y, when the row blocks alone cannot fill the card) in tiles
+// of 64 (the N axis). Each tile's point operand [z' | z'^2], transposed
+// chunks and dPsi1Y chunk are built once for both warpgroups, from values
+// read a tile ahead. Each warpgroup forms its rows' exponents on the
+// tensor cores (tc_tile, 3-term TF32, centred on zeta), turns them in
+// registers into p = w exp2(L1 + S1) (0 past the last point) and walks D in
+// chunks of kTcDChunk: y . dPsi1Y_m as a second tensor-core product (the
+// rows' Y chunk, built once when D fits one chunk, times the points'
+// dPsi1Y chunk, K = D, into one float32 accumulator), and for the pass's Y
+// chunks dY = p dPsi1Y (tc_reduce_split of p, split once, by the points'
+// transposed chunk). Then h = p (y . dPsi1Y) in registers, H = sum h by warp
+// shuffles, and per dimension of the pass t = sum h (mu' - z') and u = sum
+// h (mu' - z')^2 pair by pair from the rows' mu' and the points' z' kept as
+// floats (each thread over its 16 points, then warp shuffles). Every
+// float32 sum spans one 64-point tile; the tiles add into float64 totals in
+// shared memory. Each exponent is computed once
+// per pass (grid z: one pass unless the totals of Y and the dimensions
+// exceed kP1RowCols columns). At the end, with one split, the block writes
+// dY (=) and adds dmu, ds, dalpha's share (p1_row_grads) to the Psi2 row
+// pass's; with several it writes its split's float64 row partials part
+// (splits, N, 2 Q + 1 + D: [t | u | H | dY]) for
+// psi1_bwd_rows_finish_kernel. Past kTcP1BucketMax (QM = 0) K is walked in
+// chunks, the rows' operand chunks rebuilt for every tile, and mu' and z'
+// staged a dimension chunk at a time.
+template <int QM>
+__global__ void __launch_bounds__(kP1Threads)
+psi1_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                        const float* __restrict__ y, Strides ys, const float* __restrict__ w,
+                        const float* __restrict__ z, const float* __restrict__ alpha,
+                        const float* __restrict__ sf2, const float* __restrict__ zeta,
+                        const float* __restrict__ shift, const float* __restrict__ r1, int n,
+                        int m, int q, int d, int tiles_per_split, int ld,
+                        float* __restrict__ dmu, float* __restrict__ ds,
+                        float* __restrict__ dal, float* __restrict__ dy,
+                        double* __restrict__ part) {
+  constexpr int KP = QM ? tc_k(QM) : kTcKChunk;
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi1 * kQChunk;
-  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
-  float* s_hr = s_y + kRowsPsi1 * d + threadIdx.x;
+  TcCarve cv(smem4);
+  constexpr int QD = p1_qdims(QM);
+  const TcOperand fix = tc_take_operand<KP>(cv, kP1Fixed);
+  const TcOperand walk = tc_take_operand<KP>(cv, kTcRows);
+  float* s_mu = cv.take<float>((kP1Fixed + kTcRows) * QD * sizeof(float));  // mu' [k][row]
+  float* s_zt = s_mu + kP1Fixed * QD;                                        // z' [k][point]
+  float* s_rc = cv.take<float>(kP1Fixed * sizeof(float));
+  float* s_w = cv.take<float>(kP1Fixed * sizeof(float));
+  const TcOperand da = tc_take_chunk(cv, kP1Fixed, kTcDChunk);
+  const TcOperand db = tc_take_chunk(cv, kTcRows, kTcDChunk);
+  const TcOperand dt = tc_take_chunk(cv, kTcDChunk, kTcRows);
+  const size_t tot_bytes = (size_t)kP1Fixed * ld * sizeof(double);
+  double* tot = cv.take<double>(tot_bytes > tc_stage_bytes(kP1Fixed, QM)
+                                    ? tot_bytes
+                                    : tc_stage_bytes(kP1Fixed, QM));
+  const int wg = threadIdx.x / kTcWarpgroup, rw = wg * kTcRows;
+  float* scratch = cv.take<float>(tc_scratch_bytes(kP1Wg)) + wg * kTcRows * kTcTileLd;
+  int range[4];
+  p1_row_plan(q, d, blockIdx.z, range);
+  const int y0 = range[0], y1 = range[1], t0 = range[2], t1 = range[3];
+  const bool has_t = t1 > t0;
+  const int ny = (d + kTcDChunk - 1) / kTcDChunk;
+  const bool one_d = ny == 1, in_y0 = y0 == 0 && y1 > 0;
+  const Strides rs{(size_t)d, 1};
+  const int n0 = blockIdx.x * kP1Fixed;
+  const float logsf2 = logf(*sf2), sh = *shift;
+  __syncthreads();  // the carve's zeros are in
+  // the rows: operand (buckets) and constants, from a raw stage in the
+  // totals' room; the rows' Y chunk and the first point tile's values are
+  // read while the stage is in flight
+  const int ntiles = (m + kTcRows - 1) / kTcRows;
+  const int pt0 = blockIdx.y * tiles_per_split, pt1 = min(ntiles, pt0 + tiles_per_split);
+  TcPointLoad<QM ? QM : 1, kP1Threads> pl;
+  TcDChunk<kTcRows, kP1Threads> rl;
+  TcDChunk<kP1Fixed, kP1Threads> yl;
+  if constexpr (QM > 0)
+    tc_stage_rows<QM, kP1Fixed>(mu, s, ls, w, q, n0, n, reinterpret_cast<float*>(tot));
+  cp_async_commit();
+  if (one_d && has_t) yl.load(y, ys, n0, n, 0, d);
+  if (pt0 < pt1) {
+    if constexpr (QM > 0) pl.load(z, zeta, m, q, pt0 * kTcRows);
+    if (one_d) rl.load(r1, rs, pt0 * kTcRows, m, 0, d);
+  }
+  if constexpr (QM > 0) {
+    const float* st = reinterpret_cast<const float*>(tot);
+    cp_async_wait<0>();
+    __syncthreads();
+    tc_build_rows<QM, KP, kP1Fixed, true>(st, alpha, zeta, logsf2, sh, q, fix, s_rc, nullptr);
+    for (int r = threadIdx.x; r < kP1Fixed; r += blockDim.x) s_w[r] = st[2 * kP1Fixed * QM + r];
+    for (int i = threadIdx.x; i < kP1Fixed * QM; i += blockDim.x) {
+      const int r = i % kP1Fixed, k = i / kP1Fixed;
+      s_mu[i] = k < q ? st[r * QM + k] - zeta[k] : 0.f;
+    }
+    __syncthreads();  // the stage is read
+  } else {
+    TcRowConst rc;
+    TcRowChunk<kP1Fixed, kP1Threads, true> rows;
+    for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+      rows.load(mu, s, ls, alpha, zeta, q, n0, n, k0);
+      rows.put(q, n0, n, k0, nullptr, nullptr, &rc);
+    }
+    tc_finish_rows<kP1Fixed, true>(rc, w, logsf2, sh, n0, n, s_rc, s_w);
+  }
+  for (int i = threadIdx.x; i < kP1Fixed * ld; i += blockDim.x) tot[i] = 0.0;
+  double* tot_w = tot + rw * ld;
+  if (one_d && has_t) yl.put(ys, &da, nullptr);  // the rows' Y chunk, for every tile
 
-  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = mi < m;
-  const float* zm = z + (size_t)(active ? mi : 0) * q;
-  const float* rm = r1 + (size_t)(active ? mi : 0) * d;
-  // out: (splits, q, M) float64: the grid's first launch zeroes it
-  double* o = out + (size_t)blockIdx.x * q * m + (active ? mi : 0);
-  if (active && n_begin == 0)
-    for (int k = 0; k < q; ++k) o[(size_t)k * m] = 0.0;
-
-  const float logsf2 = logf(*sf2);
-  const int lo = n_begin + blockIdx.x * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
-    const int nr = min(kRowsPsi1, hi - n0);
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
-      __syncthreads();
-      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
-      if (k0 == 0) {
-        stage_lw<kRowsPsi1, double>(s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0, hi, s_lw);
-        stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
+  for (int pt = pt0; pt < pt1; ++pt) {
+    const int p0 = pt * kTcRows;
+    const bool next = pt + 1 < pt1;
+    float x[32], dot[32];
+    __syncthreads();  // the last tile's readers (and the rows' build) are done
+    if (one_d) rl.put(rs, has_t ? &db : nullptr, in_y0 ? &dt : nullptr);
+    if constexpr (QM > 0) {
+      pl.template put<KP>(walk, has_t ? s_zt : nullptr);
+      tc_operands_ready();
+      if (next) {  // the next tile's values, in flight over this tile's products
+        pl.load(z, zeta, m, q, p0 + kTcRows);
+        if (one_d) rl.load(r1, rs, p0 + kTcRows, m, 0, d);
       }
-      float zc[kQChunk];
-#pragma unroll
-      for (int k = 0; k < kQChunk; ++k) zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < nr; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-        float qd = k0 == 0 ? 0.f : s_hr[r * 128];
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];
-          const float t0 = v.x - zc[2 * k2];
-          const float t1 = v.z - zc[2 * k2 + 1];
-          qd = fmaf(v.y * t0, t0, qd);
-          qd = fmaf(v.w * t1, t1, qd);
+    }
+    if constexpr (QM > 0) {
+      tc_tile<KP>(fix.hi + rw * KP, fix.lo + rw * KP, walk.hi, walk.lo, x);
+    } else {
+      TcRowChunk<kP1Fixed, kP1Threads, true> rows;
+      TcPointChunk<kTcRows, kP1Threads> pch;
+      rows.load(mu, s, ls, alpha, zeta, q, n0, n, 0);
+      pch.load(z, zeta, m, q, p0, 0);
+      for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+        __syncthreads();  // the operands' last readers are done
+        rows.put(q, n0, n, k0, &fix, nullptr, nullptr);
+        pch.put(&walk, nullptr);
+        if (k0 + kTcQChunk < q) {
+          rows.load(mu, s, ls, alpha, zeta, q, n0, n, k0 + kTcQChunk);
+          pch.load(z, zeta, m, q, p0, k0 + kTcQChunk);
         }
-        s_hr[r * 128] = qd;
+        tc_operands_ready();
+        tc_tile_chunk<KP>(fix.hi + rw * KP, fix.lo + rw * KP, walk.hi, walk.lo, x, k0 == 0);
+      }
+      if (next && one_d) rl.load(r1, rs, p0 + kTcRows, m, 0, d);  // over the rest of the tile
+    }
+    // y . dPsi1Y over D's chunks (the Y chunks' operands built here when
+    // D takes more than one)
+    for (int j = 0; has_t && j < ny; ++j) {
+      if (!one_d) {
+        TcDChunk<kP1Fixed, kP1Threads> yl;
+        yl.load(y, ys, n0, n, j * kTcDChunk, d);
+        rl.load(r1, rs, p0, m, j * kTcDChunk, d);
+        __syncthreads();  // the last chunk's readers are done
+        yl.put(ys, &da, nullptr);
+        rl.put(rs, &db, nullptr);
+        tc_operands_ready();
+      }
+      tc_tile_chunk<kTcDChunk>(da.hi + rw * kTcDChunk, da.lo + rw * kTcDChunk, db.hi, db.lo, dot,
+                               j == 0);
+    }
+    // p = w exp2(L1 + S1), 0 past the last point
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = rw + tc_m(i);
+      x[i] = p0 + tc_n(i) < m ? s_w[r] * tc_exp2(x[i] + s_rc[r]) : 0.f;
+    }
+    if (has_t) {  // h = p (y . dPsi1Y) into dot's registers, and H = sum h
+      float hp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dot[i] *= x[i];
+        hp[(i >> 1) & 1] += dot[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        hp[h] += __shfl_xor_sync(0xffffffffu, hp[h], 1);
+        hp[h] += __shfl_xor_sync(0xffffffffu, hp[h], 2);
+      }
+      if ((threadIdx.x & 3) == 0) {
+        tot_w[tc_m(0) * ld + ld - 1] += (double)hp[0];
+        tot_w[tc_m(2) * ld + ld - 1] += (double)hp[1];
       }
     }
-    // y_n . dPsi1Y_m, one load of dPsi1Y_m's entry for all the rows
-    float dot[kRowsPsi1];
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) dot[r] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float rv = __ldg(rm + k);
-#pragma unroll
-      for (int r = 0; r < kRowsPsi1; ++r) dot[r] = fmaf(s_y[r * d + k], rv, dot[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) {
-      if (r < nr) {
-        const float2 lw = s_lw[r];
-        s_hr[r * 128] = lw.y * expf(lw.x - 0.5f * s_hr[r * 128]) * dot[r];
-      }
-    }
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
-      __syncthreads();
-      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
-      float zc[kQChunk], acc[kQChunk];
-#pragma unroll
-      for (int k = 0; k < kQChunk; ++k) {
-        zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
-        acc[k] = 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int r = 0; r < nr; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-        const float hr = s_hr[r * 128];
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];
-          acc[2 * k2] = fmaf(hr * v.y, v.x - zc[2 * k2], acc[2 * k2]);
-          acc[2 * k2 + 1] = fmaf(hr * v.w, v.z - zc[2 * k2 + 1], acc[2 * k2 + 1]);
+    if (y1 > y0) {  // dY = p dPsi1Y for the pass's Y chunks
+      TcRegA a;
+      a.set(x, scratch);
+      for (int j = y0; j < y1; ++j) {
+        if (!one_d) {
+          rl.load(r1, rs, p0, m, j * kTcDChunk, d);
+          __syncthreads();  // the last chunk's readers are done
+          rl.put(rs, nullptr, &dt);
+          tc_operands_ready();
         }
+        float d2[kTcDChunk / 2];
+        tc_reduce_split<kTcDChunk>(a, dt.hi, dt.lo, d2, scratch);
+        tc_add_cols<kTcDChunk>(d2, tot_w, ld, (j - y0) * kTcDChunk);
       }
-      if (active) {
+#ifndef __CUDA_ARCH__
+      __syncthreads();  // (emulation: the scratch's last readers are done)
+#endif
+    }
+    if (!has_t) continue;
+    // per dimension of the pass, t = sum h (mu' - z') and u = sum h (mu' -
+    // z')^2 over the tile's points, pair by pair in float32 (the expanded
+    // form mu'^2 H - 2 mu' T1 + T2 cancels where |mu'| >> |mu - z|)
+    for (int j = t0; j < t1; ++j) {
+      const int kb = j * kTcQChunk, ke = min(q, kb + kTcQChunk);
+      if constexpr (QM == 0) {  // this chunk's mu' of the rows and z' of the points
+        TcPointChunk<kTcRows, kP1Threads> pch;
+        pch.load(z, zeta, m, q, p0, kb);
+        __syncthreads();  // the last chunk's readers are done
+        pch.put(nullptr, s_zt);
+        for (int i = threadIdx.x; i < kP1Fixed * kTcQChunk; i += blockDim.x) {
+          const int r = i % kP1Fixed, k = kb + i / kP1Fixed;
+          s_mu[i] = n0 + r < n && k < q ? mu[ls.at(n0 + r, k)] - zeta[k] : 0.f;
+        }
+        __syncthreads();
+      }
+      for (int k = kb; k < ke; ++k) {
+        const int kq = QM ? k : k - kb;
+        const float* zq = s_zt + kq * kTcRows;
+        const float mA = s_mu[kq * kP1Fixed + rw + tc_m(0)], mB = s_mu[kq * kP1Fixed + rw + tc_m(2)];
+        float tA = 0.f, uA = 0.f, tB = 0.f, uB = 0.f;
 #pragma unroll
-        for (int k = 0; k < kQChunk; ++k)
-          if (k0 + k < q) o[(size_t)(k0 + k) * m] += acc[k];
+        for (int i = 0; i < 32; ++i) {
+          const bool b = (i >> 1) & 1;
+          const float dv = (b ? mB : mA) - zq[tc_n(i)];
+          const float hd = dot[i] * dv;
+          if (b) {
+            tB += hd;
+            uB = fmaf(hd, dv, uB);
+          } else {
+            tA += hd;
+            uA = fmaf(hd, dv, uA);
+          }
+        }
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          tA += __shfl_xor_sync(0xffffffffu, tA, o);
+          uA += __shfl_xor_sync(0xffffffffu, uA, o);
+          tB += __shfl_xor_sync(0xffffffffu, tB, o);
+          uB += __shfl_xor_sync(0xffffffffu, uB, o);
+        }
+        if ((threadIdx.x & 3) == 0) {
+          const int col = (y1 - y0) * kTcDChunk + (j - t0) * 2 * kTcQChunk + (k - kb);
+          tot_w[tc_m(0) * ld + col] += (double)tA;
+          tot_w[tc_m(0) * ld + col + kTcQChunk] += (double)uA;
+          tot_w[tc_m(2) * ld + col] += (double)tB;
+          tot_w[tc_m(2) * ld + col + kTcQChunk] += (double)uB;
+        }
       }
     }
   }
+
+  __syncthreads();
+  const double unshift = ldexp(1.0, -(int)sh);
+  const size_t pw = (size_t)2 * q + 1 + d;  // a partial row
+  const int dc0 = y0 * kTcDChunk, yw = min(d, y1 * kTcDChunk) - dc0;
+  for (int i = threadIdx.x; i < kP1Fixed * yw; i += blockDim.x) {
+    int r, j;
+    stage_index<kP1Fixed>(i, yw, ys.rows_contiguous(), &r, &j);
+    const int row = n0 + r;
+    if (row >= n) continue;
+    const double v = tot[r * ld + j] * unshift;
+    if (part)
+      part[((size_t)blockIdx.y * n + row) * pw + 2 * q + 1 + dc0 + j] = v;
+    else
+      dy[ys.at(row, dc0 + j)] = (float)v;
+  }
+  if (!has_t) return;
+  const int k0 = t0 * kTcQChunk, kw = min(q, t1 * kTcQChunk) - k0, total = kP1Fixed * kw;
+  const bool lat_by_row = ls.rows_contiguous();
+  // element e of the pass's dimensions: (row, k), and its row's sums
+  auto at = [&](int e, int* row, int* k) {
+    int r, kk;
+    stage_index<kP1Fixed>(e, kw, lat_by_row, &r, &kk);
+    *row = n0 + r;
+    *k = k0 + kk;
+    return *row < n;
+  };
+  auto sums = [&](int e, double* g, double* tv, double* uv) {
+    int r, kk;
+    stage_index<kP1Fixed>(e, kw, lat_by_row, &r, &kk);
+    const double* tr = tot + r * ld;
+    const int k = k0 + kk;
+    const int col = (y1 - y0) * kTcDChunk + (k / kTcQChunk - t0) * 2 * kTcQChunk + k % kTcQChunk;
+    *g = tr[ld - 1] * unshift;
+    *tv = tr[col] * unshift;
+    *uv = tr[col + kTcQChunk] * unshift;
+  };
+  if (!part) {
+    for (int i0 = threadIdx.x; i0 < total; i0 += kP1GradBatch * blockDim.x)
+      p1_row_grads(s, ls, alpha, i0, blockDim.x, total, at, sums, dmu, ds, dal);
+    return;
+  }
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int row, k;
+    if (!at(e, &row, &k)) continue;
+    double g, tv, uv;
+    sums(e, &g, &tv, &uv);
+    double* pr = part + ((size_t)blockIdx.y * n + row) * pw;
+    pr[k] = tv;
+    pr[q + k] = uv;
+    if (k == 0) pr[2 * q] = g;
+  }
+}
+
+// The Psi1 row pass's finish when its points were split over blocks: per
+// data row, the splits' float64 partials [t | u | H | dY] summed in split
+// order, then dmu, ds and dalpha's share added (p1_grad_terms) and dY
+// written.
+__global__ void __launch_bounds__(256)
+psi1_bwd_rows_finish_kernel(const float* __restrict__ s, Strides ls, Strides ys,
+                            const float* __restrict__ alpha, const double* __restrict__ part,
+                            int splits, int n, int q, int d, float* __restrict__ dmu,
+                            float* __restrict__ ds, float* __restrict__ dal,
+                            float* __restrict__ dy) {
+  const size_t pw = (size_t)2 * q + 1 + d, step = (size_t)n * pw;
+  const int stride = gridDim.x * blockDim.x, first = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int e = first; e < n * q; e += stride) {  // dmu, ds, dalpha: (row, k) row-major
+    const int row = e / q, k = e % q;
+    const double* pr = part + (size_t)row * pw;
+    double g = 0.0, t1 = 0.0, t2 = 0.0;
+    for (int sp = 0; sp < splits; ++sp) {
+      g += pr[sp * step + 2 * q];
+      t1 += pr[sp * step + k];
+      t2 += pr[sp * step + q + k];
+    }
+    const size_t i = ls.at(row, k);
+    const P1Grads gr = p1_grad_terms(s[i], alpha[k], g, t1, t2);
+    dmu[i] += gr.dmu;
+    ds[i] += gr.ds;
+    dal[i] += gr.dal;
+  }
+  for (int e = first; e < n * d; e += stride) {
+    const int row = e / d, j = e % d;
+    const double* pr = part + (size_t)row * pw + 2 * q + 1 + j;
+    double v = 0.0;
+    for (int sp = 0; sp < splits; ++sp) v += pr[sp * step];
+    dy[ys.at(row, j)] = (float)v;
+  }
+}
+
+// Dimension chunks (of kTcQChunk) one block of the Psi1 point pass keeps
+// the float64 totals of; wider Q is split over the grid's z axis.
+constexpr int kP1PointChunks = 3;
+inline int p1_point_passes(int q) {
+  return ((q + kTcQChunk - 1) / kTcQChunk + kP1PointChunks - 1) / kP1PointChunks;
+}
+__host__ __device__ inline int p1_point_ld(int q) {
+  const int nt = (q + kTcQChunk - 1) / kTcQChunk;
+  return kTcQChunk * (nt < kP1PointChunks ? nt : kP1PointChunks) + 1;
+}
+
+// Shared memory of the Psi1 point pass (bucket qm, or 0): the points'
+// operand (p1_points points) and the rows' (or K chunks of them); the
+// rows' c1 and mu' and the points' z' as floats (p1_qdims of them); the
+// rows' constants and weights and the ring of raw row stages (buckets); the
+// dot's operands (the points' dPsi1Y chunk, the rows' Y chunk) and the
+// float64 totals (p1_points x p1_point_ld).
+__host__ __device__ constexpr size_t tc_p1_m_smem(int qm, int ld) {
+  return (qm ? tc_operand_bytes(p1_points(qm), qm) + tc_operand_bytes(kTcRows, qm) +
+                   2 * tc_stage_bytes(kTcRows, qm)
+             : tc_chunk_operand_bytes(p1_points(qm)) + tc_chunk_operand_bytes(kTcRows)) +
+         tc_region((size_t)(2 * kTcRows + p1_points(qm)) * p1_qdims(qm) * sizeof(float)) +
+         2 * tc_region(kTcRows * sizeof(float)) +
+         2 * tc_region((size_t)p1_points(qm) * kTcDChunk * sizeof(float)) +
+         tc_b2_bytes(kTcDChunk) + tc_region((size_t)p1_points(qm) * ld * sizeof(double));
+}
+
+// The Psi1 point pass: per block of p1_points inducing points (grid x;
+// 64-tiles of them on the tile's M axis, in p1_point_tiles rounds of one
+// tile a warpgroup, a round that holds only padding skipped; their operand
+// [z' | z'^2] built once), N-split (grid y) and pass of at most
+// kP1PointChunks dimension chunks (grid z), the centred sums B_q = sum_n h
+// c1 (mu' - z')_q. The split's rows are walked in tiles of 64 (the N axis),
+// staged by cp.async one tile ahead; each tile's operand [c1 mu' | -c1/2]
+// log2e, constants (with S1), transposed chunks [c1 mu' | c1] and Y chunk
+// (read a tile ahead when D fits one chunk) are built once for both
+// warpgroups, with the rows' c1 and mu' as floats. Each warpgroup forms the
+// exponents and p = w exp2(L1 + S1) as in the forward, y . dPsi1Y as a
+// second tensor-core product over D's chunks (its points' dPsi1Y chunk
+// built once when D fits one chunk), h = p (y . dPsi1Y) in registers, and
+// per dimension of the pass B = sum h c1 (mu' - z') over the tile pair by
+// pair (each thread over its 16 rows, then warp shuffles), float32, added
+// into float64 totals in shared memory. At the end B 2^-S1 goes into the
+// split's float64 (Q, M) partial, every element written once. Past
+// kTcP1BucketMax (QM = 0) K is walked in chunks as in the forward, and c1,
+// mu' and z' are staged a dimension chunk at a time.
+template <int QM>
+__global__ void __launch_bounds__(kP1Threads)
+psi1_bwd_m_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                     const float* __restrict__ y, Strides ys, const float* __restrict__ w,
+                     const float* __restrict__ z, const float* __restrict__ alpha,
+                     const float* __restrict__ sf2, const float* __restrict__ zeta,
+                     const float* __restrict__ shift, const float* __restrict__ r1, int n, int m,
+                     int q, int d, int rows_per_split, double* __restrict__ out) {
+  constexpr int KP = QM ? tc_k(QM) : kTcKChunk;
+  constexpr int PT = p1_point_tiles(QM), NF = p1_points(QM);
+  extern __shared__ float4 smem4[];
+  TcCarve cv(smem4);
+  constexpr int QD = p1_qdims(QM);
+  const TcOperand fix = tc_take_operand<KP>(cv, NF);
+  const TcOperand walk = tc_take_operand<KP>(cv, kTcRows);
+  float* s_cm = cv.take<float>((2 * kTcRows + NF) * QD * sizeof(float));  // c1, mu' [k][row]
+  float* s_zp = s_cm + 2 * kTcRows * QD;                                   // z' [k][point]
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  float* s_w = cv.take<float>(kTcRows * sizeof(float));
+  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
+  float* ring = QM ? cv.take<float>(2 * tc_stage_bytes(kTcRows, QM)) : nullptr;
+  const TcOperand da = tc_take_chunk(cv, NF, kTcDChunk);
+  const TcOperand db = tc_take_chunk(cv, kTcRows, kTcDChunk);
+  const int ld = p1_point_ld(q);
+  double* tot = cv.take<double>((size_t)NF * ld * sizeof(double));
+  const int wg = threadIdx.x / kTcWarpgroup;
+  for (int i = threadIdx.x; i < NF * ld; i += blockDim.x) tot[i] = 0.0;
+  __syncthreads();  // the carve's zeros are in
+
+  const int nt = (q + kTcQChunk - 1) / kTcQChunk;
+  const int c0 = blockIdx.z * kP1PointChunks, c1 = min(nt, c0 + kP1PointChunks);
+  const int ny = (d + kTcDChunk - 1) / kTcDChunk;
+  const bool one_d = ny == 1;
+  const Strides rs{(size_t)d, 1};
+  const int p0 = blockIdx.x * NF;
+  if constexpr (QM > 0) tc_build_points<QM, KP>(z, zeta, m, q, p0, NF, fix, s_zp);
+  TcDChunk<NF, kP1Threads> rl;
+  if (one_d) {  // the points' dPsi1Y chunk, for every tile
+    rl.load(r1, rs, p0, m, 0, d);
+    rl.put(rs, &da, nullptr);
+  }
+  const float logsf2 = logf(*sf2), sh = *shift;
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  TcDChunk<kTcRows, kP1Threads> yl;
+  if (ntiles > 0) {
+    if constexpr (QM > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
+    if (one_d) yl.load(y, ys, lo, hi, 0, d);
+  }
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int n0 = lo + t * kTcRows;
+    float x[32];
+    if constexpr (QM > 0) {
+      const float* st = ring + (t % 2) * stage;
+      if (t + 1 < ntiles)
+        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, n0 + kTcRows, hi, ring + ((t + 1) % 2) * stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // this tile's stage is in; the last tile's readers are done
+      tc_build_rows<QM, KP, kTcRows, true>(st, alpha, zeta, logsf2, sh, q, walk, s_rc, nullptr,
+                                           s_cm);
+      for (int r = threadIdx.x; r < kTcRows; r += blockDim.x) s_w[r] = st[2 * kTcRows * QM + r];
+      if (one_d) yl.put(ys, &db, nullptr);
+      tc_operands_ready();
+      if (one_d && t + 1 < ntiles) yl.load(y, ys, n0 + kTcRows, hi, 0, d);
+    } else {
+      TcRowConst rc;
+      TcRowChunk<kTcRows, kP1Threads, true> rows;
+      TcPointChunk<NF, kP1Threads> pch;
+      rows.load(mu, s, ls, alpha, zeta, q, n0, hi, 0);
+      pch.load(z, zeta, m, q, p0, 0);
+      for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+        __syncthreads();  // the last chunk's products (and the last tile's readers) are done
+        rows.put(q, n0, hi, k0, &walk, nullptr, &rc);
+        pch.put(&fix, nullptr);
+        if (k0 == 0 && one_d) yl.put(ys, &db, nullptr);
+        if (k0 + kTcQChunk < q) {
+          rows.load(mu, s, ls, alpha, zeta, q, n0, hi, k0 + kTcQChunk);
+          pch.load(z, zeta, m, q, p0, k0 + kTcQChunk);
+        }
+        tc_operands_ready();
+        tc_tile_chunk<KP>(fix.hi + wg * kTcRows * KP, fix.lo + wg * kTcRows * KP, walk.hi,
+                          walk.lo, x, k0 == 0);
+      }
+      if (one_d && t + 1 < ntiles) yl.load(y, ys, n0 + kTcRows, hi, 0, d);
+      tc_finish_rows<kTcRows, true>(rc, w, logsf2, sh, n0, hi, s_rc, s_w);
+      __syncthreads();
+    }
+    for (int u = 0; u < PT; ++u) {  // round u: the warpgroups' tiles u kP1Wg + wg
+      if (p0 + u * kP1Wg * kTcRows >= m) break;  // the round is padding alone (uniform)
+      const int ft = (u * kP1Wg + wg) * kTcRows;
+      if constexpr (QM > 0) tc_tile<KP>(fix.hi + ft * KP, fix.lo + ft * KP, walk.hi, walk.lo, x);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = tc_n(i);
+        x[i] = s_w[r] * tc_exp2(x[i] + s_rc[r]);
+      }
+      float dot[32];
+      for (int j = 0; j < ny; ++j) {
+        if (!one_d) {
+          yl.load(y, ys, n0, hi, j * kTcDChunk, d);
+          rl.load(r1, rs, p0, m, j * kTcDChunk, d);
+          __syncthreads();  // the last chunk's readers are done
+          yl.put(ys, &db, nullptr);
+          rl.put(rs, &da, nullptr);
+          tc_operands_ready();
+        }
+        tc_tile_chunk<kTcDChunk>(da.hi + ft * kTcDChunk, da.lo + ft * kTcDChunk, db.hi, db.lo,
+                                 dot, j == 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] *= dot[i];
+      // per dimension of the pass, B = sum h c1 (mu' - z') over the tile's
+      // rows, pair by pair in float32 (the expanded form S1 - z' S2 cancels
+      // where |z'| >> |mu - z|)
+      for (int c = c0; c < c1; ++c) {
+        const int kb = c * kTcQChunk, ke = min(q, kb + kTcQChunk);
+        if constexpr (QM == 0) {  // this chunk's c1, mu' of the rows and z' of the points
+          TcRowChunk<kTcRows, kP1Threads, true> rows;
+          TcPointChunk<NF, kP1Threads> pz;
+          rows.load(mu, s, ls, alpha, zeta, q, n0, hi, kb);
+          pz.load(z, zeta, m, q, p0, kb);
+          __syncthreads();  // the last chunk's readers are done
+          rows.put(q, n0, hi, kb, nullptr, nullptr, nullptr, s_cm);
+          pz.put(nullptr, s_zp);
+          __syncthreads();
+        }
+        for (int k = kb; k < ke; ++k) {
+          const int kq = QM ? k : k - kb;
+          const float* cq = s_cm + kq * kTcRows;
+          const float* mq = s_cm + (QD + kq) * kTcRows;
+          const float zA = s_zp[kq * NF + ft + tc_m(0)], zB = s_zp[kq * NF + ft + tc_m(2)];
+          float bA = 0.f, bB = 0.f;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = tc_n(i);
+            const float hc = x[i] * cq[r];
+            if ((i >> 1) & 1)
+              bB = fmaf(hc, mq[r] - zB, bB);
+            else
+              bA = fmaf(hc, mq[r] - zA, bA);
+          }
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            bA += __shfl_xor_sync(0xffffffffu, bA, o);
+            bB += __shfl_xor_sync(0xffffffffu, bB, o);
+          }
+          if ((threadIdx.x & 3) == 0) {
+            const int col = (c - c0) * kTcQChunk + (k - kb);
+            tot[(ft + tc_m(0)) * ld + col] += (double)bA;
+            tot[(ft + tc_m(2)) * ld + col] += (double)bB;
+          }
+        }
+      }
+    }
+  }
+
+  // out: (splits, Q, M), each (dimension, point) written by one thread
+  __syncthreads();
+  const double unshift = ldexp(1.0, -(int)sh);
+  const int k0 = c0 * kTcQChunk, kw = min(q, c1 * kTcQChunk) - k0;
+  for (int i = threadIdx.x; i < NF * kw; i += blockDim.x) {
+    const int c = i % NF, k = k0 + i / NF;
+    if (p0 + c >= m) continue;
+    out[((size_t)blockIdx.y * q + k) * m + p0 + c] = tot[c * ld + (k - k0)] * unshift;
+  }
+}
+
+// The Psi1 passes of one backward call: the row pass (and its finish when
+// its points are split, splits_p > 1, into row_part), then the point pass.
+template <int QM>
+int launch_psi1_bwd_rows(const float* mu, const float* s, Strides ls, const float* y, Strides ys,
+                         const float* w, const float* z, const float* alpha, const float* sf2,
+                         const float* zeta, const float* shift1, const float* r1, int n, int m,
+                         int q, int d, int splits_p, float* dmu, float* ds, float* dal, float* dy,
+                         double* row_part, cudaStream_t stream) {
+  const int ld = p1_row_ld(q, d);
+  const size_t smem = tc_p1_rows_smem(QM, ld);
+  cudaError_t err = allow_smem(psi1_bwd_rows_tc_kernel<QM>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (m + kTcRows - 1) / kTcRows;
+  dim3 grid((n + kP1Fixed - 1) / kP1Fixed, splits_p, p1_row_plan(q, d, -1, nullptr));
+  psi1_bwd_rows_tc_kernel<QM><<<grid, kP1Threads, smem, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q, d,
+      (ntiles + splits_p - 1) / splits_p, ld, dmu, ds, dal, dy, splits_p > 1 ? row_part : nullptr);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits_p == 1) return (int)err;
+  const size_t total = (size_t)n * (q > d ? q : d);
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, 4096);
+  psi1_bwd_rows_finish_kernel<<<blocks, 256, 0, stream>>>(s, ls, ys, alpha, row_part, splits_p, n,
+                                                          q, d, dmu, ds, dal, dy);
+  return (int)cudaGetLastError();
+}
+
+template <int QM>
+int launch_psi1_bwd_m(const float* mu, const float* s, Strides ls, const float* y, Strides ys,
+                      const float* w, const float* z, const float* alpha, const float* sf2,
+                      const float* zeta, const float* shift1, const float* r1, int n, int m,
+                      int q, int d, int splits_m, double* b_part, cudaStream_t stream) {
+  const size_t smem = tc_p1_m_smem(QM, p1_point_ld(q));
+  cudaError_t err = allow_smem(psi1_bwd_m_tc_kernel<QM>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((m + p1_points(QM) - 1) / p1_points(QM), splits_m, p1_point_passes(q));
+  psi1_bwd_m_tc_kernel<QM><<<grid, kP1Threads, smem, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q, d,
+      (n + splits_m - 1) / splits_m, b_part);
+  return (int)cudaGetLastError();
 }
 
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, const float* shift,
+               const float* ce, const float* shift, const float* shift1,
                const float* kmat, const float* r1, int n, int m, int q, int d, int qn,
-               int splits_c, int splits_m, float* dmu, float* ds, float* dal,
-               float* dy, double* a_part, double* b_part,
-               double* /* row scratch: the chunked kernels' only */,
+               int splits_c, int splits_m, int splits_p, float* dmu, float* ds, float* dal,
+               float* dy, double* a_part, double* b_part, double* row_part,
                cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const size_t smem_r = tc_rows_smem(QM);
@@ -1095,14 +1358,10 @@ int launch_bwd(const float* mu, const float* s, const float* y,
       mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, kmat, n, m, q, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int mp = z_piece(m, QM);
-  const size_t smem_zm = smem_z(mp, QM);
-  const int nblk = (n + kRowThreads - 1) / kRowThreads;
-  err = allow_smem(psi1_bwd_rows_kernel<QM>, smem_zm);
-  if (err != cudaSuccess) return (int)err;
-  psi1_bwd_rows_kernel<QM><<<nblk, kRowThreads, smem_zm, stream>>>(
-      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, mp, dmu, ds, dal, dy);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  constexpr int P1 = p1_qm(QM);
+  int rc = launch_psi1_bwd_rows<P1>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m,
+                                    q, d, splits_p, dmu, ds, dal, dy, row_part, stream);
+  if (rc != 0) return rc;
 
   const size_t smem_c = tc_cells_smem(QM);
   err = allow_smem(psi2_bwd_cells_tc_kernel<QM>, smem_c);
@@ -1113,34 +1372,21 @@ int launch_bwd(const float* mu, const float* s, const float* y,
       (n + splits_c - 1) / splits_c, a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem_m = smem_rows_psi1(QM, d);
-  err = allow_smem(psi1_bwd_m_kernel<QM>, smem_m);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_m(splits_m, (m + 127) / 128);
-  const int rows_m = std::min((n + splits_m - 1) / splits_m, kPsi1RowsMax);
-  // One launch unless the partials' budget lowered splits_m below
-  // n / kPsi1RowsMax: each further launch adds the next rows_m rows a split.
-  for (int n0 = 0; n0 < n; n0 += splits_m * rows_m) {
-    psi1_bwd_m_kernel<QM><<<grid_m, 128, smem_m, stream>>>(
-        mu, s, ls, y, ys, w, z, alpha, sf2, r1, n0, n, m, q, d, rows_m,
-        b_part);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return launch_psi1_bwd_m<P1>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q,
+                               d, splits_m, b_part, stream);
 }
 
-// launch_bwd for Q > 64: the K-chunked tensor-core Psi2 passes and the
-// chunked Psi1 passes, the same grids and partials, and the float64 totals
-// tu (2, Q, N) of psi1_bwd_rows_chunked_kernel, zero-filled by the caller.
+// launch_bwd for Q > 64: the K-chunked tensor-core passes, the same grids
+// and partials.
 inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
-                              const float* shift, const float* kmat,
+                              const float* shift, const float* shift1, const float* kmat,
                               const float* r1, int n, int m, int q, int d,
-                              int qn, int splits_c, int splits_m, float* dmu,
+                              int qn, int splits_c, int splits_m, int splits_p, float* dmu,
                               float* ds, float* dal, float* dy,
-                              double* a_part, double* b_part, double* tu,
+                              double* a_part, double* b_part, double* row_part,
                               cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int2* cells2 = reinterpret_cast<const int2*>(cells);
@@ -1152,10 +1398,9 @@ inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                                     smem_tc, stream>>>(
       mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, kmat, n, m, q, qp, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int nblk = (n + kRowThreads - 1) / kRowThreads;
-  psi1_bwd_rows_chunked_kernel<<<nblk, kRowThreads, kRowGroupSmem, stream>>>(
-      mu, s, ls, y, ys, w, z, alpha, sf2, r1, n, m, q, d, dmu, ds, dal, dy, tu);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int rc = launch_psi1_bwd_rows<0>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q,
+                                   d, splits_p, dmu, ds, dal, dy, row_part, stream);
+  if (rc != 0) return rc;
 
   err = allow_smem(psi2_bwd_cells_tc_chunked_kernel, smem_tc);
   if (err != cudaSuccess) return (int)err;
@@ -1164,65 +1409,62 @@ inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
       mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q, qp,
       (n + splits_c - 1) / splits_c, a_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t smem_m = psi1_m_chunk_smem(d);
-  err = allow_smem(psi1_bwd_m_chunked_kernel, smem_m);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_m(splits_m, (m + 127) / 128);
-  const int rows_m = std::min((n + splits_m - 1) / splits_m, kPsi1RowsMax);
-  for (int n0 = 0; n0 < n; n0 += splits_m * rows_m) {
-    psi1_bwd_m_chunked_kernel<<<grid_m, 128, smem_m, stream>>>(
-        mu, s, ls, y, ys, w, z, alpha, sf2, r1, n0, n, m, q, d, rows_m,
-        b_part);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return launch_psi1_bwd_m<0>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q, d,
+                              splits_m, b_part, stream);
 }
 
 }  // namespace gparml
 
 // Launch plan of gparml_psi_bwd: plan = (splits_c, splits_m, the largest
 // dynamic shared memory of its blocks in bytes, the device's limit for it,
-// the float64 scratch gparml_psi_bwd takes per data row: 2 Q past Q = 64,
-// the chunked Psi1 row pass's totals, else 0). Each grid's float64 partials take at most
-// partial_bytes.
+// splits_p: the inducing-point splits of the Psi1 row pass, above 1 only
+// when its row blocks alone fill less than two waves of the card, i.e. at
+// small N). Each grid's float64 partials take at most partial_bytes.
 extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
-  const int qm = qm_for(q);
+  const int qm = qm_for(q), p1 = p1_qm(qm);
   const int tiles = tc_blocks(m, qm == 0 ? kTcRows : tc_cell_cells(qm));
+  const int ptiles = (m + kTcRows - 1) / kTcRows;
+  const int pblocks = (m + p1_points(p1) - 1) / p1_points(p1);
   plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kCellRowsMax, num_sms),
                        (size_t)q * m * m * sizeof(double), partial_bytes);
-  plan[1] = cap_splits(
-      n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
-      (size_t)q * m * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(
-      qm == 0 ? std::max({kRowGroupSmem, tc_bwd_chunked_smem(tc_pass_dims(q)),
-                          psi1_m_chunk_smem(d)})
-              : std::max({smem_z(z_piece(m, qm), qm), tc_rows_smem(qm), tc_cells_smem(qm),
-                          smem_rows_psi1(qm, d)}));
-  plan[4] = qm == 0 ? 2 * q : 0;
+  plan[1] = cap_splits(n_splits(n, pblocks * p1_point_passes(q), kTcRows, kCellRowsMax, num_sms),
+                       (size_t)q * m * sizeof(double), partial_bytes);
+  plan[2] = smem_bytes(std::max(
+      {qm == 0 ? tc_bwd_chunked_smem(tc_pass_dims(q)) : std::max(tc_rows_smem(qm), tc_cells_smem(qm)),
+       tc_p1_rows_smem(p1, p1_row_ld(q, d)), tc_p1_m_smem(p1, p1_point_ld(q))}));
+  const int row_blocks = (n + kP1Fixed - 1) / kP1Fixed * p1_row_plan(q, d, -1, nullptr);
+  int splits_p = 1;
+  if (row_blocks < 2 * num_sms) {
+    const int want = std::min(ptiles, (2 * num_sms + row_blocks - 1) / row_blocks);
+    const int per = (ptiles + want - 1) / want;
+    splits_p = cap_splits((ptiles + per - 1) / per,
+                          (size_t)n * (2 * q + 1 + d) * sizeof(double), partial_bytes);
+  }
+  plan[4] = splits_p;
   return (int)smem_limit(plan);
 }
 
-// zeta (Q), cells, ce and shift: as gparml_psi_fwd's; kmat: (M, M) = mult *
-// sym(dPsi2) (upper triangle read); r1 = dPsi1Y: (M, D). qn = 0: mu, s, dmu, ds, dal (N, Q) and y, dy (N, D);
-// qn = 1: (Q, N) and (D, N). Writes dmu, ds, dal, dy and the float64
-// a_part (splits_c, Q, M, M) and b_part (splits_m, Q, M). row_scratch: the
-// plan's float64 scratch (plan[4] per data row, zero-filled; unused when
-// that is 0). Returns cudaGetLastError.
+// zeta (Q), cells, ce, shift and shift1: as gparml_psi_fwd's; kmat: (M, M)
+// = mult * sym(dPsi2) (upper triangle read); r1 = dPsi1Y: (M, D). qn = 0:
+// mu, s, dmu, ds, dal (N, Q) and y, dy (N, D); qn = 1: (Q, N) and (D, N).
+// Writes dmu, ds, dal, dy and the float64 a_part (splits_c, Q, M, M) and
+// b_part (splits_m, Q, M). row_part: with splits_p > 1, the Psi1 row pass's
+// float64 per-split row partials (splits_p, N, 2 Q + 1 + D), every element
+// written; unused with one split. Returns cudaGetLastError.
 extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells,
-                              const float* ce, const float* shift, const float* kmat,
-                              const float* r1, int n, int m,
-                              int q, int d, int qn, int splits_c, int splits_m,
+                              const float* ce, const float* shift, const float* shift1,
+                              const float* kmat, const float* r1, int n, int m,
+                              int q, int d, int qn, int splits_c, int splits_m, int splits_p,
                               float* dmu, float* ds, float* dal, float* dy,
                               double* a_part, double* b_part,
-                              double* row_scratch, void* stream) {
+                              double* row_part, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_bwd, gparml::launch_bwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, zeta, cells, ce, shift, kmat, r1, n, m, q, d, qn,
-                   splits_c, splits_m, dmu, ds, dal, dy, a_part, b_part,
-                   row_scratch, static_cast<cudaStream_t>(stream));
+                   y, w, z, alpha, sf2, zeta, cells, ce, shift, shift1, kmat, r1, n, m, q, d, qn,
+                   splits_c, splits_m, splits_p, dmu, ds, dal, dy, a_part, b_part,
+                   row_part, static_cast<cudaStream_t>(stream));
 }

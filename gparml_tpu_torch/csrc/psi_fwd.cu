@@ -20,33 +20,40 @@
 //    sums the partials (deterministic, no atomics). When the partials'
 //    memory budget lowers the split count, the launcher runs the grid again
 //    for each further kFwdRowsMax rows a split, adding in.
-//  * psi1y_fwd_kernel: one thread per inducing point m, grid over
-//    (N-splits, m-blocks); per staged chunk of 32 rows it forms
-//    w_n Psi1[n, m] in registers and adds their products with the staged
-//    Y rows into its split's (M, D) float64 partial row.
+//  * psi1y_fwd_tc_kernel<QM>: one grid axis over blocks of 64 inducing
+//    points (one warpgroup, the points on the tile's M axis), one over
+//    N-splits, one over passes of up to kP1FwdCols columns of Y. Psi1 is
+//    Psi2 with the packed cells replaced by the points (psi_tc.cuh): the
+//    exponents of each 64-point x 64-row tile come from the tensor cores
+//    (3-term TF32, centred on zeta, the shift 2^S1 in the row constants);
+//    p = w exp2(L1 + S1) stays in the accumulator registers and is
+//    multiplied by the rows' Y chunk on the tensor cores again (the
+//    FlashAttention form of P V); each tile's float32 sums go into float64
+//    totals in shared memory, and each split writes its points' totals
+//    x 2^-S1 into its own float64 (M, D) partial.
 //
-// Past Q = 64 (any Q) psi2_fwd_tc_chunked_kernel and
-// psi1y_fwd_chunked_kernel replace the TPU's `_fwd_kernel` (:225, launched
-// by `_call_fwd`, which took the shapes outside the flat window) there. The
-// Psi2 kernel is psi2_fwd_tc_kernel with K walked in chunks of kTcQChunk
-// latent dimensions (psi_tc.cuh): each chunk's operands are built in shared
-// memory and added into the same tensor-core accumulators, with the same
-// shift 2^S. psi1y_fwd_chunked_kernel sums a staged chunk of rows' exponents
-// over the dimension chunks in registers and applies expf once all are in.
-// The Q <= 64 kernels take the rest of `_fwd_kernel`'s window (M <= 128,
-// and 512 < M <= 640) as they take the flat window.
+// Past Q = 64 (any Q) psi2_fwd_tc_chunked_kernel and, past Q = 16,
+// psi1y_fwd_tc_kernel<0> replace the TPU's `_fwd_kernel` (:225, launched by
+// `_call_fwd`, which took the shapes outside the flat window) there: each
+// is its tensor-core kernel with K walked in chunks of kTcQChunk latent
+// dimensions (psi_tc.cuh), each chunk's operands built in shared memory,
+// with the same shifts; Psi2 adds the chunks into the same accumulators,
+// Psi1 forms each chunk in its own and adds them on the CUDA cores
+// (tc_tile_chunk). The Q <= 64
+// kernels take the rest of `_fwd_kernel`'s window (M <= 128, and
+// 512 < M <= 640) as they take the flat window.
 //
 // What bounds it on an H100: operations, not bytes. The Psi2 kernel is
 // bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
-// rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row operand's
-// build, shared by the block's 256 cells; its epilogue costs two float32
-// adds and an FMA a pair, and the rows come from device memory once per
-// cell block (cp.async, one tile ahead); past Q = 64 the rows' and the
+// rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row
+// operand's build, shared by the block's 256 cells; its epilogue costs two
+// float32 adds and an FMA a pair, and the rows come from device memory once
+// per cell block (cp.async, one tile ahead); past Q = 64 the rows' and the
 // 128 cells' operands are rebuilt chunk by chunk for every row tile, the
-// rows read from device memory (L1, L2) once per cell block. psi1y_fwd_kernel (N M pairs)
-// keeps the direct form on the CUDA cores: ~3 FMA-pipe operations per
-// latent dimension plus one expf, with the operands in registers and the
-// rows from shared memory as warp-wide broadcasts.
+// rows read from device memory (L1, L2) once per cell block. The Psi1
+// kernel (N M pairs) is bound the same way: an exp2 a pair on the MUFU, a
+// float32 add and product, and per 64-row tile the row operand's and the
+// Y chunk's builds, which M / 64 point blocks repeat.
 #include "psi_tc.cuh"
 
 namespace gparml {
@@ -171,63 +178,6 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
   }
 }
 
-template <int QM>
-__global__ void __launch_bounds__(128)
-psi1y_fwd_kernel(const float* __restrict__ mu, const float* __restrict__ s,
-                 Strides ls, const float* __restrict__ y, Strides ys,
-                 const float* __restrict__ w,
-                 const float* __restrict__ z, const float* __restrict__ alpha,
-                 const float* __restrict__ sf2, int n, int m, int q, int d,
-                 int rows_per_split, double* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi1 * QM;
-  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
-
-  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = mi < m;
-  float zm[QM];
-#pragma unroll
-  for (int k = 0; k < QM; ++k)
-    zm[k] = (active && k < q) ? z[(size_t)mi * q + k] : 0.f;
-
-  const float logsf2 = logf(*sf2);
-  const int lo = blockIdx.x * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  double* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
-    __syncthreads();
-    stage_rows<QM, kRowsPsi1>(mu, s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0,
-                              hi, s_mc, s_lw);
-    stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
-    __syncthreads();
-    float p[kRowsPsi1];
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) {
-      const float2 lw = s_lw[r];
-      const float4* mc = reinterpret_cast<const float4*>(s_mc + r * QM);
-      float qd = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < QM / 2; ++k2) {
-        const float4 v = mc[k2];
-        const float t0 = v.x - zm[2 * k2];
-        const float t1 = v.z - zm[2 * k2 + 1];
-        qd = fmaf(v.y * t0, t0, qd);
-        qd = fmaf(v.w * t1, t1, qd);
-      }
-      p[r] = lw.y * expf(lw.x - 0.5f * qd);
-    }
-    if (active) {
-      for (int k = 0; k < d; ++k) {
-        float a = 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPsi1; ++r) a = fmaf(p[r], s_y[r * d + k], a);
-        o[k] += a;
-      }
-    }
-  }
-}
-
 // Cells of one block of psi2_fwd_tc_chunked_kernel (two warpgroups, a
 // tile of 64 cells each), and its shared memory: the cells' and the rows'
 // operand chunks, the cells' terms and the rows' constants and weights.
@@ -324,78 +274,192 @@ psi2_fwd_tc_chunked_kernel(const float* __restrict__ mu, const float* __restrict
   }
 }
 
-// psi1y_fwd_kernel for any Q, the latent dimensions in chunks of kQChunk.
-__global__ void __launch_bounds__(128)
-psi1y_fwd_chunked_kernel(const float* __restrict__ mu,
-                         const float* __restrict__ s, Strides ls,
-                         const float* __restrict__ y, Strides ys,
-                         const float* __restrict__ w,
-                         const float* __restrict__ z,
-                         const float* __restrict__ alpha,
-                         const float* __restrict__ sf2, int n, int m, int q,
-                         int d, int rows_per_split, double* __restrict__ out) {
+// Columns of Y one block of psi1y_fwd_tc_kernel<qm> sums (its float64
+// totals in shared memory: kP1FwdCols for 128 points, half for 256); wider D
+// is split over the grid's z axis.
+constexpr int kP1FwdCols = 128;
+inline int p1_fwd_cols(int d, int qm) {
+  const int cols = (d + kTcDChunk - 1) / kTcDChunk * kTcDChunk;
+  const int most = kP1FwdCols / p1_point_tiles(qm);
+  return cols < most ? cols : most;
+}
+inline int p1_fwd_passes(int d, int qm) {
+  return (d + p1_fwd_cols(d, qm) - 1) / p1_fwd_cols(d, qm);
+}
+
+// Shared memory of psi1y_fwd_tc_kernel<QM> with dcols columns a block: the
+// points' operand (p1_points points) and the rows' (or K chunks of them),
+// the rows' constants and weights, the ring of raw row stages (buckets),
+// the transposed Y chunk, the float64 totals (p1_points x (dcols + 1)) and
+// the emulation's scratch.
+__host__ __device__ constexpr size_t tc_p1_fwd_smem(int qm, int dcols) {
+  return (qm ? tc_operand_bytes(p1_points(qm), qm) + tc_operand_bytes(kTcRows, qm) +
+                   2 * tc_stage_bytes(kTcRows, qm)
+             : tc_chunk_operand_bytes(p1_points(qm)) + tc_chunk_operand_bytes(kTcRows)) +
+         2 * tc_region(kTcRows * sizeof(float)) + tc_b2_bytes(kTcDChunk) +
+         tc_region((size_t)p1_points(qm) * (dcols + 1) * sizeof(double)) +
+         tc_scratch_bytes(kP1Wg);
+}
+
+// Psi1^T (w Y) for one block of p1_points inducing points (grid x; 64-tiles
+// of them on the tile's M axis, taken in p1_point_tiles rounds of one tile a
+// warpgroup, a round that holds only padding skipped), one
+// N-split (grid y) and dcols columns of Y (grid z). The points' operand
+// [z' | z'^2] is built once; the split's rows are walked in tiles of 64
+// (the tile's N axis), staged by cp.async one tile ahead, and each tile's
+// row operand [c1 mu' | -c1/2] log2e and constants (with the shift S1) are
+// built once for both warpgroups. Each warpgroup forms its points'
+// exponents on the tensor cores (tc_tile, 3-term TF32, centred on zeta) and
+// turns them in registers into p = w exp2(L1 + S1), split once (TcRegA);
+// per chunk of kTcDChunk columns the rows' Y chunk is staged transposed
+// (read a tile ahead when the block takes one chunk) and p Y runs on the
+// tensor cores again (tc_reduce_split, the FlashAttention form of P V); its
+// float32 tile sums are added into float64 totals in shared memory. Past
+// kTcP1BucketMax (QM = 0) K is walked in chunks of kTcQChunk dimensions,
+// both operands' chunks built in turn and multiplied into the same
+// accumulators, the rows' constants summed over the chunks. At the end the
+// block writes its points' totals x 2^-S1 into the split's float64 (M, D)
+// partial.
+template <int QM>
+__global__ void __launch_bounds__(kP1Threads)
+psi1y_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                    const float* __restrict__ y, Strides ys, const float* __restrict__ w,
+                    const float* __restrict__ z, const float* __restrict__ alpha,
+                    const float* __restrict__ sf2, const float* __restrict__ zeta,
+                    const float* __restrict__ shift, int n, int m, int q, int d,
+                    int rows_per_split, int dcols, double* __restrict__ out) {
+  constexpr int KP = QM ? tc_k(QM) : kTcKChunk;
+  constexpr int PT = p1_point_tiles(QM), NF = p1_points(QM);
   extern __shared__ float4 smem4[];
-  float2* s_mc = reinterpret_cast<float2*>(smem4);
-  float2* s_lw = s_mc + kRowsPsi1 * kQChunk;
-  float* s_y = reinterpret_cast<float*>(s_lw + kRowsPsi1);
+  TcCarve cv(smem4);
+  const TcOperand pop = tc_take_operand<KP>(cv, NF);
+  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  float* s_w = cv.take<float>(kTcRows * sizeof(float));
+  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
+  float* ring = QM ? cv.take<float>(2 * tc_stage_bytes(kTcRows, QM)) : nullptr;
+  const TcOperand yb = tc_take_chunk(cv, kTcDChunk, kTcRows);
+  const int ld = dcols + 1;
+  double* tot = cv.take<double>((size_t)NF * ld * sizeof(double));
+  const int wg = threadIdx.x / kTcWarpgroup;
+  float* scratch = cv.take<float>(tc_scratch_bytes(kP1Wg)) + wg * kTcRows * kTcTileLd;
+  for (int i = threadIdx.x; i < NF * ld; i += blockDim.x) tot[i] = 0.0;
+  __syncthreads();  // the carve's zeros are in
 
-  const int mi = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = mi < m;
-  const float* zm = z + (size_t)(active ? mi : 0) * q;
-
-  const float logsf2 = logf(*sf2);
-  const int lo = blockIdx.x * rows_per_split;
+  const int p0 = blockIdx.x * NF;
+  const int d0 = blockIdx.z * dcols, d1 = min(d, d0 + dcols);
+  const bool one_d = d1 - d0 <= kTcDChunk;
+  if constexpr (QM > 0) tc_build_points<QM, KP>(z, zeta, m, q, p0, NF, pop);
+  const float logsf2 = logf(*sf2), sh = *shift;
+  const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  double* o = out + ((size_t)blockIdx.x * m + (active ? mi : 0)) * d;
-  for (int n0 = lo; n0 < hi; n0 += kRowsPsi1) {
-    float p[kRowsPsi1];
-#pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) p[r] = 0.f;
-    for (int k0 = 0; k0 < q; k0 += kQChunk) {
-      __syncthreads();
-      stage_rows_chunk<kRowsPsi1>(mu, s, ls, alpha, 1.f, q, k0, n0, hi, s_mc);
-      if (k0 == 0) {
-        stage_lw<kRowsPsi1, double>(s, ls, w, alpha, logsf2, 1.f, 1.f, q, n0, hi, s_lw);
-        stage_y<kRowsPsi1>(y, ys, d, n0, hi, s_y);
-      }
-      float zc[kQChunk];
-#pragma unroll
-      for (int k = 0; k < kQChunk; ++k) zc[k] = k0 + k < q ? zm[k0 + k] : 0.f;
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRowsPsi1; ++r) {
-        const float4* mc = reinterpret_cast<const float4*>(s_mc + r * kQChunk);
-#pragma unroll
-        for (int k2 = 0; k2 < kQChunk / 2; ++k2) {
-          const float4 v = mc[k2];
-          const float t0 = v.x - zc[2 * k2];
-          const float t1 = v.z - zc[2 * k2 + 1];
-          p[r] = fmaf(v.y * t0, t0, p[r]);
-          p[r] = fmaf(v.w * t1, t1, p[r]);
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  TcDChunk<kTcRows, kP1Threads> yl;
+  if (ntiles > 0) {
+    if constexpr (QM > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
+    if (one_d) yl.load(y, ys, lo, hi, d0, d);
+  }
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int n0 = lo + t * kTcRows;
+    float x[32];
+    if constexpr (QM > 0) {
+      const float* st = ring + (t % 2) * stage;
+      if (t + 1 < ntiles)
+        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, n0 + kTcRows, hi, ring + ((t + 1) % 2) * stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // this tile's stage is in; the last tile's readers are done
+      tc_build_rows<QM, KP, kTcRows, true>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, nullptr);
+      for (int r = threadIdx.x; r < kTcRows; r += blockDim.x) s_w[r] = st[2 * kTcRows * QM + r];
+      if (one_d) yl.put(ys, nullptr, &yb);
+      tc_operands_ready();
+      if (one_d && t + 1 < ntiles) yl.load(y, ys, n0 + kTcRows, hi, d0, d);
+    } else {
+      TcRowConst rc;
+      TcRowChunk<kTcRows, kP1Threads, true> rows;
+      TcPointChunk<NF, kP1Threads> pch;
+      rows.load(mu, s, ls, alpha, zeta, q, n0, hi, 0);
+      pch.load(z, zeta, m, q, p0, 0);
+      for (int k0 = 0; k0 < q; k0 += kTcQChunk) {
+        __syncthreads();  // the last chunk's products (and the last tile's readers) are done
+        rows.put(q, n0, hi, k0, &rop, nullptr, &rc);
+        pch.put(&pop, nullptr);
+        if (k0 == 0 && one_d) yl.put(ys, nullptr, &yb);
+        if (k0 + kTcQChunk < q) {  // the next chunk's values, read over this chunk's products
+          rows.load(mu, s, ls, alpha, zeta, q, n0, hi, k0 + kTcQChunk);
+          pch.load(z, zeta, m, q, p0, k0 + kTcQChunk);
         }
+        tc_operands_ready();
+        tc_tile_chunk<KP>(pop.hi + wg * kTcRows * KP, pop.lo + wg * kTcRows * KP, rop.hi,
+                          rop.lo, x, k0 == 0);
       }
+      if (one_d && t + 1 < ntiles) yl.load(y, ys, n0 + kTcRows, hi, d0, d);
+      tc_finish_rows<kTcRows, true>(rc, w, logsf2, sh, n0, hi, s_rc, s_w);
+      __syncthreads();
     }
+    for (int u = 0; u < PT; ++u) {  // round u: the warpgroups' tiles u kP1Wg + wg
+      if (p0 + u * kP1Wg * kTcRows >= m) break;  // the round is padding alone (uniform)
+      const int ft = (u * kP1Wg + wg) * kTcRows;
+      if constexpr (QM > 0) tc_tile<KP>(pop.hi + ft * KP, pop.lo + ft * KP, rop.hi, rop.lo, x);
 #pragma unroll
-    for (int r = 0; r < kRowsPsi1; ++r) {
-      const float2 lw = s_lw[r];
-      p[r] = lw.y * expf(lw.x - 0.5f * p[r]);
-    }
-    if (active) {
-      for (int k = 0; k < d; ++k) {
-        float a = 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPsi1; ++r) a = fmaf(p[r], s_y[r * d + k], a);
-        o[k] += a;
+      for (int i = 0; i < 32; ++i) {
+        const int r = tc_n(i);
+        x[i] = s_w[r] * tc_exp2(x[i] + s_rc[r]);
       }
+      TcRegA a;
+      a.set(x, scratch);
+      for (int dc = d0; dc < d1; dc += kTcDChunk) {
+        if (!one_d) {
+          yl.load(y, ys, n0, hi, dc, d);
+          __syncthreads();  // the last chunk's readers are done
+          yl.put(ys, nullptr, &yb);
+          tc_operands_ready();
+        }
+        float d2[kTcDChunk / 2];
+        tc_reduce_split<kTcDChunk>(a, yb.hi, yb.lo, d2, scratch);
+        tc_add_cols<kTcDChunk>(d2, tot + ft * ld, ld, dc - d0);
+      }
+#ifndef __CUDA_ARCH__
+      __syncthreads();  // (emulation: the scratch's last readers are done)
+#endif
     }
   }
+
+  __syncthreads();
+  const double unshift = ldexp(1.0, -(int)sh);
+  const int w1 = d1 - d0;
+  for (int i = threadIdx.x; i < NF * w1; i += blockDim.x) {
+    const int c = i / w1, j = i % w1;
+    if (p0 + c < m)
+      out[((size_t)blockIdx.y * m + p0 + c) * d + d0 + j] = tot[c * ld + j] * unshift;
+  }
+}
+
+// The Psi1 forward grid: blocks of 64 inducing points, splits1 N-splits and
+// the column passes of Y, into p1y_part (splits1, M, D), every element
+// written.
+template <int QM>
+int launch_psi1_fwd(const float* mu, const float* s, Strides ls, const float* y, Strides ys,
+                    const float* w, const float* z, const float* alpha, const float* sf2,
+                    const float* zeta, const float* shift1, int n, int m, int q, int d,
+                    int splits1, double* p1y_part, cudaStream_t stream) {
+  const int dcols = p1_fwd_cols(d, QM);
+  const size_t smem = tc_p1_fwd_smem(QM, dcols);
+  cudaError_t err = allow_smem(psi1y_fwd_tc_kernel<QM>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((m + p1_points(QM) - 1) / p1_points(QM), splits1, p1_fwd_passes(d, QM));
+  psi1y_fwd_tc_kernel<QM><<<grid, kP1Threads, smem, stream>>>(
+      mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, n, m, q, d,
+      (n + splits1 - 1) / splits1, dcols, p1y_part);
+  return (int)cudaGetLastError();
 }
 
 template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
-               const float* ce, const float* shift, int n, int m,
+               const float* ce, const float* shift, const float* shift1, int n, int m,
                int q, int d, int qn, int splits2,
                int splits1, double* p2_part, double* p1y_part,
                cudaStream_t stream) {
@@ -413,26 +477,19 @@ int launch_fwd(const float* mu, const float* s, const float* y,
         n, m, q, rows2, p2_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-
-  const int rows1 = (n + splits1 - 1) / splits1;
-  const size_t smem1 = smem_rows_psi1(QM, d);
-  err = allow_smem(psi1y_fwd_kernel<QM>, smem1);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid1(splits1, (m + 127) / 128);
-  psi1y_fwd_kernel<QM><<<grid1, 128, smem1, stream>>>(
-      mu, s, ls, y, ys, w, z, alpha, sf2, n, m, q, d, rows1, p1y_part);
-  return (int)cudaGetLastError();
+  return launch_psi1_fwd<p1_qm(QM)>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, n, m, q,
+                                     d, splits1, p1y_part, stream);
 }
 
-// launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel and
-// psi1y_fwd_chunked_kernel, the same grids and partials.
+// launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel and the K-chunked
+// psi1y_fwd_tc_kernel, the same grids and partials.
 inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
-                              const float* shift, int n, int m, int q, int d, int qn,
-                              int splits2, int splits1, double* p2_part, double* p1y_part,
-                              cudaStream_t stream) {
+                              const float* shift, const float* shift1, int n, int m, int q,
+                              int d, int qn, int splits2, int splits1, double* p2_part,
+                              double* p1y_part, cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
   dim3 grid2(tc_blocks(m, kTcChunkFwdCells), splits2);
@@ -445,15 +502,8 @@ inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
         n, m, q, rows2, p2_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-
-  const size_t smem1 = smem_rows_chunk(kRowsPsi1, d);
-  err = allow_smem(psi1y_fwd_chunked_kernel, smem1);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid1(splits1, (m + 127) / 128);
-  psi1y_fwd_chunked_kernel<<<grid1, 128, smem1, stream>>>(
-      mu, s, ls, y, ys, w, z, alpha, sf2, n, m, q, d,
-      (n + splits1 - 1) / splits1, p1y_part);
-  return (int)cudaGetLastError();
+  return launch_psi1_fwd<0>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, n, m, q, d,
+                            splits1, p1y_part, stream);
 }
 
 }  // namespace gparml
@@ -468,32 +518,31 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
   const int tiles = tc_blocks(m, qm == 0 ? kTcChunkFwdCells : tc_fwd_cells(qm));
   plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kFwdRowsMax, num_sms),
                        (size_t)m * m * sizeof(double), partial_bytes);
-  plan[1] = cap_splits(
-      n_splits(n, (m + 127) / 128, kRowsPsi1, kPsi1RowsMax, num_sms),
-      (size_t)m * d * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(
-      qm == 0 ? std::max(tc_fwd_chunked_smem(), smem_rows_chunk(kRowsPsi1, d))
-              : std::max(tc_fwd_smem(qm), smem_rows_psi1(qm, d)));
+  const int p1 = p1_qm(qm), p1b = (m + p1_points(p1) - 1) / p1_points(p1);
+  plan[1] = cap_splits(n_splits(n, p1b * p1_fwd_passes(d, p1), kTcRows,
+                                kFwdRowsMax, num_sms),
+                       (size_t)m * d * sizeof(double), partial_bytes);
+  plan[2] = smem_bytes(std::max(qm == 0 ? tc_fwd_chunked_smem() : tc_fwd_smem(qm),
+                                tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))));
   return (int)smem_limit(plan);
 }
 
 // qn = 0: mu, s (N, Q) and y (N, D); qn = 1: mu, s (Q, N) and y (D, N).
-// zeta (Q): the shift of mu and Z in the Psi2 exponent (psi_tc.cuh; the
+// zeta (Q): the shift of mu and Z in the exponents (psi_tc.cuh; the
 // wrapper passes the mean of Z); cells (M (M + 1) / 2, 2) int32: the packed
 // upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2): their
-// E0 log2e; shift: one float, the whole number S the Psi2 kernels add to
-// every base-2 exponent and take off their sums.
-// p2_part: (splits2, M, M) float64, every element written. p1y_part:
-// (splits1, M, D) float64, zero-filled by the caller (accumulated in place).
-// Returns cudaGetLastError.
+// E0 log2e; shift, shift1: one float each, the whole numbers S and S1 the
+// Psi2 and the Psi1 kernels add to every base-2 exponent and take off their
+// sums. p2_part: (splits2, M, M) float64 and p1y_part: (splits1, M, D)
+// float64, every element written. Returns cudaGetLastError.
 extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
-                              const float* shift, int n, int m, int q, int d, int qn,
-                              int splits2, int splits1, double* p2_part, double* p1y_part,
-                              void* stream) {
+                              const float* shift, const float* shift1, int n, int m, int q, int d,
+                              int qn, int splits2, int splits1, double* p2_part,
+                              double* p1y_part, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
-                   y, w, z, alpha, sf2, zeta, cells, ce, shift, n, m, q, d, qn, splits2, splits1,
-                   p2_part, p1y_part, static_cast<cudaStream_t>(stream));
+                   y, w, z, alpha, sf2, zeta, cells, ce, shift, shift1, n, m, q, d, qn, splits2,
+                   splits1, p2_part, p1y_part, static_cast<cudaStream_t>(stream));
 }

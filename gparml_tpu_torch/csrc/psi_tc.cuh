@@ -1,62 +1,72 @@
-// The tensor-core pieces of the Psi2 kernels (psi_fwd.cu, psi_bwd.cu): the
-// exponent tile, 64 x 64 base-2 Psi2 exponents of data rows and
-// upper-triangle cells, and the backward's reduction products.
+// The tensor-core pieces of the Psi kernels (psi_fwd.cu, psi_bwd.cu): the
+// exponent tile, 64 x 64 base-2 exponents of data rows and upper-triangle
+// cells (Psi2) or inducing points (Psi1), and the products that follow it.
 //
-// Replaces the direct-difference exponent that the Psi2 kernels formed per
-// (row, cell) pair on the CUDA cores (one subtraction, product and FMA per
-// latent dimension), and takes the place of the TPU's K-major basis product
+// Replaces the direct-difference exponent that the kernels once formed per
+// pair on the CUDA cores (one subtraction, product and FMA per latent
+// dimension), and takes the place of the TPU's K-major basis product
 // (gparml_tpu/ops/psi_pallas.py `_tile_basis`, `_flat_lhs3`, `_rz3_inputs`,
-// run in `_fwd_flat_body` as bf16 hi/lo rungs on the MXU, and the
-// B~ = (coef z) z^T products of `_tile_stats_tri`). With mu' = mu - zeta
-// and zb' = (z_m + z_m') / 2 - zeta (zeta = the per-dimension mean of Z,
-// passed by the wrapper; the exponent depends on differences only, so the
-// shift changes nothing but the magnitudes):
+// run in `_fwd_flat_body` as bf16 hi/lo rungs on the MXU, the B~ = (coef
+// z) z^T products of `_tile_stats_tri`, and the Psi1 tiles and Psi1^T Y,
+// dpsi1 and dyw products of :151-153 and :355-358). With mu' = mu - zeta
+// and zb' = (z_m + z_m') / 2 - zeta, z' = z_m - zeta (zeta = the
+// per-dimension mean of Z, passed by the wrapper; the exponents depend on
+// differences only, so the shift changes nothing but the magnitudes):
 //
 //   L2[n, p] = sum_k R[n, k] C[p, k] + rc_n + ce_p
 //   R[n] = [2 c mu' log2e (QM) | -c log2e (QM) | 0 (pad)]   (the row operand)
 //   C[p] = [zb' (QM) | zb'^2 (QM) | 0 (pad)]                (the cell operand)
 //   rc_n = (lc_n - sum_q c mu'^2) log2e + S,  ce_p = E0_p log2e
 //
-// The row constant carries an exact shift S (a whole number passed by the
-// wrapper, -floor(max_n lc_n log2e)), so that every pair's exp2 lies below
-// 2 and stays clear of float32's subnormal range, where ex2.approx.ftz
-// would flush it to zero (at sf2 = 1e-20 every Psi2 entry lies there, at
-// any Q); the kernels multiply their float64 totals by 2^-S.
+// and Psi1 the same with c1 / 2 in place of c and the points in place of
+// the cells (TcForm): L1[n, m] = sum_k [c1 mu' | -c1/2] log2e [z' | z'^2] +
+// (l1_n - 1/2 sum_q c1 mu'^2) log2e + S1, no point constant.
 //
-// Up to Q = 64, K = 2 QM padded to a multiple of 8 (tc_k), one operand
-// build per tile. Past Q = 64 (the *_tc_chunked kernels) K is walked in
-// chunks of kTcQChunk latent dimensions (each chunk [2 c mu' | -c] and
-// [zb' | zb'^2] of its dimensions, kTcKChunk columns), built into shared
-// memory in turn and added into the same accumulator registers, so nothing
-// staged grows with Q.
+// The row constant carries an exact shift (S, S1: whole numbers passed by
+// the wrapper, -floor(max_n lc_n log2e)), so that every pair's exp2 lies
+// below 2 and stays clear of float32's subnormal range, where
+// ex2.approx.ftz would flush it to zero (at sf2 = 1e-20 every Psi2 entry
+// lies there, at any Q; Psi1 past Q = 64 with the raw alpha); the kernels
+// multiply their float64 totals by 2^-S.
+//
+// Up to the widest bucket (Q = 64 for Psi2, 16 for Psi1) K = 2 QM padded
+// to a multiple of 8 (tc_k), one operand build per tile. Past it K is
+// walked in chunks of kTcQChunk latent dimensions (each chunk [2 c mu' |
+// -c] and [zb' | zb'^2] of its dimensions, kTcKChunk columns), built into
+// shared memory in turn and added into the same accumulator registers, so
+// nothing staged grows with Q.
 //
 // tc_tile runs the product as wgmma m64n64k8 in TF32 with the 3-term split
 // hi = tf32(x), lo = tf32(x - hi): A_hi B_lo + A_lo B_hi first, then
 // A_hi B_hi, float32 accumulators; the kernels add the constants in float32
-// after it, apply exp2 and mask the padding cells in their epilogues (the
-// operands hold no -inf). The rows sit on the tile's M axis in the row pass
-// and on its N axis in the forward and the cell pass, so that each sums
-// along N. A single TF32 product would carry the exponent to ~1e-3 (a 1e-3
-// relative error in Psi2); the split and the centring keep it at float32's
-// level: ops/psi_tc_model.py models this arithmetic on the CPU and
-// tools/psi_tc_numerics.py measures it (<= 2.9e-6 of max|ref| on Psi2 and
-// every gradient leaf at Q <= 64, latents offset +5; 2.4e-4 without the
-// centring; past Q = 64 <= 6.3e-6 with the shift, 4.5e-3 without it where
-// Psi2 is subnormal).
+// after it, apply exp2 and mask the padding in their epilogues (the
+// operands hold no -inf). The rows sit on the tile's M axis in the row
+// passes and on its N axis in the forwards and the column passes, so that
+// each sums along N. The Psi1 kernels also run y . dPsi1Y (K = D, in
+// chunks of kTcDChunk columns) through tc_tile. A single TF32 product would
+// carry the exponent to ~1e-3 (a 1e-3 relative error in the statistic); the
+// split and the centring keep it at float32's level: ops/psi_tc_model.py
+// models this arithmetic on the CPU and tools/psi_tc_numerics.py measures
+// it for Psi2 (<= 2.9e-6 of max|ref| on Psi2 and every gradient leaf at
+// Q <= 64, latents offset +5; 2.4e-4 without the centring; past Q = 64
+// <= 6.3e-6 with the shift, 4.5e-3 without it where Psi2 is subnormal);
+// tests/test_torch_psi1_tc.py holds the Psi1 model within 1e-5 of float64.
 //
 // tc_reduce multiplies a tile of values still in the accumulator registers
-// (the backward's g or w e) by a transposed operand in shared memory, as
-// the A operand of wgmma m64nNk8 from registers (the FlashAttention form of
-// P V): the row sums [zb' | zb'^2 | 1] and the cell sums [c mu' | c],
-// 3-term split as above (past Q = 64 one dimension chunk at a time).
+// (the backward's g or w e, Psi1's p) by a transposed operand in shared
+// memory, as the A operand of wgmma m64nNk8 from registers (the
+// FlashAttention form of P V): Psi2's row sums [zb' | zb'^2 | 1] and cell
+// sums [c mu' | c] (past Q = 64 one dimension chunk at a time); Psi1's
+// p Y and p dPsi1Y, 3-term split as above. Psi1's centred sums are not
+// products: the Psi1 passes take them pair by pair (psi_bwd.cu).
 //
 // Operands are K-major in shared memory as 8-row x 16-byte core matrices
 // without swizzle (tc_at): the descriptor's leading byte offset is 128 (the
 // next 4 columns of K), its stride byte offset 32 K (the next 8 rows).
 // Cells are the upper triangle packed row by row (the wrapper's table), so
 // a tile of 64 cells wastes nothing but the last block's tail. Rows are
-// staged by cp.async (one tile ahead where two stages fit) up to Q = 64,
-// and read from device memory into each chunk's build past it.
+// staged by cp.async up to the widest bucket, and read from device memory
+// into each chunk's build past it.
 //
 // What bounds the kernels built on it, on an H100: the exp2 of each pair on
 // the MUFU (16 a clock per SM) and the rate of issuing wgmma, then the per-pair
@@ -90,6 +100,24 @@ constexpr int kTcKChunk = 2 * kTcQChunk;
 // 160 KB); wider Q is walked in passes over the dimensions, each
 // recomputing the exponents.
 constexpr int kTcPassChunks = 10;
+// Psi1's exponent runs through the register buckets up to this Q and
+// K-chunked past it; Y and dPsi1Y enter the Psi1 products in chunks of
+// kTcDChunk columns.
+constexpr int kTcP1BucketMax = 16;
+constexpr int kTcDChunk = 16;
+// Psi1's bucket of a Q bucket qm (0: past 64): qm up to kTcP1BucketMax,
+// else 0 (K chunked).
+__host__ __device__ constexpr int p1_qm(int qm) { return qm > 0 && qm <= kTcP1BucketMax ? qm : 0; }
+
+// The row terms of the Psi2 (P1 = false) and Psi1 (P1 = true) exponents:
+// den = kDen a s + 1, c = a / den, the row operand [kR c mu' | -kQ c]
+// log2e and the constant (kSf log sf2 - 1/2 sum log den - kQ sum c mu'^2)
+// log2e + S. Psi1 (c = c1) is Psi2's form with c / 2 in place of c.
+template <bool P1>
+struct TcForm {
+  static constexpr float kDen = P1 ? 1.f : 2.f, kR = P1 ? 1.f : 2.f, kQ = P1 ? 0.5f : 1.f;
+  static constexpr double kSf = P1 ? 1.0 : 2.0, kQd = P1 ? 0.5 : 1.0;
+};
 
 // K of a bucket: [2 c mu' | -c], 2 QM columns padded to a multiple of 8.
 __host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
@@ -616,18 +644,22 @@ __device__ inline void tc_stage_rows(const float* __restrict__ mu, const float* 
 }
 
 // From a raw stage of R rows: the row operand (R rows) and the row
-// constant s_rc[r] (with the shift, in double, rounded once); with b2 (R = 64, the cell pass), the transposed
-// operand [c mu' | c] (2 QM x 64, row r of the stage at K position
-// tc_kperm(r)) of its reduction product, whose padding rows stay zero.
-// blockDim.x / R neighbouring threads share a row, each taking every
-// (blockDim.x / R)-th dimension, and add their parts of the row constant
-// with warp shuffles in a fixed order: sum_q log den as the logs of float32
-// products of up to 8 terms, and sum_q c mu'^2, both in double.
-template <int QM, int KP, int R>
+// constant s_rc[r] (with the shift, in double, rounded once) of the Psi2
+// (P1 = false) or Psi1 exponent (TcForm); with b2 (Psi2, R = 64, the cell
+// pass), the transposed operand [c mu' | c] (2 QM x 64, row r of the stage
+// at K position tc_kperm(r)) of its reduction product, whose padding rows
+// stay zero; with cmu (Psi1), c and mu' as floats, cmu[k * R + r] and
+// cmu[(QM + k) * R + r]. blockDim.x / R neighbouring threads share a row,
+// each taking every (blockDim.x / R)-th dimension, and add their parts of
+// the row constant with warp shuffles in a fixed order: sum_q log den as
+// the logs of float32 products of up to 8 terms, and sum_q c mu'^2, both in
+// double.
+template <int QM, int KP, int R, bool P1 = false>
 __device__ inline void tc_build_rows(const float* st, const float* __restrict__ alpha,
                                      const float* __restrict__ zeta, float logsf2, float shift,
                                      int q, const TcOperand& op, float* s_rc,
-                                     const TcOperand* b2) {
+                                     const TcOperand* b2, float* cmu = nullptr) {
+  using F = TcForm<P1>;
   const float* st_mu = st;
   const float* st_s = st + R * QM;
   const int tpr = blockDim.x / R;  // 1, 2 or 4
@@ -640,7 +672,7 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
     float c = 0.f, mv = 0.f;
     if (k < q) {
       const float a = alpha[k];
-      const float den = 2.f * a * st_s[i] + 1.f;
+      const float den = F::kDen * a * st_s[i] + 1.f;
       c = a / den;
       mv = st_mu[i] - zeta[k];
       prod *= den;
@@ -651,11 +683,15 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
       }
       cm += (double)(c * mv * mv);
     }
-    tc_put(op.hi, op.lo, tc_at(r, k, KP), (2.f * c * mv) * kLog2e);
-    tc_put(op.hi, op.lo, tc_at(r, QM + k, KP), -c * kLog2e);
+    tc_put(op.hi, op.lo, tc_at(r, k, KP), (F::kR * c * mv) * kLog2e);
+    tc_put(op.hi, op.lo, tc_at(r, QM + k, KP), -(F::kQ * c) * kLog2e);
     if (b2) {
       tc_put(b2->hi, b2->lo, tc_at(k, tc_kperm(r), 64), c * mv);
       tc_put(b2->hi, b2->lo, tc_at(QM + k, tc_kperm(r), 64), c);
+    }
+    if (cmu) {
+      cmu[k * R + r] = c;
+      cmu[(QM + k) * R + r] = mv;
     }
   }
   if (in_prod) lsum += (double)logf(prod);
@@ -664,7 +700,8 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
     cm += __shfl_xor_sync(0xffffffffu, cm, o);
   }
   if (sub == 0)
-    s_rc[r] = (float)((2.0 * (double)logsf2 - 0.5 * lsum - cm) * (double)kLog2e + (double)shift);
+    s_rc[r] = (float)((F::kSf * (double)logsf2 - 0.5 * lsum - F::kQd * cm) * (double)kLog2e +
+                      (double)shift);
 }
 
 // Cells [p0, p0 + NC) of the wrapper's packed table: s_ij[c] ((-1, -1)
@@ -731,6 +768,24 @@ __host__ __device__ constexpr size_t tc_chunk_operand_bytes(int rows) {
   return 2 * tc_region((size_t)rows * kTcKChunk * sizeof(float));
 }
 
+// d (+)= one K chunk's tile product, for the Psi1 kernels: the first chunk
+// into d, every later one into its own accumulator and added to d on the
+// CUDA cores (rounded to nearest), so that the tensor cores' accumulation
+// never runs over more than one chunk of the expanded exponent's large
+// terms (past Q = 16 they reach hundreds where the exponent is tens).
+template <int KC>
+__device__ inline void tc_tile_chunk(const float* a_hi, const float* a_lo, const float* b_hi,
+                                     const float* b_lo, float (&d)[32], bool first) {
+  if (first) {
+    tc_tile<KC>(a_hi, a_lo, b_hi, b_lo, d);
+    return;
+  }
+  float part[32];
+  tc_tile<KC>(a_hi, a_lo, b_hi, b_lo, part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] += part[i];
+}
+
 // An operand (hi, lo) of `rows` rows of `cols` columns, not zeroed: the
 // chunk builds write every element.
 __device__ inline TcOperand tc_take_chunk(TcCarve& cv, int rows, int cols) {
@@ -774,27 +829,40 @@ struct TcRowConst {
 // log2e]); with b2 (the cell pass), for each 64-row tile t the chunk of its
 // transposed operand [c mu' | c] in b2[t] (2 kTcQChunk x 64, row r at K
 // position tc_kperm(r)); with rc, each thread adds its share of its row's
-// constant. Zero past hi or q.
-template <int R, int NT>
+// constant; with cmu (Psi1's point pass), c and mu' as floats, cmu[kk * R
+// + r] and cmu[(kTcQChunk + kk) * R + r]. Zero past hi or q.
+template <int R, int NT, bool P1 = false>
 struct TcRowChunk {
+  using F = TcForm<P1>;
   static constexpr int kTpr = NT / R, kE = kTcQChunk / kTpr;
-  float sv[kE], mv[kE], av[kE], zv[kE];
+  // alpha and zeta: held per element for Psi2, read again in put() for
+  // Psi1 (whose passes keep more of their registers live)
+  static constexpr int kA = P1 ? 1 : kE;
+  float sv[kE], mv[kE], av[kA], zv[kA];
+  const float* alpha_ = nullptr;
+  const float* zeta_ = nullptr;
   __device__ void load(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
                        const float* __restrict__ alpha, const float* __restrict__ zeta, int q,
                        int n0, int hi, int k0) {
     const int n = n0 + threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
+    if constexpr (P1) {
+      alpha_ = alpha;
+      zeta_ = zeta;
+    }
 #pragma unroll
     for (int j = 0; j < kE; ++j) {
       const int k = k0 + sub + kTpr * j;
       const bool live = n < hi && k < q;
       sv[j] = live ? s[ls.at(n, k)] : 0.f;
       mv[j] = live ? mu[ls.at(n, k)] : 0.f;
-      av[j] = live ? alpha[k] : 0.f;
-      zv[j] = live ? zeta[k] : 0.f;
+      if constexpr (!P1) {
+        av[j] = live ? alpha[k] : 0.f;
+        zv[j] = live ? zeta[k] : 0.f;
+      }
     }
   }
   __device__ void put(int q, int n0, int hi, int k0, const TcOperand* op, const TcOperand* b2,
-                      TcRowConst* rc) const {
+                      TcRowConst* rc, float* cmu = nullptr) const {
     const int r = threadIdx.x / kTpr, sub = threadIdx.x % kTpr;
     const bool row_live = n0 + r < hi;
 #pragma unroll
@@ -802,19 +870,25 @@ struct TcRowChunk {
       const int kk = sub + kTpr * j;
       float c = 0.f, mvc = 0.f;
       if (row_live && k0 + kk < q) {
-        const float den = 2.f * av[j] * sv[j] + 1.f;
-        c = av[j] / den;
-        mvc = mv[j] - zv[j];
+        const float a = P1 ? alpha_[k0 + kk] : av[j < kA ? j : 0];
+        const float zt = P1 ? zeta_[k0 + kk] : zv[j < kA ? j : 0];
+        const float den = F::kDen * a * sv[j] + 1.f;
+        c = a / den;
+        mvc = mv[j] - zt;
         if (rc) rc->add(den, c, mvc);
       }
       if (op) {
-        tc_put(op->hi, op->lo, tc_at(r, kk, kTcKChunk), (2.f * c * mvc) * kLog2e);
-        tc_put(op->hi, op->lo, tc_at(r, kTcQChunk + kk, kTcKChunk), -c * kLog2e);
+        tc_put(op->hi, op->lo, tc_at(r, kk, kTcKChunk), (F::kR * c * mvc) * kLog2e);
+        tc_put(op->hi, op->lo, tc_at(r, kTcQChunk + kk, kTcKChunk), -(F::kQ * c) * kLog2e);
       }
       if (b2) {
         const TcOperand& bt = b2[r / kTcRows];
         tc_put(bt.hi, bt.lo, tc_at(kk, tc_kperm(r % kTcRows), 64), c * mvc);
         tc_put(bt.hi, bt.lo, tc_at(kTcQChunk + kk, tc_kperm(r % kTcRows), 64), c);
+      }
+      if (cmu) {
+        cmu[kk * R + r] = c;
+        cmu[(kTcQChunk + kk) * R + r] = mvc;
       }
     }
   }
@@ -824,9 +898,10 @@ struct TcRowChunk {
 // thread calls it; warp shuffles in a fixed order): s_rc[r] = (lc - sum_q c
 // mu'^2) log2e + shift, summed in double and rounded once, and s_w[r] (0
 // past hi). No barrier.
-template <int R>
+template <int R, bool P1 = false>
 __device__ inline void tc_finish_rows(TcRowConst& rc, const float* __restrict__ w, float logsf2,
                                       float shift, int n0, int hi, float* s_rc, float* s_w) {
+  using F = TcForm<P1>;
   const int tpr = blockDim.x / R;
   const int r = threadIdx.x / tpr, sub = threadIdx.x % tpr;
   if (rc.in_prod) rc.lsum += (double)logf(rc.prod);
@@ -835,7 +910,8 @@ __device__ inline void tc_finish_rows(TcRowConst& rc, const float* __restrict__ 
     rc.cm += __shfl_xor_sync(0xffffffffu, rc.cm, o);
   }
   if (sub == 0) {
-    s_rc[r] = (float)((2.0 * (double)logsf2 - 0.5 * rc.lsum - rc.cm) * (double)kLog2e +
+    s_rc[r] = (float)((F::kSf * (double)logsf2 - 0.5 * rc.lsum - F::kQd * rc.cm) *
+                          (double)kLog2e +
                       (double)shift);
     s_w[r] = n0 + r < hi ? w[n0 + r] : 0.f;
   }
@@ -908,6 +984,145 @@ __device__ inline void tc_add_chunk(const float (&d2)[kTcQChunk], double* tot, i
     const int col = tc_n(e), half = col / kTcQChunk;
     tot[tc_m(e) * tc_tot_ld(qp) + half * qp + off + col % kTcQChunk] += (double)d2[e];
   }
+}
+
+// --- the Psi1 pieces: inducing points in place of the packed cells ---------
+
+// Warpgroups of a Psi1 block: each owns 64-tiles of the fixed side (points
+// in the forward and the point pass, rows in the row pass); the walked
+// side's operands are built once for both. kP1Fixed: the row pass's rows a
+// block.
+constexpr int kP1Wg = 2;
+constexpr int kP1Threads = kP1Wg * kTcWarpgroup;
+constexpr int kP1Fixed = kP1Wg * kTcRows;
+// 64-point tiles a warpgroup of the Psi1 forward and point pass takes at
+// bucket qm (two up to Q = 10, so that each row tile's build serves 256
+// points; in rounds of one tile a warpgroup, so that at M <= 128 the
+// second round, padding alone, is skipped), and the points of such a block.
+__host__ __device__ constexpr int p1_point_tiles(int qm) { return qm > 0 && qm <= 10 ? 2 : 1; }
+__host__ __device__ constexpr int p1_points(int qm) {
+  return kP1Wg * p1_point_tiles(qm) * kTcRows;
+}
+
+// The point operand [z' | z'^2] (np x KP, z' = z - zeta) of points [p0, p0
+// + np) (zero past m or q; the padding columns keep their zeros from
+// tc_take_operand) and, with zf, z' as floats, zf[k * np + c]. No barrier.
+template <int QM, int KP>
+__device__ inline void tc_build_points(const float* __restrict__ z, const float* __restrict__ zeta,
+                                       int m, int q, int p0, int np, const TcOperand& op,
+                                       float* zf = nullptr) {
+  for (int t = threadIdx.x; t < np * QM; t += blockDim.x) {
+    const int c = t / QM, k = t % QM;
+    const float zv = p0 + c < m && k < q ? z[(size_t)(p0 + c) * q + k] - zeta[k] : 0.f;
+    tc_put(op.hi, op.lo, tc_at(c, k, KP), zv);
+    tc_put(op.hi, op.lo, tc_at(c, QM + k, KP), zv * zv);
+    if (zf) zf[k * np + c] = zv;
+  }
+}
+
+// A thread's share of the 64 points [p0, p0 + 64) at bucket QM, built by NT
+// threads: load() reads z - zeta into registers, all its loads issued
+// together (a tile ahead of put in the row pass); put() writes the point
+// operand [z' | z'^2] (64 x KP) and, with zf, z' as floats, zf[k * 64 + c].
+// Zero past m or q.
+template <int QM, int NT>
+struct TcPointLoad {
+  static constexpr int kE = (kTcRows * QM + NT - 1) / NT;
+  float zv[kE];
+  __device__ void load(const float* __restrict__ z, const float* __restrict__ zeta, int m, int q,
+                       int p0) {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int t = threadIdx.x + NT * j, c = t / QM, k = t % QM;
+      zv[j] = t < kTcRows * QM && p0 + c < m && k < q ? z[(size_t)(p0 + c) * q + k] - zeta[k]
+                                                       : 0.f;
+    }
+  }
+  template <int KP>
+  __device__ void put(const TcOperand& op, float* zf) const {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int t = threadIdx.x + NT * j, c = t / QM, k = t % QM;
+      if (t >= kTcRows * QM) break;
+      tc_put(op.hi, op.lo, tc_at(c, k, KP), zv[j]);
+      tc_put(op.hi, op.lo, tc_at(c, QM + k, KP), zv[j] * zv[j]);
+      if (zf) zf[k * kTcRows + c] = zv[j];
+    }
+  }
+};
+
+// A thread's share of one K chunk of the NP points [p0, p0 + NP), built by
+// NT threads as TcCellChunk builds cells: load() reads z - zeta into
+// registers; put() writes, with op, the chunk of the point operand (NP x
+// kTcKChunk, [z' | z'^2]) and, with zf, the chunk's z' as floats, zf[kk *
+// NP + c]. Zero past m or q.
+template <int NP, int NT>
+struct TcPointChunk {
+  static constexpr int kE = NP * kTcQChunk / NT;
+  float zv[kE];
+  __device__ static void at(int j, int* c, int* kk) { TcCellChunk<NP, NT>::at(j, c, kk); }
+  __device__ void load(const float* __restrict__ z, const float* __restrict__ zeta, int m, int q,
+                       int p0, int k0) {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int c, kk;
+      at(j, &c, &kk);
+      const int k = k0 + kk;
+      zv[j] = p0 + c < m && k < q ? z[(size_t)(p0 + c) * q + k] - zeta[k] : 0.f;
+    }
+  }
+  __device__ void put(const TcOperand* op, float* zf) const {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int c, kk;
+      at(j, &c, &kk);
+      if (op) {
+        tc_put(op->hi, op->lo, tc_at(c, kk, kTcKChunk), zv[j]);
+        tc_put(op->hi, op->lo, tc_at(c, kTcQChunk + kk, kTcKChunk), zv[j] * zv[j]);
+      }
+      if (zf) zf[kk * NP + c] = zv[j];
+    }
+  }
+};
+
+// A thread's share of columns [dc, dc + kTcDChunk) of R rows [e0, e0 + R)
+// of x (element (e, j) at xs.at(e, j); zero past hi or d), built by NT
+// threads: load() reads them into registers, all its loads issued together,
+// neighbouring threads on neighbouring addresses in both layouts; put()
+// writes, with op, a K-major operand of those rows (R x kTcDChunk, K the
+// columns) for the dot products and, with opt (R = 64), the transposed one
+// (kTcDChunk x 64, row e at K position tc_kperm(e)) for the reductions.
+template <int R, int NT>
+struct TcDChunk {
+  static constexpr int kE = R * kTcDChunk / NT;
+  float v[kE];
+  __device__ void load(const float* __restrict__ x, Strides xs, int e0, int hi, int dc, int d) {
+    const bool by_row = xs.rows_contiguous();
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int e, c;
+      stage_index<R>(threadIdx.x + NT * j, kTcDChunk, by_row, &e, &c);
+      v[j] = e0 + e < hi && dc + c < d ? x[xs.at(e0 + e, dc + c)] : 0.f;
+    }
+  }
+  __device__ void put(Strides xs, const TcOperand* op, const TcOperand* opt) const {
+    const bool by_row = xs.rows_contiguous();
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      int e, c;
+      stage_index<R>(threadIdx.x + NT * j, kTcDChunk, by_row, &e, &c);
+      if (op) tc_put(op->hi, op->lo, tc_at(e, c, kTcDChunk), v[j]);
+      if (opt) tc_put(opt->hi, opt->lo, tc_at(c, tc_kperm(e), 64), v[j]);
+    }
+  }
+};
+
+// Add a reduction product d2 (64 x N2) into float64 totals tot (64 rows
+// of ld doubles) at columns [col0, col0 + N2). Each element has one owner.
+template <int N2>
+__device__ inline void tc_add_cols(const float (&d2)[N2 / 2], double* tot, int ld, int col0) {
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) tot[tc_m(e) * ld + col0 + tc_n(e)] += (double)d2[e];
 }
 
 }  // namespace gparml

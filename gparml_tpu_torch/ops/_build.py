@@ -34,15 +34,15 @@ _SZ = ctypes.c_size_t
 # name -> argument types, in the order of the extern "C" signatures
 _ENTRY_POINTS = {
     # n m q d num_sms | partial_bytes | plan (int[5]): N-splits, shared
-    # memory need, limit, the backward's float64 scratch per data row
+    # memory need, limit, the backward's Psi1 row-pass point splits
     "gparml_psi_fwd_plan": [_I] * 5 + [_SZ, _IP],
     "gparml_psi_bwd_plan": [_I] * 5 + [_SZ, _IP],
-    # mu s y w z alpha sf2 zeta cells ce shift | n m q d qn splits2 splits1 |
-    # p2_part p1y_part stream
-    "gparml_psi_fwd": [_P] * 11 + [_I] * 7 + [_P] * 3,
-    # mu s y w z alpha sf2 zeta cells ce shift kmat r1 | n m q d qn splits_c
-    # splits_m | dmu ds dal dy a_part b_part row_scratch stream
-    "gparml_psi_bwd": [_P] * 13 + [_I] * 7 + [_P] * 8,
+    # mu s y w z alpha sf2 zeta cells ce shift shift1 | n m q d qn splits2
+    # splits1 | p2_part p1y_part stream
+    "gparml_psi_fwd": [_P] * 12 + [_I] * 7 + [_P] * 3,
+    # mu s y w z alpha sf2 zeta cells ce shift shift1 kmat r1 | n m q d qn
+    # splits_c splits_m splits_p | dmu ds dal dy a_part b_part row_part stream
+    "gparml_psi_bwd": [_P] * 14 + [_I] * 8 + [_P] * 8,
 }
 
 # Seconds the last ``load()`` spent compiling (0.0 when the library was

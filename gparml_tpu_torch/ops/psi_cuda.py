@@ -10,13 +10,13 @@ Counterpart of ``gparml_tpu/ops/psi_pallas.py``: ``psi_fused`` and
 and KL are plain tensor sums).
 
 The two layouts run the same kernels (``csrc/psi_fwd.cu``,
-``csrc/psi_bwd.cu``; their Psi2 exponents come from the tensor cores,
-``csrc/psi_tc.cuh``, whose arithmetic ``psi_tc_model.py`` models on the
-CPU), told the layout by a flag that sets their element
-strides: nq takes mu, s (N, Q) and Y (N, D); qn takes mu^T, s^T (Q, N) and
-Y^T (D, N) and gives the cotangents of those back in (Q, N) / (D, N). The
-kernels sum in the same order in both, so qn gives the nq results on
-transposed inputs, bit for bit.
+``csrc/psi_bwd.cu``; the Psi2 and the Psi1 exponents and the products that
+follow them run on the tensor cores, ``csrc/psi_tc.cuh``, whose arithmetic
+``psi_tc_model.py`` models on the CPU), told the layout by a flag that sets
+their element strides: nq takes mu, s (N, Q) and Y (N, D); qn takes mu^T,
+s^T (Q, N) and Y^T (D, N) and gives the cotangents of those back in (Q, N) /
+(D, N). The kernels sum in the same order in both, so qn gives the nq
+results on transposed inputs, bit for bit.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors go to the
 kernels and must be float32 and contiguous, or the wrapper raises; CPU
@@ -28,27 +28,24 @@ caps and chunking such as ``_psi_fused_t_chunked`` and ``_chunk_plan``, M
 and lane padding, the qn path's M window ``qn_native_ok``, the choice
 between the flat, staircase and lane-chunked kernels) has no counterpart:
 the same wrappers take every shape the Pallas kernels took. The kernels
-take any N and any Q: up to Q = 64 through the register buckets of
-``csrc/psi_common.cuh``, past it through the chunked kernels, which walk
-the latent dimensions in chunks (the Psi2 ones K on the tensor cores) and
-keep a float64 (2, Q, N) scratch of the backward Psi1 row pass's totals
-(the plan's fifth entry). At every Q the Psi2 kernels add an exact
-power-of-two shift to their exponents, which the wrapper computes
-(``_shift``), so that no pair's exp2 flushes to zero. The kernels take any
-M: the Q <= 64 Psi1 row pass stages Z in pieces of a fixed size. D is
-bounded by the card's shared memory per block (227 KB on an H100), since
-the Psi1 kernels stage 32 rows of Y: on an H100, D <= 1686 at
-32 < Q <= 64 and D <= 1782 past Q = 64. The wrappers raise ValueError
-past that limit, which the kernels' launch plan reports
-(``gparml_psi_{fwd,bwd}_plan``); the launch geometry itself lives in the
-CUDA sources only.
+take any N, M, Q and D: up to Q = 64 (Psi1: 16) through the register
+buckets of ``csrc/psi_common.cuh``, past it with K walked in chunks; where
+a block's float64 totals of Y's columns or of the latent dimensions would
+outgrow its shared memory, the grid takes them in passes. At every Q the
+exponents carry exact power-of-two shifts, which the wrapper computes
+(``_shifts``), so that no exp2 flushes to zero. The launch geometry lives in
+the CUDA sources only (``gparml_psi_{fwd,bwd}_plan``); the wrappers raise
+ValueError if a block would need more shared memory than the card gives.
 
 Each grid splits N and writes one float64 partial per split, which the
 wrapper sums; ``PARTIAL_BYTES`` bounds each grid's partials, and the plan
 lowers the split count to fit. The kernels add a split's rows into its
 partial in float32 pieces of bounded length (the launcher repeats a grid
 over N where a kernel's registers would otherwise sum a longer split), so
-the split count changes the time, not the accuracy.
+the split count changes the time, not the accuracy. At small N the
+backward's Psi1 row pass also splits the inducing points over blocks; its
+float64 per-split row partials (``row_part``, under the same budget) are
+summed in a fixed order on the card.
 """
 
 from __future__ import annotations
@@ -152,12 +149,11 @@ def _shapes(layout: str, mu, z, y):
 
 
 def _plan(n: int, m: int, q: int, d: int, device: torch.device):
-    """(splits2, splits1, splits_c, splits_m, scratch): the N-splits of the
-    forward's and the backward's grids, from the kernels' own launch plan
-    (the same in both layouts) under ``PARTIAL_BYTES``, and the float64
-    scratch the backward takes per data row (0 up to Q = 64). Raises
-    ValueError when a block would need more shared memory than the card
-    gives one."""
+    """(splits2, splits1, splits_c, splits_m, splits_p): the N-splits of the
+    forward's and the backward's grids and the inducing-point splits of the
+    backward's Psi1 row pass, from the kernels' own launch plan (the same
+    in both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a
+    block would need more shared memory than the card gives one."""
     return _plan_for(n, m, q, d, device, PARTIAL_BYTES)
 
 
@@ -175,8 +171,7 @@ def _plan_for(n, m, q, d, device, partial_bytes):
     if need > limit:
         raise ValueError(
             f"the CUDA kernels need {need} bytes of shared memory per block at "
-            f"M={m}, Q={q}, D={d}, and this card gives {limit}: the Psi1 "
-            f"kernels stage 32 rows of Y as 32 x D floats; lower D")
+            f"M={m}, Q={q}, D={d}, and this card gives {limit}")
     return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
@@ -207,34 +202,37 @@ def _cell_terms(z, alpha):
 
 
 _LOG2E = 1.4426950408889634
-# Elements of s a piece of ``_shift`` reads at once.
+# Elements of s a piece of ``_shifts`` reads at once.
 _SHIFT_PIECE = 1 << 26
 
 
-def _shift(layout, s, alpha, sf2):
-    """S = -floor(max_n lc_n log2e), lc_n = 2 log sf2 - 1/2 sum_q log(2
-    alpha_q s_nq + 1), as a float32 scalar on the device (never read on the
-    host): the whole number the Psi2 kernels add to every base-2 exponent
-    and take off their float64 sums (exact for any whole number;
-    this one keeps the largest row's pairs just below 2 and the rest clear
-    of float32's subnormal range). Pieces of rows bound the temporary."""
+def _shifts(layout, s, alpha, sf2):
+    """(S, S1): S_k = -floor(max_n lc_n log2e), lc_n = k log sf2 - 1/2
+    sum_q log(k alpha_q s_nq + 1) (k = 2: Psi2's row constant; k = 1:
+    Psi1's), as float32 scalars on the device (never read on the host): the
+    whole numbers the kernels add to every base-2 exponent and take off
+    their float64 sums (exact for any whole number; these keep the largest
+    row's values just below 2 and the rest clear of float32's subnormal
+    range). One sweep over s in pieces of rows, which bound the temporary;
+    2 alpha s is exactly twice alpha s, so each S is as a sweep of its own
+    would give it."""
     n = s.shape[0] if layout == "nq" else s.shape[1]
     step = max(1, _SHIFT_PIECE // alpha.shape[0])
-    least = None
+    least = [None, None]
     for i in range(0, n, step):
-        if layout == "nq":
-            part = torch.log1p(s[i:i + step] * (2.0 * alpha)).sum(1)
-        else:
-            part = torch.log1p(s[:, i:i + step] * (2.0 * alpha[:, None])).sum(0)
-        low = part.min()
-        least = low if least is None else torch.minimum(least, low)
-    lc_max = 2.0 * torch.log(sf2) - 0.5 * least
-    return (-torch.floor(lc_max * _LOG2E)).to(torch.float32).reshape(())
+        sa = s[i:i + step] * alpha if layout == "nq" else s[:, i:i + step] * alpha[:, None]
+        dim = 1 if layout == "nq" else 0
+        for j, x in enumerate((2.0 * sa, sa)):
+            low = torch.log1p(x).sum(dim).min()
+            least[j] = low if least[j] is None else torch.minimum(least[j], low)
+    return tuple((-torch.floor((k * torch.log(sf2) - 0.5 * low) * _LOG2E))
+                 .to(torch.float32).reshape(()) for k, low in zip((2.0, 1.0), least))
 
 
-def _psi2_terms(layout, s, z, sf2, alpha):
-    """(zeta, cells, ce, shift) for the kernels."""
-    return (*_cell_terms(z, alpha), _shift(layout, s, alpha, sf2))
+def _terms(layout, s, z, sf2, alpha):
+    """(zeta, cells, ce, shift, shift1) for the kernels: Psi2's cell terms
+    and the shifts of the Psi2 and the Psi1 exponents."""
+    return (*_cell_terms(z, alpha), *_shifts(layout, s, alpha, sf2))
 
 
 # layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
@@ -249,8 +247,8 @@ def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
     splits2, splits1, _, _, _ = _plan(n, m, q, d, mu.device)
     f64 = dict(dtype=torch.float64, device=mu.device)
     p2_part = torch.empty((splits2, m, m), **f64)
-    p1y_part = torch.zeros((splits1, m, d), **f64)
-    terms = _psi2_terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
+    p1y_part = torch.empty((splits1, m, d), **f64)
+    terms = _terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms)),
@@ -268,7 +266,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
     qn, _, key = _LAYOUTS[layout]
-    _, _, splits_c, splits_m, scratch = _plan(n, m, q, d, mu.device)
+    _, _, splits_c, splits_m, splits_p = _plan(n, m, q, d, mu.device)
     f32 = dict(dtype=mu.dtype, device=mu.device)
     # Psi2 is symmetric, so only the symmetric part of its cotangent acts;
     # the row pass walks the upper triangle with off-diagonal cells doubled.
@@ -280,13 +278,13 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     f64 = dict(dtype=torch.float64, device=mu.device)
     a_part = torch.empty((splits_c, q, m, m), **f64)
     b_part = torch.empty((splits_m, q, m), **f64)
-    row_scratch = torch.zeros((scratch, n), **f64)
-    terms = _psi2_terms(layout, s, z, sf2, alpha)
+    row_part = torch.empty((splits_p, n, 2 * q + 1 + d) if splits_p > 1 else (0,), **f64)
+    terms = _terms(layout, s, z, sf2, alpha)
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_bwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms, kmat, dp1y)),
-            n, m, q, d, qn, splits_c, splits_m,
-            *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_scratch)),
+            n, m, q, d, qn, splits_c, splits_m, splits_p,
+            *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_part)),
             torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_bwd")
     with _LAUNCHES_LOCK:

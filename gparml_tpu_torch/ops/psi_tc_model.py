@@ -1,6 +1,8 @@
-"""Plain PyTorch model of the tensor-core arithmetic of the Psi2 kernels
+"""Plain PyTorch model of the tensor-core arithmetic of the Psi kernels
 (``csrc/psi_tc.cuh``, used by ``csrc/psi_fwd.cu`` and ``csrc/psi_bwd.cu``):
-the Q <= 64 buckets and, past Q = 64, the K-chunked kernels.
+for Psi2 the Q <= 64 buckets and, past Q = 64, the K-chunked kernels; for
+Psi1 (``psi1y_sum``, ``psi1_bwd``, ``psi1_vjp``, at the end) the buckets up
+to Q = 16 and the K-chunked kernels past it.
 
 The kernels write the Psi2 exponent of data row n and upper-triangle cell
 (m, m') in expanded form, in base 2:
@@ -40,6 +42,25 @@ float32 accumulator running on across the chunks.
 
 Per-pair values are float32; sums over pairs are float64, as in the kernels,
 whose float32 partial sums span at most one 64-row or 64-cell tile.
+
+Psi1 is the same arithmetic with the packed cells replaced by the inducing
+points (no cell constant):
+
+  L1 = [(l1_n - 1/2 sum_q c1 mu'^2) log2e + S1]
+       + sum_q (c1 mu' log2e)_nq z'_q + sum_q (-c1 / 2 log2e)_nq z'_q^2
+
+with c1 = alpha / (alpha s + 1), l1 = log sf2 - 1/2 sum_q log(alpha s + 1),
+z' = z - zeta and S1 = -floor(max_n l1_n log2e) (``shift1_of``). The
+products that follow run on the tensor cores too, each a 3-term TF32
+product over one 64-tile, the tiles added in float64: the forward's
+p (Y) with p = w exp2(L1); the backward's y . dPsi1Y_m (K = D, in chunks of
+``DCHUNK``, each chunk's product formed on its own and added in float32,
+as the K chunks of the exponent past ``PSI1_BUCKET_MAX``) and dY = p dPsi1Y
+over 64-point tiles. With h = p (y .
+dPsi1Y), the centred sums sum h (mu' - z'), sum h (mu' - z')^2 (over
+64-point tiles) and sum h c1 (mu' - z') (over 64-row tiles) are taken pair
+by pair in float32, not as further products: their expanded forms cancel
+where the latents lie far from zeta.
 """
 
 from __future__ import annotations
@@ -73,12 +94,14 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
-def tc_matmul(a: torch.Tensor, b: torch.Tensor, chunks=None) -> torch.Tensor:
+def tc_matmul(a: torch.Tensor, b: torch.Tensor, chunks=None, fresh=False) -> torch.Tensor:
     """a (R, K) times b (C, K)^T in the kernels' 3-term TF32 form: the small
     terms a_hi b_lo + a_lo b_hi first, then a_hi b_hi, float32 throughout.
     ``chunks``: a list of K-column index tensors walked in turn, each adding
     its small terms and then its large ones into the one float32
-    accumulator (the Q > 64 kernels)."""
+    accumulator (the Q > 64 Psi2 kernels); with ``fresh`` each chunk's
+    product is formed on its own and added to the running sum (the Psi1
+    kernels, ``csrc/psi_tc.cuh`` tc_tile_chunk)."""
     a_hi, a_lo = split(a.float())
     b_hi, b_lo = split(b.float())
     if chunks is None:
@@ -86,8 +109,12 @@ def tc_matmul(a: torch.Tensor, b: torch.Tensor, chunks=None) -> torch.Tensor:
         return small + a_hi @ b_hi.T
     acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32)
     for k in chunks:
-        acc = acc + (a_hi[:, k] @ b_lo[:, k].T + a_lo[:, k] @ b_hi[:, k].T)
-        acc = acc + a_hi[:, k] @ b_hi[:, k].T
+        small = a_hi[:, k] @ b_lo[:, k].T + a_lo[:, k] @ b_hi[:, k].T
+        if fresh:
+            acc = acc + (small + a_hi[:, k] @ b_hi[:, k].T)
+        else:
+            acc = acc + small
+            acc = acc + a_hi[:, k] @ b_hi[:, k].T
     return acc
 
 
@@ -281,3 +308,152 @@ def psi2_vjp(mu, s, z, sf2, alpha, w, dp2, zeta=None, form="tc", shift=None):
                                      sym, dz2, dal.float().sum(0), a.float(),
                                      torch.zeros((q, m)))
     return p2, (dmu, ds, dz, dsf2, dalpha)
+
+
+# --- Psi1 ---------------------------------------------------------------------
+
+# Psi1's exponent runs through the register buckets of the kernels up to
+# this Q and K-chunked past it (csrc/psi_tc.cuh kTcP1BucketMax).
+PSI1_BUCKET_MAX = 16
+# Columns of Y (D) one product chunk of the Psi1 kernels takes
+# (csrc/psi_tc.cuh kTcDChunk).
+DCHUNK = 16
+
+
+def shift1_of(s, alpha, sf2) -> float:
+    """S1 = -floor(max_n l1_n log2e), l1_n = log sf2 - 1/2 sum_q log(alpha
+    s_nq + 1): the Psi1 kernels' power of two (the largest row's values just
+    below 2)."""
+    l1 = torch.log(sf2.double()) - 0.5 * torch.log1p(alpha.double() * s.double()).sum(-1)
+    return -math.floor(float(l1.max()) * LOG2E)
+
+
+def _row_terms1(mu, s, alpha, sf2, zeta, shift=0):
+    """Psi1's (row operand (N, 2Q) [c1 mu' | -c1/2] log2e, row constant
+    (N,), c1, den1, mu') in float32; the sums as ``_row_terms`` takes them."""
+    mu, s, alpha = mu.float(), s.float(), alpha.float()
+    den = alpha * s + 1.0
+    c = alpha / den
+    mu_c = mu - zeta.float()
+    n, q = den.shape
+    pad = torch.ones((n, -q % 8), dtype=den.dtype)
+    prods = torch.cat([den, pad], dim=-1).reshape(n, -1, 8).prod(-1)
+    l1 = torch.log(sf2.float()).double() - 0.5 * torch.log(prods).double().sum(-1)
+    rc = ((l1 - 0.5 * (c * mu_c * mu_c).double().sum(-1)) * LOG2E + shift).float()
+    a = torch.cat([(c * mu_c) * LOG2E, -(0.5 * c) * LOG2E], dim=-1).float()
+    return a, rc, c, den, mu_c
+
+
+def exponents1(mu, s, z, sf2, alpha, zeta=None, shift=0):
+    """The (N, M) base-2 Psi1 exponents of the kernels' tile arithmetic plus
+    ``shift``, with (c1, den1, mu', z') beside them; past
+    ``PSI1_BUCKET_MAX`` K is walked in chunks."""
+    if zeta is None:
+        zeta = z.float().mean(0)
+    q = z.shape[1]
+    a, rc, c, den, mu_c = _row_terms1(mu, s, alpha, sf2, zeta, shift)
+    zc = z.float() - zeta.float()
+    b = torch.cat([zc, zc * zc], dim=-1)
+    l1 = tc_matmul(a, b, k_chunks(q) if q > PSI1_BUCKET_MAX else None, fresh=True) + rc[:, None]
+    return l1, c, den, mu_c, zc
+
+
+def _shift1_for(s, alpha, sf2, shift):
+    return shift1_of(s, alpha, sf2) if shift is None else shift
+
+
+def _weighted_psi1(mu, s, z, sf2, alpha, w, zeta, shift):
+    """(p = w exp2(L1 + S1) (N, M) float32, 2^-S1, c1, den1, mu', z')."""
+    sh = _shift1_for(s, alpha, sf2, shift)
+    l1, c, den, mu_c, zc = exponents1(mu, s, z, sf2, alpha, zeta, sh)
+    return w.float()[:, None] * ex2(l1), 2.0 ** -sh, c, den, mu_c, zc
+
+
+def psi1y_sum(mu, s, z, sf2, alpha, y, w, zeta=None, shift=None):
+    """Psi1^T (w Y) (M, D) in float64: p^T Y over tiles of 64 rows, each a
+    3-term TF32 product, the tiles added in float64, scaled by 2^-S1
+    (``shift`` S1: None for the kernels' own)."""
+    p, unshift, *_ = _weighted_psi1(mu, s, z, sf2, alpha, w, zeta, shift)
+    return _tiled_tc(p.T.contiguous(), y.float().T.contiguous(), p.shape[0]) * unshift
+
+
+def _pair_sums(x, tile):
+    """Sums of x (R, C, ...) over C as the Psi1 kernels take them: float32
+    over tiles of ``tile`` along C, the tiles added in float64."""
+    return sum(x[:, k0:k0 + tile].sum(1).double() for k0 in range(0, x.shape[1], tile))
+
+
+def centred_sums1(h, c, mu_c, zc, sums="pair"):
+    """(H (N,), t (N, Q), u (N, Q), b (Q, M)) in float64 from h (N, M), c1
+    and mu' (N, Q), z' (M, Q), float32: H = sum_m h, t = sum_m h (mu' - z'),
+    u = sum_m h (mu' - z')^2, b = sum_n h c1 (mu' - z'). ``sums`` as
+    ``psi1_bwd`` takes it; H is a float32 sum over tiles of 64 either way."""
+    n, m = h.shape
+    hsum = _tile_sums(h)
+    if sums == "pair":
+        dd = mu_c[:, None, :] - zc[None, :, :]                   # (N, M, Q)
+        hd = h[..., None] * dd
+        t = _pair_sums(hd, TILE)
+        u = _pair_sums(hd * dd, TILE)
+        hc = (h[..., None] * c[:, None, :]) * dd                 # (N, M, Q)
+        b = _pair_sums(hc.transpose(0, 1), TILE).T               # (Q, M)
+    elif sums == "expanded":
+        prod = lambda x, y, length: _tiled_tc(x, y.T.contiguous(), length)
+        t1, t2 = prod(h, zc, m), prod(h, zc * zc, m)             # (N, Q)
+        mu64, h64 = mu_c.double(), hsum[:, None]
+        t = mu64 * h64 - t1
+        u = mu64 * mu64 * h64 - 2.0 * mu64 * t1 + t2
+        h_t = h.T.contiguous()
+        b = (prod(h_t, c * mu_c, n) - zc.double() * prod(h_t, c, n)).T
+    else:
+        raise ValueError(f"sums must be 'pair' or 'expanded', got {sums!r}")
+    return hsum, t, u, b.contiguous()
+
+
+def psi1_bwd(mu, s, z, sf2, alpha, y, w, dp1y, zeta=None, shift=None, sums="pair"):
+    """The Psi1 part of the backward kernels' reductions against the
+    cotangent dp1y (M, D): the row pass's (dmu, ds, dalpha share) (N, Q) and
+    dy (N, D), and the point pass's centred sums b_q = sum_n h c1 (mu' -
+    z')_q (Q, M), float64. h = p (y . dp1y_m), the dot a 3-term TF32
+    product over D in chunks of DCHUNK, each chunk's product formed on its
+    own and added in float32; dY = sum p dp1y a 3-term TF32 product per
+    tile of 64 points. The centred sums (``centred_sums1``), ``sums``
+    "pair" (what the kernels run): per tile of 64 points H = sum h, t = sum
+    h (mu' - z'), u = sum h (mu' - z')^2, per tile of 64 rows b = sum h c1
+    (mu' - z'), pair by pair in float32, the tiles added in float64.
+    "expanded": T1 = sum h z', T2 = sum h z'^2, S1 = sum h c1 mu', S2 = sum
+    h c1 as further 3-term TF32 products over the same tiles, combined in
+    float64 into t = mu' H - T1, u = mu'^2 H - 2 mu' T1 + T2, b = S1 - z'
+    S2; kept to show that these cancel where the latents lie far from zeta
+    (tests/test_torch_psi1_tc.py)."""
+    p, unshift, c, den, mu_c, zc = _weighted_psi1(mu, s, z, sf2, alpha, w, zeta, shift)
+    m = p.shape[1]
+    d = y.shape[1]
+    r = dp1y.float()
+    dchunks = [torch.arange(k, min(k + DCHUNK, d)) for k in range(0, d, DCHUNK)]
+    h = p * tc_matmul(y.float(), r, dchunks, fresh=True)
+    hsum, t, u, b = (x * unshift for x in centred_sums1(h, c, mu_c, zc, sums))
+    dy = _tiled_tc(p, r.T.contiguous(), m) * unshift
+    t32, u32, h32 = t.float(), u.float(), hsum.float()[:, None]
+    dmu = -c * t32
+    ds = -0.5 * c * h32 + 0.5 * c * c * u32
+    dal = -0.5 * (s.float() / den) * h32 - 0.5 * u32 / (den * den)
+    return dmu.double(), ds.double(), dal.double(), dy, b.contiguous()
+
+
+def psi1_vjp(mu, s, z, sf2, alpha, y, w, dp1y, zeta=None, shift=None, sums="pair"):
+    """(Psi1^T (w Y), (dmu, ds, dz, dsf2, dalpha, dy)) against the cotangent
+    dp1y (M, D): the model's statistic, and its reductions (``psi1_bwd``,
+    ``sums``) assembled by ``psi_cuda._assemble_bwd`` in float32 as the
+    wrapper assembles the kernels' (no Psi2 part: its cotangent is zero)."""
+    from gparml_tpu_torch.ops.psi_cuda import _assemble_bwd
+
+    m, q = z.shape
+    f = lambda x: x.float()
+    p1y = psi1y_sum(mu, s, z, sf2, alpha, y, w, zeta, shift)
+    dmu, ds, dal, dy, b = psi1_bwd(mu, s, z, sf2, alpha, y, w, dp1y, zeta, shift, sums)
+    zero = torch.zeros((m, m))
+    dz, dsf2, dalpha = _assemble_bwd(f(z), f(sf2), f(alpha), p1y.float(), zero, f(dp1y), zero,
+                                     torch.zeros((m, m, q)), dal.float().sum(0),
+                                     torch.zeros((q, m, m)), b.float())
+    return p1y, (dmu, ds, dz, dsf2, dalpha, dy)

@@ -40,11 +40,11 @@ def test_kernel_parity(cuda, case, layout):
 @pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
 def test_one_split_a_grid_matches_plain(cuda, layout):
     """A partial budget of one byte puts every grid in one N-split of
-    70 000 rows: the launcher then runs the forward's Psi2 grid twice and
-    the inducing-point pass 35 times, the cell pass flushes 69 times into
-    its float64 partial, and the results must still meet the plain
-    versions."""
-    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1, 0)
+    70 000 rows: the launcher then runs the forward's Psi2 grid twice, the
+    cell pass flushes 69 times into its float64 partial, the Psi1 passes
+    add 1094 row tiles into their float64 totals, and the results must
+    still meet the plain versions."""
+    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1, 1)
     before = len(chip_smoke.FAILURES)
     with chip_smoke.partial_budget(1):
         res = chip_smoke.parity_case(70_000, 40, 3, 5, 0, device=cuda, layout=layout)
@@ -56,9 +56,9 @@ def test_one_split_a_grid_matches_plain(cuda, layout):
 def test_chunked_kernels_match_plain(cuda, layout, q):
     """Past Q = 64 the chunked kernels, forward and backward, against their
     plain versions: with the default plan, and with every grid in one
-    N-split of 5000 rows (the inducing-point pass then runs 3 launches).
-    The backward takes a float64 scratch of 2 Q a row."""
-    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 2 * q)
+    N-split of 5000 rows. The backward takes no per-row scratch: the plan's
+    fifth entry is the Psi1 row pass's inducing-point splits, 1 here."""
+    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 1)
     before = len(chip_smoke.FAILURES)
     res = chip_smoke.parity_case(300, 90, q, 6, 7, device=cuda, layout=layout)
     with chip_smoke.partial_budget(1):
@@ -146,10 +146,10 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
 
 
 def test_m_limit_at_q_over_32(cuda):
-    """At 32 < Q <= 64 M has no limit: the Psi1 row pass stages Z in pieces
-    of a fixed size, so M=908, 909 and 4000 plan within the card's shared
-    memory, as past Q = 64; and the wrappers run at M=4000, Q=64 against
-    their plain versions."""
+    """At 32 < Q <= 64 M has no limit: the Psi1 passes walk the inducing
+    points in tiles of 64, so M=908, 909 and 4000 plan within the card's
+    shared memory, as past Q = 64; and the wrappers run at M=4000, Q=64
+    against their plain versions."""
     for m, q in ((908, 44), (909, 44), (4000, 44), (4000, 64), (4000, 65), (4000, 300)):
         psi_cuda._plan(8, m, q, 4, cuda)
     xs = _inputs(cuda, n=8, m=4000, q=64, d=4)
@@ -165,19 +165,128 @@ def test_m_limit_at_q_over_32(cuda):
         assert float((a - b).abs().max()) <= chip_smoke.GRAD_TOL_F32 * float(b.abs().max())
 
 
-# 32 rows of Y as 32 x D floats (2.5 MB), also by the chunked kernels: past
-# any card's shared memory per block.
+# D = 20000: past what the direct-form Psi1 kernels staged (32 rows of Y
+# as 32 x D floats, 2.5 MB). The tensor-core Psi1 kernels walk D in chunks
+# and take its float64 totals in column passes, so no shape is past the
+# card's shared memory any more.
 @pytest.mark.parametrize("m, q, d", [(40, 10, 20000), (40, 100, 20000)])
 def test_wrappers_reject_shapes_past_shared_memory(cuda, m, q, d):
-    xs = _inputs(cuda, n=8, m=m, q=q, d=d)
-    before = dict(psi_cuda.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
-        psi_cuda.psi_fwd(*xs)
-    m_ok = torch.zeros((m, m), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        psi_cuda.psi_bwd(*xs, torch.zeros((m, d), device=cuda), m_ok,
-                         torch.zeros((m, d), device=cuda), m_ok)
-    assert psi_cuda.LAUNCHES == before
+    """The plan at D = 20000 stays within the card's shared memory, and the
+    wrappers run there against their plain versions (the name dates from
+    when such shapes were refused: D no longer sets a limit)."""
+    psi_cuda._plan(8, m, q, d, cuda)
+    xs = list(_inputs(cuda, n=8, m=m, q=q, d=d))
+    xs[4] = xs[4] * min(1.0, 44.0 / q)
+    cot = (torch.randn((m, d), device=cuda), torch.randn((m, m), device=cuda))
+    got = psi_cuda.psi_fwd(*xs)
+    got_b = psi_cuda.psi_bwd(*xs, *got, *cot)
+    want = psi_cuda.psi_fused_fwd_reference(*xs)
+    want_b = psi_cuda.psi_fused_bwd_reference(*xs, *cot)
+    for a, b in zip((*got, *got_b), (*want, *want_b)):
+        assert float((a - b).abs().max()) <= chip_smoke.GRAD_TOL_F32 * float(b.abs().max())
+
+
+def _psi1_case(cuda, n, m, q, d, layout="nq", seed=0, spread=None):
+    """Psi1^T (w Y) and the gradients of sum(Psi1^T (w Y) * W) (no Psi2
+    cotangent, so only the Psi1 kernels' reductions act) by the kernels,
+    and by the plain version in float32 and float64; inputs drawn as
+    chip_smoke.parity_case draws them, or with ``spread`` the latents
+    spread * N(0, 1) and each inducing point a latent row moved by
+    0.3 * N(0, 1) (as an init that picks Z among the latents gives)."""
+    rng = np.random.default_rng(seed + n + m + q)
+    host = dict(mu=rng.standard_normal((n, q)), s=0.3 + 0.5 * rng.random((n, q)),
+                z=rng.standard_normal((m, q)), sf2=np.asarray(1.3),
+                alpha=(0.5 + rng.random(q)) * min(1.0, 44.0 / q),
+                y=rng.standard_normal((n, d)))
+    if spread is not None:
+        host["mu"] = host["mu"] * spread
+        host["z"] = host["mu"][rng.choice(n, m, replace=False)] + 0.3 * host["z"]
+    if layout == "qn":
+        host.update({k: np.ascontiguousarray(host[k].T) for k in ("mu", "s", "y")})
+    w = np.r_[np.ones(n - 3), np.zeros(3)]
+    wy = rng.standard_normal((m, d))
+    fused = psi_cuda.psi_fused if layout == "nq" else psi_cuda.psi_fused_t
+    ref = (psi_cuda.psi_fused_fwd_reference if layout == "nq"
+           else psi_cuda.psi_fused_t_fwd_reference)
+
+    def run(dtype, fn):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+        xs = [t(host[k]).requires_grad_(True) for k in chip_smoke.GRAD_NAMES]
+        p1y, _ = fn(*xs, t(w))
+        grads = torch.autograd.grad(torch.sum(p1y * t(wy)), xs)
+        return [a.detach().double() for a in (p1y, *grads)]
+
+    return run(torch.float32, fused), run(torch.float32, ref), run(torch.float64, ref)
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("q", [2, 3, 10, 16, 27, 32, 44, 64, 65, 100, 256])
+def test_psi1_kernels_match_plain_at_every_bucket(cuda, layout, q):
+    """The Psi1 kernels alone (Psi2's cotangent zero) at each of their
+    buckets (up to Q = 16) and K-chunked (past it, also past 64), with D
+    over two chunks and more than one point tile: against the plain float32
+    version at chip_smoke's GRAD_TOL_F32 (max abs of max|ref|), and against
+    float64 at GRAD_TOL_F64 (norm-scaled)."""
+    got, plain, ref = _psi1_case(cuda, 300, 150, q, 20, layout)
+    for name, a, b, c in zip(("psi1_y",) + chip_smoke.GRAD_NAMES, got, plain, ref):
+        assert float((a - b).abs().max()) <= chip_smoke.GRAD_TOL_F32 * float(b.abs().max()), name
+        assert float(torch.linalg.norm(a - c) / torch.linalg.norm(c)) <= chip_smoke.GRAD_TOL_F64, name
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("q, spread", [(10, 2.0), (100, 3.0)])
+def test_psi1_kernels_on_wide_latents_match_float64(cuda, layout, q, spread):
+    """Latents spread to +-8..10 around zeta (std 2 at Q = 10, 3 at
+    Q = 100), each inducing point near a latent row: the expanded centred
+    sums (u = mu'^2 H - 2 mu' T1 + T2) would cancel there, and the
+    exponent's K sums run to hundreds where it is tens (Q = 100, where one
+    float32 accumulator over the K chunks lost to the plain engine). Each
+    output within max(F64_TOL, F64_FLOOR_FACTOR x the plain float32
+    version's error) of float64, norm-scaled (the CPU model's counterpart:
+    tests/test_torch_psi1_tc.py ``test_psi1_on_wide_latents_matches_jax_float64``)."""
+    got, plain, ref = _psi1_case(cuda, 2000, 128, q, 20, layout, spread=spread)
+    nrm = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    for name, a, b, c in zip(("psi1_y",) + chip_smoke.GRAD_NAMES, got, plain, ref):
+        limit = max(chip_smoke.F64_TOL, chip_smoke.F64_FLOOR_FACTOR * nrm(b, c))
+        assert nrm(a, c) <= limit, (name, nrm(a, c), limit)
+
+
+@pytest.mark.parametrize("q", [10, 100])
+def test_psi1_point_splits_match_one_split(cuda, q):
+    """N=16, M=640: the Psi1 row pass's one row block fills too little of
+    the card, so the plan splits its inducing points over blocks (float64
+    row partials, summed in a fixed order); with every grid in one split
+    (a partial budget of one byte) it does not. Both agree to float64
+    summation order."""
+    plan = psi_cuda._plan_for(16, 640, q, 12, cuda, psi_cuda.PARTIAL_BYTES)
+    assert plan[4] > 1, plan
+    split = _psi1_case(cuda, 16, 640, q, 12)[0]
+    with chip_smoke.partial_budget(1):
+        one = _psi1_case(cuda, 16, 640, q, 12)[0]
+    for a, b in zip(split, one):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("q", [3, 44])
+def test_psi1_qn_kernels_equal_nq_kernels_with_point_splits(cuda, q):
+    """At N=300, M=130 the Psi1 row pass splits its inducing points (5 row
+    blocks); both layouts still run the same sums in the same order, also
+    at Q=44 (Psi1 K-chunked, Psi2's bucket 64): bitwise equal but dalpha
+    (as in the tests above)."""
+    xs = list(_inputs(cuda, n=300, m=130, q=q, d=12))
+    assert psi_cuda._plan(300, 130, q, 12, cuda)[4] > 1
+    ts = [t.T.contiguous() if i in (0, 1, 5) else t for i, t in enumerate(xs)]
+    p1y, p2 = psi_cuda.psi_fwd(*xs)
+    p1y_t, p2_t = psi_cuda.psi_fwd_t(*ts)
+    assert torch.equal(p1y, p1y_t) and torch.equal(p2, p2_t)
+    cot = (torch.ones_like(p1y), torch.ones_like(p2))
+    g = psi_cuda.psi_bwd(*xs, p1y, p2, *cot)
+    g_t = psi_cuda.psi_bwd_t(*ts, p1y, p2, *cot)
+    for i, (a, b) in enumerate(zip(g, g_t)):
+        if i == 4:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+        else:
+            assert torch.equal(a, b.T if i in (0, 1, 5) else b), i
 
 
 @pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)

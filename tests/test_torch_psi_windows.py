@@ -124,10 +124,11 @@ def test_window_float32_matches_pallas_interpret(m, q, kind):
 
 
 # The chunked CUDA kernels' decomposition (csrc/psi_bwd.cu, Q > 64): latent
-# dimensions in chunks of kQChunk = 16, row passes over groups of cells
-# (inducing points), column passes over chunks of rows. The group and row
-# chunk are smaller here than the kernels' (64, 64, 32) so that the model
-# crosses their edges at a test's size; the sums are the same.
+# dimensions in chunks of kTcQChunk = 16; the Psi2 row pass over groups of
+# cells, the Psi1 row pass over tiles of inducing points, the cell and point
+# passes over tiles of rows. The groups and tiles are smaller here than the
+# kernels' (64) so that the model crosses their edges at a test's size; the
+# sums are the same.
 QC = 16
 
 
@@ -152,7 +153,7 @@ def _chunked_kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, group=4, rows=5
     lc = 2 * torch.log(sf2) - 0.5 * torch.log(den).sum(-1)
     tt, uu = torch.zeros(n, q, dtype=mu.dtype), torch.zeros(n, q, dtype=mu.dtype)
     gsum = torch.zeros(n, dtype=mu.dtype)
-    # psi2_bwd_rows_chunked_kernel: per row mi of cells, groups of cells
+    # psi2_bwd_rows_tc_chunked_kernel: per row mi of cells, groups of cells
     for mi in range(m):
         for mj0 in range(mi, m, group):
             mj = torch.arange(mj0, min(m, mj0 + group))
@@ -166,7 +167,9 @@ def _chunked_kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, group=4, rows=5
     dmu = 2 * c * tt
     ds = -c * gsum[:, None] + 2 * c * c * uu
     dal = -(s / den) * gsum[:, None] - uu / den ** 2
-    # psi1_bwd_rows_chunked_kernel: groups of inducing points
+    # psi1_bwd_rows_tc_kernel<0>: tiles of inducing points; per tile and
+    # dimension chunk, t = sum h (mu - z) and u = sum h (mu - z)^2 pair by
+    # pair, H = sum h and dY = sum p dPsi1Y
     den1 = alpha * s + 1
     c1 = alpha / den1
     l1 = torch.log(sf2) - 0.5 * torch.log(den1).sum(-1)
@@ -186,8 +189,8 @@ def _chunked_kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, group=4, rows=5
     dmu = dmu - c1 * t1
     ds = ds - 0.5 * c1 * hsum[:, None] + 0.5 * c1 * c1 * u1
     dal = dal - 0.5 * (s / den1) * hsum[:, None] - 0.5 * u1 / den1 ** 2
-    # psi2_bwd_cells_chunked_kernel and psi1_bwd_m_chunked_kernel: chunks of
-    # rows, each chunk's centred sums added per latent dimension chunk
+    # psi2_bwd_cells_tc_chunked_kernel and psi1_bwd_m_tc_kernel<0>: tiles of
+    # rows, each tile's centred sums added per latent dimension chunk
     zb = 0.5 * (z[:, None] + z[None])                                  # (M, M, Q)
     a = torch.zeros(q, m, m, dtype=mu.dtype)
     b = torch.zeros(q, m, dtype=mu.dtype)
@@ -207,9 +210,9 @@ def _chunked_kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, group=4, rows=5
 
 def test_chunked_backward_decomposition_matches_autograd():
     """The chunked kernels' split at Q=100 (row passes over groups of cells
-    and dimension chunks, cell and inducing-point sums over chunks of rows,
-    then ``_assemble_bwd``) reproduces autograd of the plain forward in
-    float64."""
+    or tiles of inducing points and dimension chunks, cell and
+    inducing-point sums over tiles of rows, then ``_assemble_bwd``)
+    reproduces autograd of the plain forward in float64."""
     pr, w, _ = _problem(9, 100, n=11, d=4)
     x = [torch.tensor(pr[k]) for k in NAMES]
     wt = torch.tensor(w)

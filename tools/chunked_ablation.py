@@ -55,12 +55,12 @@ VARIANTS = {
 SHAPE = (100_000, 256, 100, 128)
 
 
-def build(work):
+def build(work, variants=VARIANTS):
     """{variant: ctypes library}, every variant's sources compiled at once."""
     from gparml_tpu_torch.ops import _build
 
     nvcc, procs = _build._nvcc(), []
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         d = work / f"v{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(ROOT / "gparml_tpu_torch" / "csrc", d)
@@ -80,7 +80,7 @@ def build(work):
         if p.returncode:
             raise SystemExit(f"nvcc failed:\n{out[-3000:]}")
     libs = {}
-    for i, name in enumerate(VARIANTS):
+    for i, name in enumerate(variants):
         d = work / f"v{i}"
         subprocess.run([nvcc, "-shared", "-o", str(d / "lib.so"), str(d / "psi_fwd.o"),
                         str(d / "psi_bwd.o")], check=True)
