@@ -85,7 +85,18 @@ Phases, one line each or more:
      card at N=2e6-3: elbo_sharded against elbo, and 500 steps against
      unsharded; (c) --optimizer svgp through the CLI on BASELINE config 1's
      folders in both layouts, then a resume; (d) the same under -p remote on
-     two processes of the card, the ranks' glob, q_mu and q_sqrt bit for bit.
+     two processes of the card, the ranks' glob, q_mu and q_sqrt bit for bit;
+ 10. the entry points (gparml_tpu_torch/graft_entry.py) and the examples
+     (examples/torch/; ``--phases 0``): (a) entry(), one bound+gradient at
+     N=2048, Q=10, M=64, D=12 on the card, one forward and one backward
+     kernel call, held against the plain engine as phase 4 holds the slice;
+     (b) dryrun_multichip(4) on a mesh of 4 shards of the card (a GPLVM SCG
+     step, an SGPR SCG iteration, an SVGP step); (c) dryrun_multihost(2, 1),
+     two CLI processes on the card over gloo; (d) large_scale_gplvm.py at
+     the slice's shape (N=1e6, M=200), huge_n_single_chip.py at config 5's
+     (N=1e7, M=500, one SCG iteration) and gplvm_oil_flow.py (config 2),
+     each a subprocess whose exit code fails the run, and whose last line,
+     its kernel launch counts, must show the kernels of its window.
 Phases 4, 5 (config 5), 6(b), 6(c) and 7(a) (the statistics of
 infer_latents' 1e3 rows) also print the device ms a call of every
 ``__global__`` the wrappers launch (torch.profiler; the kernel table's
@@ -94,15 +105,18 @@ Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run; phase 7:
 each call; phase 8: the sharded evaluation, and each remote CLI run counts
 its own, which rank 0's summary reports; phase 9: each fit and CLI run,
-which launch none). The line before the last is the
-kernel table as JSON (``launches_sharded``: phase 8(a)'s calls in one
-sharded evaluation); the last line is {"ok": true, "device": {...}}. A
+which launch none; phase 10: entry()'s evaluation and the multichip dry
+run, and each example's process reports its own). The line before the
+last is the kernel table as JSON (``launches_sharded``: phase 8(a)'s calls
+in one sharded evaluation; ``launches_entry``: phase 10(a)'s in entry()'s;
+``launches_examples``: phase 10(d)'s in the examples' processes); the
+last line is {"ok": true, "device": {...}}. A
 failed check prints a "chip_smoke check failed" line, the run goes on to
 its end for the readings, and then exits non-zero without those two lines.
 
 Run from the repository root: python3 chip_smoke.py
-`--phases 3` (or any of the digits 3-9, e.g. `--phases 89`) runs phases 1
-and 2 and those alone, each check as in the whole run; it prints which
+`--phases 3` (or any of the digits 3-9, and 0 for phase 10, e.g. `--phases
+890`) runs phases 1 and 2 and those alone, each check as in the whole run; it prints which
 checks failed and not the last two lines (phase 7(b) needs phase 5). The
 short first call after a kernel change is `python3 chip_smoke.py --phases 3`.
 """
@@ -182,6 +196,10 @@ MUFU_PER_CLOCK_SM = 16
 # Q = 100 every Psi2 entry is then below float32's normal range, which the
 # chunked kernels' exact shift of the exponents is for. After them, Q=44
 # past M=908, at M=1000: the Psi1 passes walk 16 tiles of inducing points.
+# Last, an eighth entry spreads the latents (``spread_inputs``): std 3
+# around the origin, each inducing point near a latent row, as a fit leaves
+# them, where the expanded exponent's terms c mu' z' grow with the spread
+# (Q = 48 and 64, Psi2's bucket 64, the largest of the Q <= 64 kernels).
 PARITY_CASES = (
     (64, 200, 10, 12, 0),
     (1000, 200, 10, 12, 300),
@@ -205,6 +223,8 @@ PARITY_CASES = (
     (64, 512, 64, 12, 0),
     (24, 256, 100, 16, 5, 0.0, True),
     (40, 1000, 44, 12, 5),
+    (400, 64, 48, 16, 0, 0.0, False, 3.0),
+    (400, 64, 64, 16, 0, 0.0, False, 3.0),
 )
 LAYOUTS = ("nq", "qn")
 # (N, M, Q, D, sf2) of the flush case: the slice's shape (phase 3's first
@@ -285,6 +305,25 @@ SVGP_MESH_STEPS = 500
 SVGP_CLI = (600, 100, 256, 0.05)
 SVGP_RESUME_DROP = 5.0
 SVGP_REMOTE = (300, 100)
+# Phase 10, the entry points of gparml_tpu_torch/graft_entry.py and the
+# examples of examples/torch/: (a) entry() (N=2048, Q=10, M=64, D=12: the
+# Ml=128 window); (b) dryrun_multichip on a mesh of GRAFT_SHARDS shards of
+# the card; (c) dryrun_multihost with GRAFT_RANKS processes of one shard
+# each on the card (each killed at REMOTE_TIMEOUT); (d) each example at its
+# card shape as a subprocess, given EXAMPLE_TIMEOUT seconds: (script,
+# arguments, {launch counter: the kernel table's entry for the TPU window
+# its shape runs}); the example's last line gives its process's counts,
+# and each counter named must be past 0.
+GRAFT_SHARDS = 4
+GRAFT_RANKS = 2
+EXAMPLES = (
+    ("large_scale_gplvm.py", ["--n", 1_000_000, "--m", 200],
+     {"fwd": "psi_fwd", "bwd": "psi_bwd"}),
+    ("huge_n_single_chip.py", ["--n", 10_000_000, "--m", 500, "--iters", 1],
+     {"fwd_t": "psi_fwd_t", "bwd_t": "psi_bwd_t"}),
+    ("gplvm_oil_flow.py", [], {"fwd": "psi_fwd_ml128", "bwd": "psi_bwd_ml128"}),
+)
+EXAMPLE_TIMEOUT = 300
 
 
 FAILURES = []
@@ -313,29 +352,59 @@ def _wrappers(layout):
             pc.psi_fused_t_fwd_reference, pc.psi_fused_t_bwd_reference)
 
 
-def parity_case(n, m, q, d, nzero, offset=0.0, raw_alpha=False, device="cuda", layout="nq"):
+def wide_latents(q, spread, n, m, seed=0):
+    """Latents spread * N(0, 1) around the origin, each inducing point a
+    latent row moved by 0.3 * N(0, 1) (as an init that picks Z among the
+    latents gives), so that zeta lies near 0 while |mu'| reaches 4 spread;
+    alpha scaled by min(1, 44/Q). Returns (mu, s, z, alpha, rng), float64,
+    and the generator for further draws."""
+    rng = np.random.default_rng(seed + 100 * q + n + m)
+    mu = rng.standard_normal((n, q)) * spread
+    s = 0.3 + 0.5 * rng.random((n, q))
+    z = mu[rng.choice(n, m, replace=False)] + 0.3 * rng.standard_normal((m, q))
+    alpha = (0.5 + rng.random(q)) * min(1.0, 44.0 / q)
+    return mu, s, z, alpha, rng
+
+
+def spread_inputs(n, m, q, d, spread, seed=0):
+    """A spread case's float64 inputs: ``wide_latents``, sf2 = 1.3, Y (N,
+    D), unit weights, and the cotangents dp1y (M, D) and dp2 (M, M), all
+    N(0, 1) draws."""
+    mu, s, z, alpha, rng = wide_latents(q, spread, n, m, seed)
+    return dict(mu=mu, s=s, z=z, sf2=np.asarray(1.3), alpha=alpha,
+                y=rng.standard_normal((n, d)), w=np.ones(n),
+                dp1y=rng.standard_normal((m, d)), dp2=rng.standard_normal((m, m)))
+
+
+def parity_case(n, m, q, d, nzero, offset=0.0, raw_alpha=False, spread=None, device="cuda",
+                layout="nq"):
     """Kernel vs plain version on one shape in one layout, the latents (mu
     and Z) shifted by ``offset``, alpha unscaled past Q = 64 with
     ``raw_alpha``; returns a dict of errors and fails the run past the
-    tolerances."""
+    tolerances. With ``spread`` the inputs are ``spread_inputs``' (the
+    probe's weights its cotangents)."""
     import torch
 
     _, _, fused, fwd_ref, _ = _wrappers(layout)
     rng = np.random.default_rng(m + n)
-    host = dict(
-        mu=rng.standard_normal((n, q)) + offset, s=0.3 + 0.5 * rng.random((n, q)),
-        z=rng.standard_normal((m, q)) + offset, sf2=np.asarray(1.3),
-        alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)),
-    )
-    if q > 64 and not raw_alpha:
-        # exponents of Q terms: scaled to Q=44's range, past which every
-        # Psi2 entry would underflow float32's normal range
-        host["alpha"] *= 44.0 / q
+    if spread is None:
+        host = dict(
+            mu=rng.standard_normal((n, q)) + offset, s=0.3 + 0.5 * rng.random((n, q)),
+            z=rng.standard_normal((m, q)) + offset, sf2=np.asarray(1.3),
+            alpha=0.5 + rng.random(q), y=rng.standard_normal((n, d)),
+        )
+        if q > 64 and not raw_alpha:
+            # exponents of Q terms: scaled to Q=44's range, past which every
+            # Psi2 entry would underflow float32's normal range
+            host["alpha"] *= 44.0 / q
+        wy = rng.standard_normal((m, d))
+        wp = rng.standard_normal((m, m))
+    else:
+        host = spread_inputs(n, m, q, d, spread)
+        wy, wp = host["dp1y"], host["dp2"]
     if layout == "qn":
         host.update({k: np.ascontiguousarray(host[k].T) for k in ("mu", "s", "y")})
     w = np.r_[np.ones(n - nzero), np.zeros(nzero)]
-    wy = rng.standard_normal((m, d))
-    wp = rng.standard_normal((m, m))
 
     def run(dtype, kernels):
         t = lambda a: torch.tensor(a, dtype=dtype, device=device)
@@ -357,7 +426,7 @@ def parity_case(n, m, q, d, nzero, offset=0.0, raw_alpha=False, device="cuda", l
     bad += [f"d{k}" for k in GRAD_NAMES if out[f"d{k}"] > GRAD_TOL_F32]
     bad += [f"d{k}_f64" for k in GRAD_NAMES if out[f"d{k}_f64"] > GRAD_TOL_F64]
     _require(not bad, f"parity {layout} N={n} M={m} Q={q} D={d} offset={offset} "
-             f"raw_alpha={raw_alpha}: {bad} {out}")
+             f"raw_alpha={raw_alpha} spread={spread}: {bad} {out}")
     return out
 
 
@@ -1725,47 +1794,19 @@ def phase8_mesh(dev, kernels):
         torch.cuda.empty_cache()
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
 def _ranks(args, work, tag):
     """``python *args`` as REMOTE_RANKS ranks of a new process group on this
-    card, with torchrun's variables; every rank is killed once one fails or
-    REMOTE_TIMEOUT passes. Returns (their outputs, seconds)."""
-    port = str(_free_port())
-    procs, logs = [], []
+    card (``graft_entry.run_ranks``: every rank is killed once one fails or
+    REMOTE_TIMEOUT passes). Returns (their outputs, seconds, ok)."""
+    from gparml_tpu_torch.graft_entry import run_ranks
+
     t0 = time.perf_counter()
-    for rank in range(REMOTE_RANKS):
-        env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="localhost", MASTER_PORT=port,
-                   WORLD_SIZE=str(REMOTE_RANKS), RANK=str(rank), LOCAL_RANK=str(rank),
-                   LOCAL_WORLD_SIZE=str(REMOTE_RANKS))
-        logs.append(os.path.join(work, f"{tag}.rank{rank}.log"))
-        with open(logs[-1], "w") as out:
-            procs.append(subprocess.Popen([sys.executable, *map(str, args)], stdout=out,
-                                          stderr=subprocess.STDOUT, env=env, cwd=ROOT))
     try:
-        while any(p.poll() is None for p in procs):
-            if time.perf_counter() - t0 > REMOTE_TIMEOUT or any(p.poll() for p in procs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    outs = []
-    for p, log in zip(procs, logs):
-        with open(log) as f:
-            outs.append(f.read())
-    ok = all(p.returncode == 0 for p in procs)
-    _require(ok, f"phase {tag}: ranks exited {[p.returncode for p in procs]}:\n"
-             + "\n".join(o[-3000:] for o in outs))
-    return outs, time.perf_counter() - t0, ok
+        outs = run_ranks(args, REMOTE_RANKS, work, tag, REMOTE_TIMEOUT)
+    except RuntimeError as err:
+        _require(False, f"phase {err}")
+        return [], time.perf_counter() - t0, False
+    return outs, time.perf_counter() - t0, True
 
 
 def _remote_cli(argv, work, tag):
@@ -2125,6 +2166,107 @@ def phase9_remote(dev, work):
     print(text)
 
 
+def phase10_entry(dev, kernels):
+    """10(a): ``graft_entry.entry()`` on the card: one forward and one
+    backward kernel call in its evaluation, the value and gradient held
+    against the plain engine (float32, and in float64 through a float64
+    bound) as phase 4 holds the slice's, and its s/eval."""
+    import torch
+    from gparml_tpu_torch import graft_entry
+    from gparml_tpu_torch.models import gplvm
+    from gparml_tpu_torch.ops import psi_cuda
+
+    n, d, q, m = graft_entry.ENTRY_SHAPE
+    fn, (p, y) = graft_entry.entry(dev)
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    f_k, g_k = fn(p, y)
+    torch.cuda.synchronize()
+    launches = dict(psi_cuda.LAUNCHES)
+    _require(launches == {"fwd": 1, "bwd": 1, "fwd_t": 0, "bwd_t": 0},
+             f"phase 10(a) entry(): not one forward and one backward kernel call: {launches}")
+    for k in kernels:
+        if k["name"] in ("psi_fwd_ml128", "psi_bwd_ml128"):
+            k["launches_entry"] = launches[k["name"][4:7]]
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="auto")
+    cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla")
+    f_x, g_x = gplvm.neg_bound_value_and_grad(p, y, cfg_x)
+    rel_f, rel_g = _hold_against_plain("phase 10(a) entry()", p, y, cfg, cfg_x, f_k, g_k,
+                                       f_x, g_x)
+    sec = min(_timed(lambda: fn(p, y))[0] for _ in range(5))
+    print(f"phase 10(a) entry() N={n} Q={q} M={m} D={d}: -bound {float(f_k):.8g}, "
+          f"{sec:.5f} s/eval; launches {launches}; vs plain f32: bound rel {rel_f:.2e}, "
+          f"gradient {rel_g:.2e}")
+
+
+def _dryrun(label, fn):
+    """fn()'s result, or None after recording its failure (the dry runs
+    raise RuntimeError on a failed check of their own)."""
+    try:
+        return fn()
+    except RuntimeError as err:
+        _require(False, f"phase {label}: {err}")
+        return None
+
+
+def phase10_dryruns(dev, work):
+    """10(b): ``dryrun_multichip`` on a mesh of GRAFT_SHARDS shards of the
+    card (a GPLVM SCG step, an SGPR SCG iteration and an SVGP step), the
+    kernels called for every shard; 10(c): ``dryrun_multihost`` with
+    GRAFT_RANKS processes on the card, rank 0's kernel calls."""
+    from gparml_tpu_torch import graft_entry
+    from gparml_tpu_torch.ops import psi_cuda
+
+    psi_cuda.LAUNCHES.update({k: 0 for k in psi_cuda.LAUNCHES})
+    sec, out = _timed(lambda: _dryrun("10(b)", lambda: graft_entry.dryrun_multichip(
+        GRAFT_SHARDS, dev)))
+    launches = dict(psi_cuda.LAUNCHES)
+    _require(launches["fwd"] >= GRAFT_SHARDS and launches["bwd"] >= GRAFT_SHARDS,
+             f"phase 10(b) dryrun_multichip({GRAFT_SHARDS}): kernels skipped: {launches}")
+    print(f"phase 10(b) dryrun_multichip({GRAFT_SHARDS}) on {dev}: {sec:.2f} s, {out}; "
+          f"launches {launches}")
+    sec, summary = _timed(lambda: _dryrun("10(c)", lambda: graft_entry.dryrun_multihost(
+        GRAFT_RANKS, 1, dev, work=os.path.join(work, "graft_multihost"), timeout=REMOTE_TIMEOUT)))
+    if summary is not None:
+        launches = summary["kernel_launches"]
+        _require(launches["fwd"] > 0 and launches["bwd"] > 0,
+                 f"phase 10(c) dryrun_multihost: rank 0 skipped a kernel: {launches}")
+        print(f"phase 10(c) dryrun_multihost({GRAFT_RANKS}, 1) on {dev}: {sec:.2f} s, bound "
+              f"{summary['final_bound']:.6g}, {summary['devices']} devices, backend "
+              f"{summary['backend']}; rank 0's launches {launches}")
+
+
+def phase10_examples(dev, kernels):
+    """10(d): each of EXAMPLES as a subprocess on the card, at its card
+    shape; a non-zero exit, or a kernel it should reach left at 0 launches
+    in its last line, fails the run. Prints each one's output and puts its
+    counts in the kernel table (``launches_examples``)."""
+    for script, args, counted in EXAMPLES:
+        argv = [sys.executable, os.path.join(ROOT, "examples", "torch", script),
+                "--device", dev.type, *map(str, args)]
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            _require(False, f"phase 10(d) {script}: past {EXAMPLE_TIMEOUT} s")
+            continue
+        lines = res.stdout.strip().splitlines()
+        _require(res.returncode == 0, f"phase 10(d) {script} exited {res.returncode}:\n"
+                 + res.stdout[-2000:] + res.stderr[-3000:])
+        try:
+            launches = json.loads(lines[-1])["kernel_launches"]
+        except (IndexError, ValueError, KeyError):
+            launches = {}
+        _require(all(launches.get(c, 0) > 0 for c in counted),
+                 f"phase 10(d) {script}: kernels skipped, last line {lines[-1:]}")
+        for k in kernels:
+            for counter, name in counted.items():
+                if k["name"] == name:
+                    k["launches_examples"] = k.get("launches_examples", 0) + launches.get(counter, 0)
+        print(f"phase 10(d) {script} {' '.join(map(str, args))}: {time.perf_counter() - t0:.2f} "
+              f"s, exit {res.returncode}: " + " | ".join(lines))
+
+
 def phase2():
     """Build the kernels; print ptxas's registers and spills and each
     tensor-core kernel's HGMMA instructions (none fails the run)."""
@@ -2152,7 +2294,8 @@ def phase3(dev):
         for layout in LAYOUTS:
             res = parity_case(*case, layout=layout)
             print(f"phase 3 parity {layout} N={case[0]} M={case[1]} Q={case[2]} "
-                  f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:] else ''}: "
+                  f"D={case[3]} zero-w={case[4]}{' raw alpha' if case[6:7] == (True,) else ''}"
+                  f"{f' spread {case[7]}' if case[7:] else ''}: "
                   + " ".join(f"{k}={v:.2e}" for k, v in res.items()))
     for layout in LAYOUTS:
         res = flush_case(*FLUSH_CASE, layout=layout)
@@ -2164,13 +2307,14 @@ def phase3(dev):
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")
 
 
-ALL_PHASES = "3456789"
+ALL_PHASES = "34567890"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES,
-                    help="the phases after the device and the build to run (digits 3-9)")
+                    help="the phases after the device and the build to run (digits 3-9, "
+                         "and 0 for phase 10)")
     run = set(ap.parse_args(argv).phases)
     if not run <= set(ALL_PHASES):
         ap.error(f"--phases takes digits of {ALL_PHASES}")
@@ -2254,6 +2398,14 @@ def main(argv=None) -> int:
             phase9_cli(dev, work)
             phase9_remote(dev, work)
             print(f"phase 9: {time.perf_counter() - t0:.2f} s")
+            torch.cuda.empty_cache()
+        if "0" in run:
+            t0 = time.perf_counter()
+            phase10_entry(dev, kernels)
+            phase10_dryruns(dev, work)
+            torch.cuda.empty_cache()
+            phase10_examples(dev, kernels)
+            print(f"phase 10: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2261,7 +2413,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {len(FAILURES)} checks failed", file=sys.stderr)
         return 1
     if run != set(ALL_PHASES):
-        print(f"chip_smoke: phases 1, 2 and {''.join(sorted(run))} passed; failed checks: none")
+        names = ", ".join("10" if c == "0" else c for c in sorted(run, key=ALL_PHASES.index))
+        print(f"chip_smoke: phases 1, 2 and {names} passed; failed checks: none")
         return 0
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

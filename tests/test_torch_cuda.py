@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from gparml_tpu_torch.ops import psi_cuda  # noqa: E402
+from tools import spread_latents  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -249,6 +250,36 @@ def test_psi1_kernels_on_wide_latents_match_float64(cuda, layout, q, spread):
     for name, a, b, c in zip(("psi1_y",) + chip_smoke.GRAD_NAMES, got, plain, ref):
         limit = max(chip_smoke.F64_TOL, chip_smoke.F64_FLOOR_FACTOR * nrm(b, c))
         assert nrm(a, c) <= limit, (name, nrm(a, c), limit)
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("stat", spread_latents.STATS)
+@pytest.mark.parametrize("q", spread_latents.CASES)
+def test_spread_latent_kernels_within_twice_the_model(cuda, q, stat, layout):
+    """Psi2 and Psi1 (each with the other's cotangent zero) on latents
+    spread as a fit spreads them (``chip_smoke.spread_inputs``, N=400,
+    M=64, D=16, spread 3), where the expanded exponent's terms grow with
+    the spread: the kernels' statistic and every VJP leaf, norm-scaled
+    against the plain version in float64 on the card, within the larger of
+    F64_TOL and twice the CPU model's (``ops/psi_tc_model.py``) error on the
+    same inputs, computed here, each leaf against the same leaf (dsf2 and
+    dalpha, sums whose error is one draw of a cancelling sum, read as the
+    median over seeds 0-24: ``tools/spread_latents.card_errors``; over
+    seeds 0-4 the kernels' Psi1 dsf2 at Q=48 read 3.4x the model's, over
+    25 draws 1.09x). The model
+    stands for the arithmetic the kernels are meant to run; a kernel past
+    twice its error rounds or accumulates otherwise. The limit the kernels
+    must also stay under is the JAX package's own float32 path (Pallas in
+    interpret mode) on these inputs, from tests/test_torch_spread_latents.py
+    on the CPU (``python3 tools/spread_latents.py``, the same seed-0 and
+    median readings), leaf by leaf: 8.7e-5 to 3.6e-4 at Q=10, 6.0e-5 (Psi1's
+    dsf2) to 6.6e-4 at Q=32, 2.0e-4 to 4.3e-4 at Q=48, 1.9e-4 to 5.1e-4 at
+    Q=64. Twice the model's error stays under the reference's on every leaf
+    (closest at Q=48, Psi2's dmu: 1.5e-4 against 2.4e-4)."""
+    errs = spread_latents.card_errors(q, stat, cuda, (layout,))
+    limits = spread_latents.limits(errs, chip_smoke.F64_FLOOR_FACTOR, chip_smoke.F64_TOL)
+    for name, (kernel, model) in errs.items():
+        assert kernel <= limits[name], (name, kernel, model, limits[name], errs)
 
 
 @pytest.mark.parametrize("q", [10, 100])

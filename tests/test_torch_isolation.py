@@ -1,7 +1,8 @@
 """The PyTorch port stands apart from JAX: importing any of its modules
-loads neither jax nor the JAX package, its kernel wrappers hold no
-fallback, and chip_smoke.py fails (printing no result) without a GPU or
-without the package beside it."""
+or of its examples (examples/torch/) loads neither jax nor the JAX
+package, its kernel wrappers and entry points hold no fallback, and
+chip_smoke.py fails (printing no result) without a GPU or without the
+package beside it."""
 
 import ast
 import os
@@ -56,7 +57,8 @@ def test_port_sources_never_name_jax():
                                     "gparml_tpu_torch.utils.logging",
                                     "gparml_tpu_torch.opt.optax_adapter",
                                     "gparml_tpu_torch.models.sgpr",
-                                    "gparml_tpu_torch.models.svgp"])
+                                    "gparml_tpu_torch.models.svgp",
+                                    "gparml_tpu_torch.graft_entry"])
 def test_cli_modules_load_no_jax(module):
     """Each module of the CLI path, imported alone in a fresh process, loads
     neither jax nor the JAX package."""
@@ -78,12 +80,35 @@ def test_cli_help_runs_without_jax():
     assert not imported & {"jax", "gparml_tpu"}
 
 
-@pytest.mark.parametrize("module", ["ops/psi_cuda.py", "ops/_build.py", "cli.py"])
+@pytest.mark.parametrize("module", ["ops/psi_cuda.py", "ops/_build.py", "cli.py",
+                                    "graft_entry.py"])
 def test_kernel_paths_have_no_fallback(module):
     """No try/except around the build, the launch or the choice of device:
     a failure raises."""
     tree = ast.parse((PKG / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+EXAMPLES = sorted(p.stem for p in (ROOT / "examples" / "torch").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_load_no_jax(name):
+    """Each of the port's examples (examples/torch/) names neither jax nor
+    the JAX package, and importing it in a fresh process loads neither."""
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [
+                node.module or ""]
+            assert not {n.split(".")[0] for n in names} & {"jax", "gparml_tpu"}, (name, names)
+    code = (
+        f"import sys; sys.path.insert(0, {str(path.parent)!r}); import {name}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gparml_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_fails_without_a_gpu():

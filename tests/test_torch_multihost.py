@@ -15,9 +15,6 @@ expires."""
 
 import json
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -26,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from gparml_tpu_torch import cli as tcli  # noqa: E402
 from gparml_tpu_torch import data as tdata  # noqa: E402
+from gparml_tpu_torch import graft_entry  # noqa: E402
 from gparml_tpu_torch.models import gplvm as tg  # noqa: E402
 from gparml_tpu_torch.models import params as TP  # noqa: E402
 from gparml_tpu_torch.models import sgpr as ts  # noqa: E402
@@ -36,35 +34,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _two_ranks(args):
     """Run ``python *args`` as ranks 0 and 1 of a new group; returns their
-    outputs, and fails with both outputs unless both exit 0."""
-    port = str(_free_port())
-    procs = []
-    for rank in (0, 1):
-        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", MASTER_ADDR="localhost",
-                   MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank))
-        procs.append(subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT))
-    try:
-        outputs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        # communicate() raises without killing: kill both, or a rank left
-        # waiting in a collective holds a core for good
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-        raise
-    for p, text in zip(procs, outputs):
-        assert p.returncode == 0, f"rank failed:\n{text[-4000:]}"
-    return outputs
+    outputs, and fails with both outputs unless both exit 0 within
+    TIMEOUT."""
+    return graft_entry.run_ranks(args, 2, timeout=TIMEOUT, env={"OMP_NUM_THREADS": "1"})
 
 
 def _remote_cli(cli_args):
@@ -110,7 +84,7 @@ def test_initialize_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed.initialize()
     monkeypatch.setenv("MASTER_ADDR", "localhost")
-    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("MASTER_PORT", str(graft_entry._free_port()))
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(RuntimeError, match="no CUDA device"):

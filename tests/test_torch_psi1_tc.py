@@ -23,8 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 import jax  # noqa: E402
-
 from gparml_tpu.ops import psi as jpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi as tpsi  # noqa: E402
 from gparml_tpu_torch.ops import psi_tc_model as tm  # noqa: E402
@@ -165,18 +165,6 @@ def test_psi1_expanded_form_needs_the_centring():
     assert max(errs) > F64_TOL, errs
 
 
-def _wide(q, spread, n=N, m=M, seed=0):
-    """Latents spread * N(0, 1) around the origin, each inducing point a
-    latent row moved by 0.3 * N(0, 1) (as an init that picks Z among the
-    latents gives), so that zeta lies near 0 while |mu'| reaches 4 spread."""
-    rng = np.random.default_rng(seed + 100 * q + n + m)
-    mu = rng.standard_normal((n, q)) * spread
-    s = 0.3 + 0.5 * rng.random((n, q))
-    z = mu[rng.choice(n, m, replace=False)] + 0.3 * rng.standard_normal((m, q))
-    alpha = (0.5 + rng.random(q)) * min(1.0, 44.0 / q)
-    return mu, s, z, alpha, rng
-
-
 @pytest.mark.parametrize("q", [2, 10, 100])
 def test_psi1_centred_sums_pair_by_pair_on_wide_latents(q):
     """The backward's centred sums H, t, u, b on latents of std 10 (each
@@ -186,7 +174,7 @@ def test_psi1_centred_sums_pair_by_pair_on_wide_latents(q):
     T2, b = S1 - z' S2) puts u past F64_TOL (2.8e-5 at Q = 2, 4.8e-4 at
     Q = 10, 8.1e-4 at Q = 100). On N(0, 1) latents, as ``_problem`` draws
     them, the expansion cancels little, so no test above could see it."""
-    mu, s, z, alpha, rng = _wide(q, 10.0)
+    mu, s, z, alpha, rng = chip_smoke.wide_latents(q, 10.0, N, M)
     t = lambda a: torch.tensor(a, dtype=torch.float32)
     l1, c, _, mu_c, zc = tm.exponents1(t(mu), t(s), t(z), t(1.3), t(alpha))
     h = tm.ex2(l1) * t(rng.standard_normal((N, M)))
@@ -207,7 +195,7 @@ def test_psi1_on_wide_latents_matches_jax_float64(q, spread):
     model within max(F64_TOL, F64_FLOOR_FACTOR x the plain float32
     engine's error) of the JAX package's float64, norm-scaled, leaf by
     leaf."""
-    mu, s, z, alpha, rng = _wide(q, spread, n=400, m=64)
+    mu, s, z, alpha, rng = chip_smoke.wide_latents(q, spread, 400, 64)
     y, dp1y = rng.standard_normal((400, 16)), rng.standard_normal((64, 16))
     pr = (mu, s, z, np.asarray(1.3), alpha, y, np.ones(400), dp1y)
     want = _jax(pr)
