@@ -19,6 +19,9 @@ gradient in two stages (``distributed.value_and_grad``) and SCG's scalars
 are sums over the processes (``distributed.LeafReduce``). Under a mesh the
 latents are (N, Q) rows: ``fit`` raises for ``layout='qn'``, as in the JAX
 package.
+
+Under a profiler, ``fit``, ``infer_latents``, the latter's set-up and each
+evaluation open the spans ``utils/logging.py`` lists.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from gparml_tpu_torch.parallel import distributed
 from gparml_tpu_torch.parallel.mesh import Sharded
 from gparml_tpu_torch.parallel.stats import shard_sum, suff_stats_auto
 from gparml_tpu_torch.utils import init as init_utils
+from gparml_tpu_torch.utils import logging as glog
 from gparml_tpu_torch.utils import transforms
 
 
@@ -196,21 +200,24 @@ def neg_bound_value_and_grad(p: P.GPLVMParams, y, config: GPLVMConfig,
     (``distributed.value_and_grad``): the four global leaves are
     replicated, the latents hold this process's rows."""
     leaves = list(p.parameters())
-    if distributed.spans_processes(mesh):
-        def objective(st):
-            z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
-            return -bound_ops.bound_from_stats(st, z, sf2, alpha, beta,
-                                               d=_d_of(y, config), jitter=config.jitter)
+    with glog.span("gparml.eval"):
+        if distributed.spans_processes(mesh):
+            def objective(st):
+                z, sf2, alpha, beta = P.constrain(p.glob, config.bijector)
+                return -bound_ops.bound_from_stats(st, z, sf2, alpha, beta,
+                                                   d=_d_of(y, config), jitter=config.jitter)
 
-        f, grads = distributed.value_and_grad(
-            lambda: _stats(p, y, config, mesh=mesh, weights=weights, across_processes=False),
-            objective, leaves, 4, mesh)
-    else:
-        f = -log_bound(p, y, config, mesh=mesh, weights=weights)
-        grads = list(torch.autograd.grad(f, leaves))
-    if mask is not None:
-        grads = P.apply_mask(grads, mask)
-    return f.detach(), grads
+            f, grads = distributed.value_and_grad(
+                lambda: _stats(p, y, config, mesh=mesh, weights=weights, across_processes=False),
+                objective, leaves, 4, mesh)
+        else:
+            with glog.span("gparml.eval.fwd"):
+                f = -log_bound(p, y, config, mesh=mesh, weights=weights)
+            with glog.span("gparml.eval.bwd"):
+                grads = list(torch.autograd.grad(f, leaves))
+        if mask is not None:
+            grads = P.apply_mask(grads, mask)
+        return f.detach(), grads
 
 
 def _check(p: P.GPLVMParams, y, config: GPLVMConfig):
@@ -245,34 +252,35 @@ def fit(
 ) -> FitResult:
     """Maximize the bound over all unmasked leaves with SCG ('scg'), Adam
     ('adam') or gradient descent ('gd', at ``learning_rate``)."""
-    _check_config(config)
-    _check(p0, y, config)
-    if mesh is not None and config.layout == "qn":
-        raise ValueError(
-            "layout='qn' is the single-device large-N layout; under a mesh "
-            "the latents shard over (N, Q) rows: use layout='nq'")
-    if optimizer not in ("scg", "adam", "gd"):
-        raise ValueError(f"unknown optimizer {optimizer!r}; options: scg, adam, gd")
-    mask = P.grad_mask(
-        p0,
-        fixed_beta=config.fixed_beta,
-        fixed_embeddings=config.fixed_embeddings,
-        fixed_z=config.fixed_z,
-        fixed_hypers=config.fixed_hypers,
-    )
+    with glog.span("gparml.fit"):
+        _check_config(config)
+        _check(p0, y, config)
+        if mesh is not None and config.layout == "qn":
+            raise ValueError(
+                "layout='qn' is the single-device large-N layout; under a mesh "
+                "the latents shard over (N, Q) rows: use layout='nq'")
+        if optimizer not in ("scg", "adam", "gd"):
+            raise ValueError(f"unknown optimizer {optimizer!r}; options: scg, adam, gd")
+        mask = P.grad_mask(
+            p0,
+            fixed_beta=config.fixed_beta,
+            fixed_embeddings=config.fixed_embeddings,
+            fixed_z=config.fixed_z,
+            fixed_hypers=config.fixed_hypers,
+        )
 
-    def vg(leaves):
-        return neg_bound_value_and_grad(P.from_leaves(leaves), y, config, mask,
-                                        mesh=mesh, weights=weights)
+        def vg(leaves):
+            return neg_bound_value_and_grad(P.from_leaves(leaves), y, config, mask,
+                                            mesh=mesh, weights=weights)
 
-    if optimizer != "scg":
-        res = optax_adapter.minimize(vg, P.leaves(p0), iters, optimizer=optimizer,
-                                     learning_rate=learning_rate)
-        return FitResult(P.from_leaves(res.x), -res.f_now, -res.history, res.n_evals)
-    st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters),
-                      reduce=distributed.scg_reduce(mesh, [False] * 4 + [True] * 2))
-    return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f,
-                     st.n_evals, scg_trace(st))
+        if optimizer != "scg":
+            res = optax_adapter.minimize(vg, P.leaves(p0), iters, optimizer=optimizer,
+                                         learning_rate=learning_rate)
+            return FitResult(P.from_leaves(res.x), -res.f_now, -res.history, res.n_evals)
+        st = scg.minimize(vg, P.leaves(p0), scg_options or scg.SCGOptions(max_iters=iters),
+                          reduce=distributed.scg_reduce(mesh, [False] * 4 + [True] * 2))
+        return FitResult(P.from_leaves(st.x), -st.f_now, -st.history.f,
+                         st.n_evals, scg_trace(st))
 
 
 def latents(p: P.GPLVMParams, config: GPLVMConfig):
@@ -325,7 +333,7 @@ def _infer_objective(p: P.GPLVMParams, y_train, y_new, config: GPLVMConfig, mesh
     _check_config(config)
     glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob)))
     z, sf2, alpha, beta = (t.detach() for t in P.constrain(glob, config.bijector))
-    with torch.no_grad():
+    with glog.span("gparml.infer.init"), torch.no_grad():
         stats_train = _stats(p, y_train, config, mesh=mesh, weights=weights)
         # the init runs row-major; views of (D, N) storage
         y_tr_rows = y_train.gather() if isinstance(y_train, Sharded) else (
@@ -342,10 +350,15 @@ def _infer_objective(p: P.GPLVMParams, y_train, y_new, config: GPLVMConfig, mesh
     d = y_new_rows.shape[1]
 
     def vg(leaves):
-        p_new = P.GPLVMParams(glob, P.LatentParams(*leaves))
-        st = stats_train + _stats(p_new, y_new, config)
-        f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=d, jitter=config.jitter)
-        return f.detach(), list(torch.autograd.grad(f, list(p_new.lat.parameters())))
+        with glog.span("gparml.eval"):
+            p_new = P.GPLVMParams(glob, P.LatentParams(*leaves))
+            with glog.span("gparml.eval.fwd"):
+                st = stats_train + _stats(p_new, y_new, config)
+                f = -bound_ops.bound_from_stats(st, z, sf2, alpha, beta, d=d,
+                                                jitter=config.jitter)
+            with glog.span("gparml.eval.bwd"):
+                grads = list(torch.autograd.grad(f, list(p_new.lat.parameters())))
+            return f.detach(), grads
 
     return vg, P.leaves(lat0)
 
@@ -372,12 +385,13 @@ def infer_latents(
     'auto' or 'pallas'). Returns (mu*, s*) (N*, Q) and a FitResult whose
     ``params`` are ``p`` and whose history and trace are the SCG fit's.
     """
-    vg, lat0 = _infer_objective(p, y_train, y_new, config, mesh=mesh, weights=weights)
-    st = scg.minimize(vg, lat0, scg_options or scg.SCGOptions(max_iters=iters))
-    mu_s, s_s = P.constrain_latents(P.LatentParams(*st.x), config.bijector, config.layout)
-    return mu_s.detach(), s_s.detach(), FitResult(
-        params=p, bound=-st.f_now, history=-st.history.f, n_evals=st.n_evals,
-        trace=scg_trace(st))
+    with glog.span("gparml.infer_latents"):
+        vg, lat0 = _infer_objective(p, y_train, y_new, config, mesh=mesh, weights=weights)
+        st = scg.minimize(vg, lat0, scg_options or scg.SCGOptions(max_iters=iters))
+        mu_s, s_s = P.constrain_latents(P.LatentParams(*st.x), config.bijector, config.layout)
+        return mu_s.detach(), s_s.detach(), FitResult(
+            params=p, bound=-st.f_now, history=-st.history.f, n_evals=st.n_evals,
+            trace=scg_trace(st))
 
 
 def reconstruct(p: P.GPLVMParams, y_train, mu_star, s_star, config: GPLVMConfig,

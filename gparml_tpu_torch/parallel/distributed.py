@@ -53,6 +53,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from gparml_tpu_torch.opt import scg
 from gparml_tpu_torch.parallel.mesh import (Mesh, Sharded, pad_and_place, pad_to_multiple,
                                             replicated)
 
@@ -377,8 +378,6 @@ def scg_reduce(mesh: Optional[Mesh], sharded: Sequence[bool]):
     the processes of a process group's mesh, else this process's own."""
     if spans_processes(mesh):
         return LeafReduce(mesh, sharded)
-    from gparml_tpu_torch.opt import scg
-
     return scg.LOCAL
 
 
@@ -386,24 +385,26 @@ class LeafReduce:
     """SCG's scalars across the mesh's processes: ``dot``, ``max_abs`` and
     ``numel`` of leaf lists whose leaves are replicated (counted once, by
     the coordinator) or hold this process's rows (summed over processes).
-    ``sharded[i]`` says which leaf i is."""
+    ``sharded[i]`` says which leaf i is. Each leaf's scalar comes to the
+    host through ``scg.host_read``, a ``gparml.scg.read`` span."""
 
     def __init__(self, mesh: Mesh, sharded: Sequence[bool]):
         self.mesh = mesh
         self.sharded = tuple(sharded)
         self.coordinator = is_coordinator()
 
-    def _sum(self, per_leaf) -> np.float64:
-        local = sum(float(v) for v, sh in zip(per_leaf, self.sharded)
+    def _sum(self, per_leaf, read=float) -> np.float64:
+        local = sum(read(v) for v, sh in zip(per_leaf, self.sharded)
                     if sh or self.coordinator)
         total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh)
         return np.float64(total.item())
 
     def dot(self, a, b) -> np.float64:
-        return self._sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b))
+        return self._sum((torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b)),
+                         read=scg.host_read)
 
     def max_abs(self, x) -> np.float64:
-        local = max(float(torch.max(torch.abs(t))) for t in x)
+        local = max(scg.host_read(torch.max(torch.abs(t))) for t in x)
         total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh,
                             op=_dist().ReduceOp.MAX)
         return np.float64(total.item())

@@ -7,6 +7,23 @@ through ``stamp_iteration``, ``Timer`` times sections, and ``trace`` records
 a ``torch.profiler`` trace (the JAX package's ``jax.profiler`` trace). The
 port's SCG is a host loop that reads each iteration's scalars back, so a
 stamp follows the device work of its iteration.
+
+``span`` marks the host layers of a fit or an inference call in whatever
+profiler is recording (``trace``, or any other ``torch.profiler`` session),
+on the clock of its device events, and costs a check and a shared no-op
+when none is. The spans, each opened where its work happens, so that they
+nest on the calling thread:
+
+  * ``gparml.fit``, ``gparml.infer_latents``: one call of
+    ``models/gplvm.py`` ``fit`` or ``infer_latents``;
+  * ``gparml.infer.init``: ``infer_latents``'s training statistics and
+    nearest-neighbour start;
+  * ``gparml.scg.iteration``: one iteration of ``opt/scg.py`` ``minimize``;
+  * ``gparml.eval``: one objective evaluation (bound and gradient), and in
+    it ``gparml.eval.fwd`` (the bound's graph built and its work launched)
+    and ``gparml.eval.bwd`` (the wait on ``torch.autograd.grad``, whose
+    engine runs the backward of device tensors on a thread of its own);
+  * ``gparml.scg.read``: one blocking device-to-host read of an SCG scalar.
 """
 
 from __future__ import annotations
@@ -19,6 +36,9 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 
 def write_history(
@@ -59,6 +79,27 @@ def write_history(
         with open(path, "w") as f:
             for row in rows:
                 f.write(json.dumps(row) + "\n")
+
+
+# The context ``span`` returns while no profiler records: one for every call.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records a host span ``name`` while a profiler records,
+    else the shared no-op.
+
+    The check is the profiler's own C++ state, which every way of starting
+    one sets (``torch.profiler.profile`` and the low-level
+    ``torch.autograd._enable_profiler`` alike). The span is an operator
+    scope (``_RecordFunctionFast``), not a user annotation
+    (``torch.profiler.record_function``): the profiler copies each user
+    annotation onto the device's timeline as well, around the kernels
+    launched inside it, and such a copy reads as device work to a reader
+    that counts the device's operations."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 # The live iteration_timer instances, innermost last: stamps go to the
@@ -131,13 +172,13 @@ class Timer:
 def trace(log_dir: str):
     """Context manager: a ``torch.profiler`` trace of the block, the CPU
     and, where PyTorch sees a card, the CUDA activity, written to
-    ``log_dir/trace.json`` (Chrome trace format, opens in Perfetto).
+    ``log_dir/trace.json`` (Chrome trace format, opens in Perfetto), the
+    program's spans (``span``) among its host events.
 
     Usage::
         with logging.trace('/tmp/trace'):
             fit(...)
     """
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

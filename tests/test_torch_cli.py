@@ -297,7 +297,8 @@ def test_cli_trace_timing_and_profile(tmp_path):
     assert np.isfinite(summary["final_bound"])
     lines = _history(stats / "bound_history.jsonl")
     assert lines and all(row["wall_s"] > 0 for row in lines)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert any(e.get("name") == "gparml.eval" for e in trace["traceEvents"])
 
 
 def test_cli_resume_matches_jax(tmp_path):
