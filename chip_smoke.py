@@ -6,7 +6,10 @@ Phases, one line each or more:
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
   2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
      (one process per source, all started together), prints ptxas's
-     registers and spills, and counts the HGMMA instructions of every
+     registers and spills, requires the forward that forms the cell sums
+     to keep its launch bounds' blocks per SM at every Q bucket (the card's
+     occupancy calculator, from its registers and shared memory), and
+     counts the HGMMA instructions of every
      tensor-core kernel (Psi2's Q <= 64 buckets and K-chunked kernels past
      Q = 64, Psi1's Q <= 16 buckets and K-chunked instantiation past it) in
      the library's SASS (none fails);
@@ -19,7 +22,9 @@ Phases, one line each or more:
      at M=1000, Q=44 (the Psi1 passes walk 16 tiles of points); and the
      flush case: the slice's shape at sf2 = 1e-20, every Psi2 entry below
      2^-126, Psi2 and the gradients of a Psi2 probe against the plain
-     version in float64;
+     version in float64; then the device ms of the sweep that forms Psi2
+     and the cell sums together, beside the forward's Psi2 kernel alone, at
+     the slice's shape at every Q bucket and at config 5's (qn);
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -100,7 +105,10 @@ Phases, one line each or more:
 Phases 4, 5 (config 5), 6(b), 6(c) and 7(a) (the statistics of
 infer_latents' 1e3 rows) also print the device ms a call of every
 ``__global__`` the wrappers launch (torch.profiler; the kernel table's
-``globals_ms``).
+``globals_ms``). The kernel table's times, bounds and ``globals`` are those
+of the kernel calls a fit's evaluation makes (``_route``): up to Q = 64 the
+forward that also forms the cell sums, and the backward given them; 7(a)'s
+those of infer_latents (Z held: no kernel forms the cell sums).
 Each phase that drives the main path sets the kernels' launch counts to 0
 just before it and reads them just after (phase 6: each CLI run; phase 7:
 each call; phase 8: the sharded evaluation, and each remote CLI run counts
@@ -123,6 +131,7 @@ short first call after a kernel change is `python3 chip_smoke.py --phases 3`.
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import json
 import math
@@ -580,21 +589,24 @@ def _mufu_rate():
 
 
 # The tensor-core kernel instantiations phase 2 finds HGMMA in: Psi2's
-# three passes at the six Q buckets and K-chunked, and Psi1's three at its
-# four buckets (Q <= 16) and K-chunked (instantiation 0).
+# three at the six Q buckets (the forward, the forward that forms the cell
+# sums, the backward's row pass) and three K-chunked (the forward, the row
+# and the cell pass), and Psi1's three at its four buckets (Q <= 16) and
+# K-chunked (instantiation 0).
 TC_KERNELS = 3 * (6 + 1) + 3 * (4 + 1)
 
 
-def _globals(kind, q):
-    """The ``__global__`` kernels a forward or backward wrapper call
-    launches at latent width q (csrc/psi_{fwd,bwd}.cu), Psi1's last. The
-    backward's Psi1 row pass adds ``psi1_bwd_rows_finish_kernel`` when the
-    plan splits its inducing points (small N)."""
+def _globals(kind, q, cells=False):
+    """The ``__global__`` kernels a forward or backward call launches at
+    latent width q (csrc/psi_{fwd,bwd}.cu), Psi1's last; ``cells``: the
+    forward forms the cell sums (``_route``), the backward is given them.
+    The backward's Psi1 row pass adds ``psi1_bwd_rows_finish_kernel`` when
+    the plan splits its inducing points (small N)."""
     qm = next((b for b in (2, 4, 10, 16, 32, 64) if q <= b), 0)
     p1 = qm if qm <= 16 else 0
     if qm:
-        psi2 = (["psi2_fwd_tc_kernel"] if kind == "fwd" else
-                ["psi2_bwd_rows_tc_kernel", "psi2_bwd_cells_tc_kernel"])
+        psi2 = ([f"psi2_fwd{'_cells' if cells else ''}_tc_kernel"] if kind == "fwd" else
+                ["psi2_bwd_rows_tc_kernel"])
         psi2 = [f"{k}<{qm}>" for k in psi2]
     else:
         psi2 = (["psi2_fwd_tc_chunked_kernel"] if kind == "fwd" else
@@ -604,18 +616,20 @@ def _globals(kind, q):
     return psi2 + [f"{k}<{p1}>" for k in psi1]
 
 
-def _set_bounds(entry, kind, n, m, q, d):
+def _set_bounds(entry, kind, n, m, q, d, cells=False):
     """A kernel-table entry's bounds: ``bound_ms`` / ``bound_by``, the FP32
     direct form (``_bound``), and, since the exponents come from the
     tensor cores at every Q, ``bound_tc_ms`` / ``bound_tc_by``
     (``_bound_tc``); the same two of its Psi1 kernels alone,
     ``psi1_bound_ms`` and ``psi1_bound_tc_ms`` (``_psi1_bounds``); and
-    ``globals``, the kernels the call launches."""
-    entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d)
-    entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate())
+    ``globals``, the kernels the call launches. ``cells``: the forward forms
+    the cell sums and the backward is given them (``_route``)."""
+    entry["bound_ms"], entry["bound_by"] = _bound(kind, n, m, q, d, cells)
+    entry["bound_tc_ms"], entry["bound_tc_by"] = _bound_tc(kind, n, m, q, d, _mufu_rate(),
+                                                           cells)
     entry["psi1_bound_ms"], entry["psi1_bound_tc_ms"] = _psi1_bounds(kind, n, m, q, d,
                                                                      _mufu_rate())
-    entry["globals"] = _globals(kind, q)
+    entry["globals"] = _globals(kind, q, cells)
 
 
 def _psi1_pair(kind, q, d):
@@ -672,19 +686,21 @@ def _entry_text(k):
             f"{k['bound_ms']:.2f} ms{tc}{p1})")
 
 
-def _bound_tc(kind, n, m, q, d, mufu_rate):
+def _bound_tc(kind, n, m, q, d, mufu_rate, cells=False):
     """(bound ms, what bounds it) of a wrapper call whose Psi2 and Psi1 work
     runs on the tensor cores: the largest of the pairs' exp (Psi2 and Psi1)
     on the MUFU; the TF32 products at the tensor cores' rate, 2 FLOP a
     multiply-add, each counted once: the exponents (K = 2Q a pair of either
     kind) and, for Psi2, the backward's row sums [zb' | zb'^2 | 1] (2Q + 1)
-    and cell sums [c mu' | c] (2Q); for Psi1, ``_psi1_pair``'s; the float32
-    operations left on the CUDA cores: per Psi2 pair the two constant adds
-    and the weighting (forward: w e added, 3; backward: g = K w e and w e,
-    3), per Psi1 pair ``_psi1_pair``'s; and the bytes."""
-    _, nbytes = _work(kind, n, m, q, d)
+    and the cell sums [c mu' | c] (2Q; with ``cells`` the forward's); for
+    Psi1, ``_psi1_pair``'s; the float32 operations left on the CUDA cores:
+    per Psi2 pair the two constant adds and the weighting (forward: w e
+    added, 3; backward: g = K w e and w e, 3), per Psi1 pair
+    ``_psi1_pair``'s; and the bytes (``_work``)."""
+    _, nbytes = _work(kind, n, m, q, d, cells)
     pairs2, pairs1 = n * (m * (m + 1) // 2), n * m
-    k_sum = 2 * q if kind == "fwd" else 2 * q + (2 * q + 1) + 2 * q
+    k_cells = 2 * q if (kind == "fwd") == cells else 0   # the cell sums' product
+    k_sum = 2 * q + k_cells + (0 if kind == "fwd" else 2 * q + 1)
     _, k1_sum, rest1 = _psi1_pair(kind, q, d)
     times = {
         "exp (MUFU)": (pairs2 + pairs1) / mufu_rate,
@@ -696,33 +712,39 @@ def _bound_tc(kind, n, m, q, d, mufu_rate):
     return times[by] * 1e3, by
 
 
-def _work(kind, n, m, q, d):
+def _work(kind, n, m, q, d, cells=False):
     """(float32 operations, bytes) of one forward ('fwd') or backward
     ('bwd') wrapper call: the operations the function needs per (row, cell)
     and per (row, inducing point) pair, each computed once (an expf as one
     operation, an FMA as two), and each input read and each output written
-    once."""
-    cells = m * (m + 1) // 2
+    once. ``cells``: the centred cell sums A move from the backward to the
+    forward (2Q a (row, cell) pair), which writes A (Q, M, M) and the
+    backward reads it."""
+    pairs = m * (m + 1) // 2
     ops1 = _psi1_pair(kind, q, d)[0]
     if kind == "fwd":
         # Psi2: per q a difference, a product, an FMA; then two adds, the
         # exp and the weighted FMA: 4Q + 5. Out: Psi2 beside Psi1^T (w Y).
-        ops = n * (cells * (4 * q + 5) + m * ops1)
+        ops = n * (pairs * (4 * q + 5) + m * ops1)
         elems = _psi1_elems(kind, n, m, q, d) + m * m
     else:
         # Psi2: the exponent once, 4Q + 4 (as in the forward, times w);
         # g = K w e and G += g, 2; t_q += g d_q, u_q += g d_q^2, 4Q; the
         # centred cell sum A_q += w e (c_q d_q), one FMA on the exponent's
         # product, 2Q: 10Q + 6. In: also Psi1^T (w Y), Psi2 and dPsi2.
-        ops = n * (cells * (10 * q + 6) + m * ops1)
+        ops = n * (pairs * (10 * q + 6) + m * ops1)
         elems = _psi1_elems(kind, n, m, q, d) + m * d + 2 * m * m
+    if cells:
+        moved = n * pairs * 2 * q
+        ops += moved if kind == "fwd" else -moved
+        elems += q * m * m
     return ops, 4 * elems
 
 
-def _bound(kind, n, m, q, d):
+def _bound(kind, n, m, q, d, cells=False):
     """(bound ms, what bounds it): the larger of the operations over the
-    card's float32 peak and the bytes over its memory rate."""
-    ops, nbytes = _work(kind, n, m, q, d)
+    card's float32 peak and the bytes over its memory rate (``_work``)."""
+    ops, nbytes = _work(kind, n, m, q, d, cells)
     t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -875,6 +897,21 @@ def _cotangents(m, d, dev):
             torch.randn((m, m), generator=gen, device=dev))
 
 
+def _route(layout, xs, cot):
+    """(cells, forward, backward): the kernel calls a fit's evaluation makes
+    on the kernel inputs ``xs`` (``PsiFused``'s route,
+    ``psi_cuda._emits_cells``): up to Q = 64 the forward that also forms the
+    cell sums, and the backward given them (no cell sums formed), with the
+    cotangents ``cot``; past it the forward and the backward wrappers."""
+    from gparml_tpu_torch.ops import psi_cuda
+
+    cells = psi_cuda._emits_cells(True, True, xs[2].shape[1])
+    out = psi_cuda._launch_fwd(layout, *xs, cells=cells)
+    a = out[2] if cells else None
+    return (cells, lambda: psi_cuda._launch_fwd(layout, *xs, cells=cells),
+            lambda: psi_cuda._launch_bwd(layout, *xs, *out[:2], *cot, a=a))
+
+
 def phase4(dev, kernels):
     """The nq slice at N=1e6, Q=10, M=200, D=12."""
     import torch
@@ -897,40 +934,41 @@ def phase4(dev, kernels):
     fwd_in = _kernel_inputs(p, y, cfg)
     cot = _cotangents(m, d, dev)
     fwd_k, abs_err, text = _kernels_vs_plain("phase 4 slice-shape", "nq", fwd_in, cot, block)
+    cells, fwd_fn, bwd_fn = _route("nq", fwd_in, cot)
     entries = [
         {"name": "psi_fwd", "route": "cuda",
          "source": "gparml_tpu_torch/csrc/psi_fwd.cu",
          "replaces": "gparml_tpu/ops/psi_pallas.py:634",
          "max_abs_err": abs_err[0],
-         "ms": _cuda_ms(lambda: psi_cuda.psi_fwd(*fwd_in), 5),
+         "ms": _cuda_ms(fwd_fn, 5),
          "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_fwd_reference(*fwd_in, block=block), 2)},
         {"name": "psi_bwd", "route": "cuda",
          "source": "gparml_tpu_torch/csrc/psi_bwd.cu",
          "replaces": "gparml_tpu/ops/psi_pallas.py:794",
          "max_abs_err": abs_err[1],
-         "ms": _cuda_ms(lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot), 3),
+         "ms": _cuda_ms(bwd_fn, 3),
          "plain_ms": _cuda_ms(lambda: psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=block), 1)},
     ]
     for k, kind in zip(entries, ("fwd", "bwd")):
-        _set_bounds(k, kind, n, m, q, d)
+        _set_bounds(k, kind, n, m, q, d, cells)
         k["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
-    entries[0]["globals_ms"] = _global_ms(lambda: psi_cuda.psi_fwd(*fwd_in), 3)
-    entries[1]["globals_ms"] = _global_ms(lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot), 3)
-    del fwd_k, fwd_in
+    entries[0]["globals_ms"] = _global_ms(fwd_fn, 3)
+    entries[1]["globals_ms"] = _global_ms(bwd_fn, 3)
+    del fwd_k, fwd_in, fwd_fn, bwd_fn
     print("phase 4 kernels at the slice shape: "
           + "; ".join(map(_entry_text, entries)) + "; " + text)
     print("phase 4 device ms a call at the slice shape: "
           + _ms_text({**entries[0]["globals_ms"], **entries[1]["globals_ms"]}))
 
     # the main path: bound+gradient evaluations and a 5-iteration SCG fit
-    psi_cuda.LAUNCHES.update(fwd=0, bwd=0)
+    psi_cuda.LAUNCHES.update(fwd=0, bwd=0, fwd_cells=0)
     torch.cuda.reset_peak_memory_stats()
     sec_k, (f_k, g_k) = _eval_seconds(gplvm, p, y, cfg)
     t0 = time.perf_counter()
     res = gplvm.fit(p, y, cfg, iters=5)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd", "bwd")}
+    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd", "bwd", "fwd_cells")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for k in entries:
         k["launches"] = launches[k["name"][4:]]
@@ -939,6 +977,8 @@ def phase4(dev, kernels):
     _require(np.all(np.diff(bound) >= 0), f"phase 4 fit bound decreased: {bound}")
     _require(launches["fwd"] > 0 and launches["bwd"] > 0,
              f"phase 4 main path skipped a kernel: {launches}")
+    _require(launches["fwd_cells"] == launches["fwd"],
+             f"phase 4 main path: a forward did not form the cell sums: {launches}")
 
     cfg_x = gplvm.GPLVMConfig(q=q, num_inducing=m, stats_impl="xla", block=block)
     sec_x, (f_x, g_x) = _eval_seconds(gplvm, p, y, cfg_x)
@@ -1091,14 +1131,14 @@ def phase5_config5(dev, kernels):
     print(f"phase 5 config 5 data+init: {time.perf_counter() - t0:.2f} s")
 
     # the main path: bound+gradient evaluations and a 2-iteration SCG fit
-    psi_cuda.LAUNCHES.update(fwd_t=0, bwd_t=0)
+    psi_cuda.LAUNCHES.update(fwd_t=0, bwd_t=0, fwd_cells_t=0)
     torch.cuda.reset_peak_memory_stats()
     sec, out = _eval_seconds(gplvm, p, y_t, cfg, reps=2)
     t0 = time.perf_counter()
     res = gplvm.fit(p, y_t, cfg, iters=2)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd_t", "bwd_t")}
+    launches = {k: psi_cuda.LAUNCHES[k] for k in ("fwd_t", "bwd_t", "fwd_cells_t")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bound = res.trace["bound"][:2]
     _require(np.all(np.isfinite(bound)), f"phase 5 fit bound not finite: {bound}")
@@ -1106,6 +1146,8 @@ def phase5_config5(dev, kernels):
              f"phase 5 fit bound decreased: {-float(out[0])} -> {bound}")
     _require(launches["fwd_t"] > 0 and launches["bwd_t"] > 0,
              f"phase 5 main path skipped a kernel: {launches}")
+    _require(launches["fwd_cells_t"] == launches["fwd_t"],
+             f"phase 5 main path: a forward did not form the cell sums: {launches}")
     print(f"phase 5 config 5 N={n} Q={q} M={m} D={d} qn/dn f32: {sec:.4f} s/eval; "
           f"fit 2 iters {fit_s:.2f} s, {res.n_evals} evals, bound "
           f"{-float(out[0]):.6g} -> {bound[-1]:.6g}; launches {launches}; "
@@ -1134,19 +1176,18 @@ def phase5_config5(dev, kernels):
           + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
     print("phase 5 config 5 full-N sums vs float64 sum of the kernels over 100 "
           "slices (of max|ref|): " + ", ".join(f"{k} {v:.2e}" for k, v in sums.items()))
-    del full
+    del full, full_fwd
+    cells, fwd_fn, bwd_fn = _route("qn", fwd_in, cot)
     for name, kind, fn, reps, names, pms in (
-            ("psi_fwd_t", "fwd", lambda: psi_cuda.psi_fwd_t(*fwd_in), 2,
-             _OUTPUTS[:2], plain_ms[0]),
-            ("psi_bwd_t", "bwd", lambda: psi_cuda.psi_bwd_t(*fwd_in, *full_fwd, *cot), 1,
-             _OUTPUTS[2:], plain_ms[1])):
+            ("psi_fwd_t", "fwd", fwd_fn, 2, _OUTPUTS[:2], plain_ms[0]),
+            ("psi_bwd_t", "bwd", bwd_fn, 1, _OUTPUTS[2:], plain_ms[1])):
         entry = {"name": name, "route": "cuda",
                  "source": f"gparml_tpu_torch/csrc/psi_{kind}.cu",
                  "replaces": "gparml_tpu/ops/psi_pallas.py:" + ("671" if kind == "fwd" else "820"),
                  "launches": launches[kind + "_t"],
                  "max_abs_err": max(vs_plain[k][0] for k in names),
                  "ms": _cuda_ms(fn, reps), "plain_ms": pms, "globals_ms": _global_ms(fn, 1)}
-        _set_bounds(entry, kind, n, m, q, d)
+        _set_bounds(entry, kind, n, m, q, d, cells)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         kernels.append(entry)
     print("phase 5 config 5 kernels: " + "; ".join(map(_entry_text, kernels[-2:])))
@@ -1171,6 +1212,32 @@ def _window_times(case, dev):
     cot = _cotangents(m, d, dev)
     return (_cuda_ms(lambda: fwd(*xs), 20), _cuda_ms(lambda: bwd(*xs, *out, *cot), 20),
             _cuda_ms(lambda: fwd_ref(*xs), 3), _cuda_ms(lambda: bwd_ref(*xs, *cot), 3))
+
+
+# (N, M, D, layout, Q buckets) of phase 3's times of the sweep that forms
+# Psi2 and the cell sums: the slice's shape (nq) at every Q bucket, and
+# config 5's (qn, N=1e7, M=500) at Q=10.
+ROUTE_SHAPES = ((1_000_000, 200, 12, "nq", (2, 4, 10, 16, 32, 64)),
+                (10_000_000, 500, 12, "qn", (10,)))
+
+
+def _route_times(n, m, q, d, layout, dev):
+    """Device ms a call of the sweep that forms Psi2 and the cell sums
+    together (``psi2_fwd_cells_tc_kernel``) and of the forward's Psi2 kernel
+    alone (``psi2_fwd_tc_kernel``, where no dZ is wanted), on N(0, 1)
+    latents at (n, m, q, d) in ``layout``."""
+    import torch
+    from gparml_tpu_torch.ops import psi_cuda
+
+    gen = torch.Generator(dev).manual_seed(n + m + q)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    lat = (n, q) if layout == "nq" else (q, n)
+    xs = (r(*lat), 0.3 + 0.5 * torch.rand(*lat, generator=gen, device=dev), r(m, q),
+          torch.tensor(1.3, device=dev), torch.full((q,), min(1.0, 10.0 / q), device=dev),
+          r(*((n, d) if layout == "nq" else (d, n))), torch.ones(n, device=dev))
+    fused = _global_ms(lambda: psi_cuda._launch_fwd(layout, *xs, cells=True))
+    alone = _global_ms(lambda: psi_cuda._launch_fwd(layout, *xs))
+    return fused[f"psi2_fwd_cells_tc_kernel<{q}>"], alone[f"psi2_fwd_tc_kernel<{q}>"]
 
 
 def _cli_run(argv):
@@ -1211,18 +1278,20 @@ def _knn_accuracy(x, labels):
 
 
 def _kernel_entries(label, fwd_in, cot, block, shape, launches, replaces):
-    """Table entries of the nq forward and backward wrappers at ``shape``
-    (N, M, Q, D): held against their plain versions (``_kernels_vs_plain``)
-    and timed beside them; ``replaces`` names the TPU kernels of the window."""
+    """Table entries of the nq forward and backward kernels at ``shape``
+    (N, M, Q, D): the wrappers held against their plain versions
+    (``_kernels_vs_plain``), and the fit's route (``_route``) timed beside
+    them; ``replaces`` names the TPU kernels of the window."""
     from gparml_tpu_torch.ops import psi_cuda
 
     n, m, q, d = shape
-    fwd_k, abs_err, text = _kernels_vs_plain(label, "nq", fwd_in, cot, block)
+    _, abs_err, text = _kernels_vs_plain(label, "nq", fwd_in, cot, block)
+    cells, fwd_fn, bwd_fn = _route("nq", fwd_in, cot)
     entries = []
     for kind, err, fn, ref, reps in (
-            ("fwd", abs_err[0], lambda: psi_cuda.psi_fwd(*fwd_in),
+            ("fwd", abs_err[0], fwd_fn,
              lambda: psi_cuda.psi_fused_fwd_reference(*fwd_in, block=block), 5),
-            ("bwd", abs_err[1], lambda: psi_cuda.psi_bwd(*fwd_in, *fwd_k, *cot),
+            ("bwd", abs_err[1], bwd_fn,
              lambda: psi_cuda.psi_fused_bwd_reference(*fwd_in, *cot, block=block), 3)):
         name, line = replaces[kind]
         entry = {"name": name, "route": "cuda",
@@ -1231,7 +1300,7 @@ def _kernel_entries(label, fwd_in, cot, block, shape, launches, replaces):
                  "launches": launches[kind], "max_abs_err": err,
                  "ms": _cuda_ms(fn, reps), "plain_ms": _cuda_ms(ref, 1),
                  "globals_ms": _global_ms(fn)}
-        _set_bounds(entry, kind, n, m, q, d)
+        _set_bounds(entry, kind, n, m, q, d, cells)
         entry["library_ms"] = None   # no single PyTorch call computes Psi1^T Y or sum Psi2
         entries.append(entry)
     print(f"{label} kernels: " + "; ".join(map(_entry_text, entries)) + "; " + text)
@@ -1556,9 +1625,11 @@ def phase7_serving(dev):
               torch.ones(n_inf, device=dev))
     cot = _cotangents(m, d, dev)
     p_inf = psi_cuda.psi_fwd(*inf_in)
+    # as infer_latents runs them: Z held, so no kernel forms the cell sums
+    bwd_held = lambda: psi_cuda._launch_bwd("nq", *inf_in, *p_inf, *cot, dz=False)
     print(f"phase 7(a) infer_latents' statistics N={n_inf} M={m} Q={q} D={d}, device ms a "
           f"call: " + _ms_text({**_global_ms(lambda: psi_cuda.psi_fwd(*inf_in), 5),
-                                **_global_ms(lambda: psi_cuda.psi_bwd(*inf_in, *p_inf, *cot), 5)}))
+                                **_global_ms(bwd_held, 5)}))
     del inf_in, p_inf
     vg, lat0 = gplvm._infer_objective(p, y, y_new, cfg)
     f_k, g_k = vg(lat0)
@@ -2182,8 +2253,10 @@ def phase10_entry(dev, kernels):
     f_k, g_k = fn(p, y)
     torch.cuda.synchronize()
     launches = dict(psi_cuda.LAUNCHES)
-    _require(launches == {"fwd": 1, "bwd": 1, "fwd_t": 0, "bwd_t": 0},
-             f"phase 10(a) entry(): not one forward and one backward kernel call: {launches}")
+    _require(launches == {"fwd": 1, "bwd": 1, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 1,
+                          "fwd_cells_t": 0},
+             f"phase 10(a) entry(): not one forward (forming the cell sums) and one "
+             f"backward kernel call: {launches}")
     for k in kernels:
         if k["name"] in ("psi_fwd_ml128", "psi_bwd_ml128"):
             k["launches_entry"] = launches[k["name"][4:7]]
@@ -2279,6 +2352,17 @@ def phase2():
           f"at Q=32, 64 and K-chunked: " + ", ".join(
               f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
                   (_build.library_path().parent / "nvcc.log").read_text()).items()))
+    # the forward that forms the cell sums keeps its launch bounds' blocks
+    # per SM at every bucket
+    texts = []
+    for q in (2, 4, 10, 16, 32, 64):
+        out = (ctypes.c_int * 4)()
+        _build.check(_build.load().gparml_psi_fwd_cells_residency(q, out), "cells_residency")
+        blocks, want, regs, local = out
+        texts.append(f"Q={q} {blocks} blocks ({want} asked), {regs} regs, {local} B local")
+        _require(blocks >= want, f"phase 2: psi2_fwd_cells_tc_kernel<{q}> keeps {blocks} "
+                 f"blocks an SM, its launch bounds ask for {want}")
+    print("phase 2 psi2_fwd_cells_tc_kernel residency: " + "; ".join(texts))
     hgmma = _hgmma_counts(_build.library_path())
     _require(len(hgmma) == TC_KERNELS and min(hgmma.values()) > 0,
              f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
@@ -2304,6 +2388,14 @@ def phase3(dev):
     for case in [c for c in PARITY_CASES[10:] if not c[6:]]:
         print("phase 3 times nq N={} M={} Q={} D={}: fwd {:.3f} ms, bwd {:.3f} ms; plain "
               "fwd {:.3f} ms, bwd {:.3f} ms".format(*case[:4], *_window_times(case, dev)))
+    import torch
+
+    for n, m, d, layout, buckets in ROUTE_SHAPES:
+        for q in buckets:
+            fused, alone = _route_times(n, m, q, d, layout, dev)
+            print(f"phase 3 route {layout} N={n} M={m} Q={q} D={d}: psi2_fwd_cells_tc_kernel "
+                  f"{fused:.3f} ms; psi2_fwd_tc_kernel {alone:.3f} ms")
+            torch.cuda.empty_cache()
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")
 
 

@@ -28,10 +28,13 @@
 //        pair by pair; it adds -c1 t, -c1 H/2 + c1^2 u/2 and -(s/den1) H/2
 //        - u/(2 den1^2) and writes dY.
 //  * column passes (reductions over n, one float64 partial per N-split):
-//      psi2_bwd_cells_tc_kernel (Q <= 64), per block of packed cells:
-//        A_q = sum_n w e c_nq (mu_nq - zb_q) with e = Psi2[n, m, m'], the
-//        exponents and the sums on the tensor cores, each 64-row tile's
-//        sums added into float64;
+//      the Psi2 cell sums A_q = sum_n w e c_nq (mu_nq - zb_q) with
+//        e = Psi2[n, m, m'], which dZ takes, do not depend on dPsi2: up to
+//        Q = 64 the forward's sweep forms them (psi_fwd.cu
+//        psi2_fwd_cells_tc_kernel) and the caller passes them in, so no
+//        pass here forms them; past Q = 64 psi2_bwd_cells_tc_chunked_kernel
+//        does, per block of 64 packed cells, wherever dZ is wanted (a_part
+//        given). Where no dZ is wanted (Z held), nothing forms A;
 //      psi1_bwd_m_tc_kernel<QM>, per block of 128 or 256 inducing points:
 //        B_q = sum_n h c1_nq (mu_nq - z_mq), the exponents and the dot on
 //        the tensor cores, the sum pair by pair, each 64-row tile's sums
@@ -41,12 +44,13 @@
 //    The wrapper sums the partials and assembles dZ, dalpha's cell share and
 //    dsf2 with small tensor operations (gparml_tpu_torch/ops/psi_cuda.py).
 //
-// Past Q = 64 (any Q) the Psi2 passes have twins and, past Q = 16, the
-// Psi1 passes their K-chunked instantiations (QM = 0); they replace the
-// TPU's `_bwd_kernel_stair` (:409) and `_bwd_kernel` (:249), launched by
-// `_psi_fused_bwd` outside the flat window; the Q <= 64 kernels take the
-// rest of those windows. The Psi2 passes, psi2_bwd_rows_tc_chunked_kernel
-// and psi2_bwd_cells_tc_chunked_kernel, are the tensor-core passes with K
+// Past Q = 64 (any Q) the Psi2 row pass has a twin, the cell sums a pass
+// of their own and, past Q = 16, the Psi1 passes their K-chunked
+// instantiations (QM = 0); they replace the TPU's `_bwd_kernel_stair`
+// (:409) and `_bwd_kernel` (:249), launched by `_psi_fused_bwd` outside the
+// flat window; the Q <= 64 kernels take the rest of those windows. The
+// Psi2 passes, psi2_bwd_rows_tc_chunked_kernel and
+// psi2_bwd_cells_tc_chunked_kernel, are tensor-core passes with K
 // walked in chunks of kTcQChunk latent dimensions (psi_tc.cuh), the
 // reductions taken one dimension chunk at a time into float64 totals in
 // shared memory; the Psi1 passes take their centred sums a dimension
@@ -58,9 +62,9 @@
 // passes over the grid's z axis, the exponents recomputed in each.
 //
 // What bounds it on an H100: operations. The backward sweeps the
-// N M (M + 1) / 2 (n, cell) pairs twice (rows, cells) and the N M (n,
-// point) pairs twice; every pass forms each tile's exponents on the tensor
-// cores and spends a pair's exp2 on the MUFU and a few float32 operations
+// N M (M + 1) / 2 (n, cell) pairs once (rows; past Q = 64 twice where dZ
+// is wanted, rows and cells) and the N M (n, point) pairs twice; every
+// pass forms each tile's exponents on the tensor cores and spends a pair's exp2 on the MUFU and a few float32 operations
 // in the epilogue; the Psi2 passes' reductions run on the tensor cores, the
 // Psi1 passes' centred sums pair by pair on the CUDA cores (~4 Q float32
 // operations a pair: the tensor-core form of them, an expansion around
@@ -201,131 +205,6 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
     dal[i] = -(s[i] / den) * gs - u / (den * den);
   }
 }
-
-// Cells of one block of psi2_bwd_cells_tc_kernel, and its shared memory:
-// the cells' operand and terms (the operand's room holds the cells' float64
-// sums at the end), the rows' operand and constants, the ring of raw row
-// stages, and the rows' transposed operand [c mu' | c].
-__host__ __device__ constexpr int tc_cell_cells(int qm) { return tc_wg(qm) * kTcRows; }
-__host__ __device__ constexpr size_t tc_cells_smem(int qm) {
-  return tc_operand_bytes(tc_cell_cells(qm), qm) + tc_cellterm_bytes(tc_cell_cells(qm)) +
-         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
-         tc_stages(qm) * tc_stage_bytes(kTcRows, qm) + tc_b2_bytes(tc_n2_cells(qm)) +
-         tc_scratch_bytes(tc_wg(qm));
-}
-
-// The Psi2 cell pass (Q <= 64): per block of packed cells (grid x: tc_wg
-// warpgroups with a tile of 64 cells each, on the tile's M axis)
-// and N-split (grid y), A_q = sum_n w e c_nq (mu'_nq - zb'_q) with
-// e = Psi2[n, cell], centred on the cell. The rows are walked as in
-// psi2_fwd_tc_kernel (cp.async ring, the row operand built once a row tile
-// for all the block's cell tiles, exponents on the tensor cores), with the
-// rows' transposed operand [c mu' | c] beside it. Each warpgroup turns a
-// tile's exponents in registers into ev = w exp2(L2) (0 past the last
-// cell) and multiplies that tile by the transpose on the tensor cores
-// (tc_reduce): S1_q = sum ev c mu'_q and S2_q = sum ev c_q over the tile's
-// 64 rows, added to float64 registers. At the end, in float64, the centred
-// A_q = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc"); each split
-// writes its cells' A into its float64 (Q, M, M) partial, both triangles.
-// Up to Q = 16, two resident blocks per SM (128 registers a thread).
-template <int QM>
-__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, QM <= 16 ? 2 : 1)
-psi2_bwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
-                         const float* __restrict__ w, const float* __restrict__ z,
-                         const float* __restrict__ alpha, const float* __restrict__ sf2,
-                         const float* __restrict__ zeta, const int2* __restrict__ cells,
-                         const float* __restrict__ ce, const float* __restrict__ shift, int n,
-                         int m, int q, int rows_per_split, double* __restrict__ out) {
-  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2;
-  constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM);
-  extern __shared__ float4 smem4[];
-  TcCarve cv(smem4);
-  const TcOperand cop = tc_take_operand<KP>(cv, NC);
-  double* s_tot = reinterpret_cast<double*>(cop.hi);  // at the end: NC x N2 (N2 == KP)
-  float* s_ce = cv.take<float>(NC * sizeof(float));
-  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
-  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
-  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
-  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
-  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
-  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
-  const TcOperand b2 = tc_take_operand<kTcRows>(cv, N2);
-  const int wg = threadIdx.x / kTcWarpgroup;
-  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
-  __syncthreads();
-
-  const int p0 = blockIdx.x * NC;
-  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
-                             nullptr);
-  const int tile = wg * kTcRows;  // the warpgroup's cells
-  double tot[N2 / 2];
-#pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
-
-  const float logsf2 = logf(*sf2), sh = *shift;
-  const int lo = blockIdx.y * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
-  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const float* st = ring + (t % S) * stage;
-    if (S == 2) {
-      if (t + 1 < ntiles)
-        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
-                                   ring + ((t + 1) % S) * stage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, &b2);
-    tc_operands_ready();
-    const float* st_w = st + 2 * kTcRows * QM;
-    float d[32];
-    tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = tc_m(i), r = tc_n(i);
-      d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]) : 0.f;
-    }
-    float d2[N2 / 2];
-    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
-#pragma unroll
-    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
-    __syncthreads();
-  }
-
-  // the cells' sums through shared memory (the cells' operand is done with)
-#pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) s_tot[(tile + tc_m(e)) * N2 + tc_n(e)] = tot[e];
-  __syncthreads();
-  // out: (splits, q, M, M), each (cell, dimension) written by one thread
-  const size_t mm = (size_t)m * m;
-  double* o = out + (size_t)blockIdx.y * q * mm;
-  const double unshift = ldexp(1.0, -(int)sh);
-  for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
-    const int c = idx % NC, k0 = (idx / NC) * QS;
-    const int2 ij = s_ij[c];
-    if (ij.x < 0) continue;
-    const double* t_c = s_tot + c * N2;
-    for (int k = 0; k < QS; ++k) {
-      const int kk = k0 + k;
-      if (kk >= q) break;
-      const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
-                               (z[(size_t)ij.y * q + kk] - zeta[kk]));
-      const double a = (t_c[kk] - (double)zb * t_c[QM + kk]) * unshift;
-      o[kk * mm + (size_t)ij.x * m + ij.y] = a;
-      if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
-    }
-  }
-}
-
-// The most rows of one N-split of a cell pass.
-constexpr int kCellRowsMax = 262144;
 
 // Warpgroups of a Psi2 pass past Q = 64, and the rows (cell pass) or
 // cells (row pass) the block walks a step: a 64-tile a warpgroup.
@@ -542,8 +421,8 @@ psi2_bwd_rows_tc_chunked_kernel(const float* __restrict__ mu, const float* __res
   }
 }
 
-// psi2_bwd_cells_tc_kernel for any Q > 64, with K in chunks: per block of
-// 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
+// The cell sums of psi2_fwd_cells_tc_kernel (psi_fwd.cu) for any Q > 64, in
+// the backward and with K in chunks: per block of 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
 // (mu'_nq - zb'_q), centred on the cell. The split's rows are walked 128
 // at a time, a tile of 64 for each of the two warpgroups; per step the
 // exponents come from the tensor cores over the K chunks (the cells'
@@ -1339,6 +1218,8 @@ int launch_psi1_bwd_m(const float* mu, const float* s, Strides ls, const float* 
   return (int)cudaGetLastError();
 }
 
+// The row passes, then the Psi1 point pass (Q <= 64). The cell sums come
+// from the forward (psi2_fwd_cells_tc_kernel): an a_part is refused.
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
@@ -1348,6 +1229,7 @@ int launch_bwd(const float* mu, const float* s, const float* y,
                int splits_c, int splits_m, int splits_p, float* dmu, float* ds, float* dal,
                float* dy, double* a_part, double* b_part, double* row_part,
                cudaStream_t stream) {
+  if (a_part) return (int)cudaErrorInvalidValue;
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const size_t smem_r = tc_rows_smem(QM);
   cudaError_t err = allow_smem(psi2_bwd_rows_tc_kernel<QM>, smem_r);
@@ -1363,21 +1245,12 @@ int launch_bwd(const float* mu, const float* s, const float* y,
                                     q, d, splits_p, dmu, ds, dal, dy, row_part, stream);
   if (rc != 0) return rc;
 
-  const size_t smem_c = tc_cells_smem(QM);
-  err = allow_smem(psi2_bwd_cells_tc_kernel<QM>, smem_c);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_c(tc_blocks(m, tc_cell_cells(QM)), splits_c);
-  psi2_bwd_cells_tc_kernel<QM><<<grid_c, tc_wg(QM) * kTcWarpgroup, smem_c, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q,
-      (n + splits_c - 1) / splits_c, a_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
   return launch_psi1_bwd_m<P1>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q,
                                d, splits_m, b_part, stream);
 }
 
 // launch_bwd for Q > 64: the K-chunked tensor-core passes, the same grids
-// and partials.
+// and partials, and, with a_part (dZ wanted), the chunked cell pass.
 inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
@@ -1402,20 +1275,23 @@ inline int launch_bwd_chunked(const float* mu, const float* s, const float* y,
                                    d, splits_p, dmu, ds, dal, dy, row_part, stream);
   if (rc != 0) return rc;
 
-  err = allow_smem(psi2_bwd_cells_tc_chunked_kernel, smem_tc);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_c(tc_blocks(m, kTcRows), splits_c);
-  psi2_bwd_cells_tc_chunked_kernel<<<grid_c, kTcChunkWg * kTcWarpgroup, smem_tc, stream>>>(
-      mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q, qp,
-      (n + splits_c - 1) / splits_c, a_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (a_part) {
+    err = allow_smem(psi2_bwd_cells_tc_chunked_kernel, smem_tc);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid_c(tc_blocks(m, kTcRows), splits_c);
+    psi2_bwd_cells_tc_chunked_kernel<<<grid_c, kTcChunkWg * kTcWarpgroup, smem_tc, stream>>>(
+        mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q, qp,
+        (n + splits_c - 1) / splits_c, a_part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   return launch_psi1_bwd_m<0>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, r1, n, m, q, d,
                               splits_m, b_part, stream);
 }
 
 }  // namespace gparml
 
-// Launch plan of gparml_psi_bwd: plan = (splits_c, splits_m, the largest
+// Launch plan of gparml_psi_bwd: plan = (splits_c: the N-splits of the
+// chunked cell pass, 0 up to Q = 64, where there is none; splits_m, the largest
 // dynamic shared memory of its blocks in bytes, the device's limit for it,
 // splits_p: the inducing-point splits of the Psi1 row pass, above 1 only
 // when its row blocks alone fill less than two waves of the card, i.e. at
@@ -1424,15 +1300,16 @@ extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q), p1 = p1_qm(qm);
-  const int tiles = tc_blocks(m, qm == 0 ? kTcRows : tc_cell_cells(qm));
   const int ptiles = (m + kTcRows - 1) / kTcRows;
   const int pblocks = (m + p1_points(p1) - 1) / p1_points(p1);
-  plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kCellRowsMax, num_sms),
-                       (size_t)q * m * m * sizeof(double), partial_bytes);
+  plan[0] = qm != 0 ? 0
+                    : cap_splits(n_splits(n, tc_blocks(m, kTcRows), kRowsPsi2, kCellRowsMax,
+                                          num_sms),
+                                 (size_t)q * m * m * sizeof(double), partial_bytes);
   plan[1] = cap_splits(n_splits(n, pblocks * p1_point_passes(q), kTcRows, kCellRowsMax, num_sms),
                        (size_t)q * m * sizeof(double), partial_bytes);
   plan[2] = smem_bytes(std::max(
-      {qm == 0 ? tc_bwd_chunked_smem(tc_pass_dims(q)) : std::max(tc_rows_smem(qm), tc_cells_smem(qm)),
+      {qm == 0 ? tc_bwd_chunked_smem(tc_pass_dims(q)) : tc_rows_smem(qm),
        tc_p1_rows_smem(p1, p1_row_ld(q, d)), tc_p1_m_smem(p1, p1_point_ld(q))}));
   const int row_blocks = (n + kP1Fixed - 1) / kP1Fixed * p1_row_plan(q, d, -1, nullptr);
   int splits_p = 1;
@@ -1449,8 +1326,10 @@ extern "C" int gparml_psi_bwd_plan(int n, int m, int q, int d, int num_sms,
 // zeta (Q), cells, ce, shift and shift1: as gparml_psi_fwd's; kmat: (M, M)
 // = mult * sym(dPsi2) (upper triangle read); r1 = dPsi1Y: (M, D). qn = 0:
 // mu, s, dmu, ds, dal (N, Q) and y, dy (N, D); qn = 1: (Q, N) and (D, N).
-// Writes dmu, ds, dal, dy and the float64 a_part (splits_c, Q, M, M) and
-// b_part (splits_m, Q, M). row_part: with splits_p > 1, the Psi1 row pass's
+// Writes dmu, ds, dal, dy, the float64 b_part (splits_m, Q, M) and, past
+// Q = 64 with a_part given (dZ wanted), the float64 a_part (splits_c, Q, M,
+// M); up to Q = 64 a_part must be null (the forward forms A). row_part:
+// with splits_p > 1, the Psi1 row pass's
 // float64 per-split row partials (splits_p, N, 2 Q + 1 + D), every element
 // written; unused with one split. Returns cudaGetLastError.
 extern "C" int gparml_psi_bwd(const float* mu, const float* s, const float* y,

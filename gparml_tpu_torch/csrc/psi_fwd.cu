@@ -19,7 +19,17 @@
 //    into its own float64 (M, M) partial, in both triangles; the wrapper
 //    sums the partials (deterministic, no atomics). When the partials'
 //    memory budget lowers the split count, the launcher runs the grid again
-//    for each further kFwdRowsMax rows a split, adding in.
+//    for each further kFwdRowsMax rows a split, adding in. The wrapper takes
+//    this kernel where no dZ will be wanted (Z held or no gradient), and
+//  * psi2_fwd_cells_tc_kernel (Q <= 64) where it will: one 64-cell tile a
+//    warpgroup, the rows walked through the same ring, and beside the
+//    exponents the rows' transposed operand [c mu' | c], by which the
+//    tensor cores multiply each tile's w exp2(L2), so that each pair's
+//    exponent and exp2 serve both sum_n w_n Psi2_n (this kernel's float32
+//    tile sums, then float64 totals in shared memory) and the centred cell
+//    sums A_q = sum_n w e c_nq (mu'_nq - zb'_q) that dZ takes. Each split
+//    writes both into its own float64 (Q + 1, M, M) partial; the backward
+//    (psi_bwd.cu) takes A and forms no cell sums.
 //  * psi1y_fwd_tc_kernel<QM>: one grid axis over blocks of 64 inducing
 //    points (one warpgroup, the points on the tile's M axis), one over
 //    N-splits, one over passes of up to kP1FwdCols columns of Y. Psi1 is
@@ -43,11 +53,14 @@
 // kernels take the rest of `_fwd_kernel`'s window (M <= 128, and
 // 512 < M <= 640) as they take the flat window.
 //
-// What bounds it on an H100: operations, not bytes. The Psi2 kernel is
+// What bounds it on an H100: operations, not bytes. The Psi2 kernels are
 // bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
 // rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row
-// operand's build, shared by the block's 256 cells; its epilogue costs two
-// float32 adds and an FMA a pair, and the rows come from device memory once
+// operand's build, shared by the block's 256 cells (128 in the one that
+// forms A, whose reduction product on the tensor cores and [c mu' | c]
+// build come on top: about what the backward's cell pass cost alone); the
+// epilogue costs two float32
+// adds and an FMA a pair, and the rows come from device memory once
 // per cell block (cp.async, one tile ahead); past Q = 64 the rows' and the
 // 128 cells' operands are rebuilt chunk by chunk for every row tile, the
 // rows read from device memory (L1, L2) once per cell block. The Psi1
@@ -174,6 +187,169 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
         double* mirror = o + (size_t)ij.y * m + ij.x;
         *mirror = first ? v : *mirror + v;
       }
+    }
+  }
+}
+
+// Cells of one block of psi2_fwd_cells_tc_kernel (a 64-tile a warpgroup),
+// and its shared memory: the cells' operand and terms (the operand's room
+// holds the cells' float64 sums of the centred products at the end), the
+// rows' operand and constants, the ring of raw row stages, the rows'
+// transposed operand [c mu' | c], each thread's two float32 tile sums of
+// w Psi2 and the cells' float64 totals of it (at Q = 64 all of an H100's
+// 227 KB).
+__host__ __device__ constexpr int tc_cell_cells(int qm) { return tc_wg(qm) * kTcRows; }
+__host__ __device__ constexpr size_t tc_cells_smem(int qm) {
+  return tc_operand_bytes(tc_cell_cells(qm), qm) + tc_cellterm_bytes(tc_cell_cells(qm)) +
+         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
+         tc_stages(qm) * tc_stage_bytes(kTcRows, qm) + tc_b2_bytes(tc_n2_cells(qm)) +
+         tc_scratch_bytes(tc_wg(qm)) +
+         tc_region((size_t)tc_wg(qm) * kTcWarpgroup * 2 * sizeof(float)) +
+         tc_region((size_t)tc_cell_cells(qm) * sizeof(double));
+}
+// Blocks of psi2_fwd_cells_tc_kernel an SM must hold (its launch bounds).
+__host__ __device__ constexpr int tc_cells_min_blocks(int qm) { return qm <= 16 ? 2 : 1; }
+
+// The forward where dZ will be wanted (Q <= 64): sum_n w_n Psi2_n and the
+// centred cell sums A_q = sum_n w e c_nq (mu'_nq - zb'_q) that dZ takes
+// (e = Psi2[n, cell]) in one sweep, per block of packed cells (grid x:
+// tc_wg warpgroups with a tile of 64 cells each, on the tile's M axis) and
+// N-split (grid y). The rows are walked as in psi2_fwd_tc_kernel (cp.async
+// ring, the row operand built once a row tile for all the block's cell
+// tiles, exponents on the tensor cores), with the rows' transposed operand
+// [c mu' | c] beside it. Each thread adds w exp2(L2) over its 16 rows into
+// float32 tile sums of its two cells, as psi2_fwd_tc_kernel does (the same
+// rows of the same cells a thread, the same float32 sums), and leaves them
+// in shared memory; the warpgroup turns the tile's exponents in registers
+// into ev = w exp2(L2) (0 past the last cell) and multiplies that tile by
+// the transpose on the tensor cores (tc_reduce): S1_q = sum ev c mu'_q and
+// S2_q = sum ev c_q over the tile's 64 rows, added to float64 registers.
+// After the tile, one of the four threads of a cell adds their four tile
+// sums in float64 into the cell's total in shared memory (no register lives
+// across the loop beside the products' totals: at Q = 10 those fill the 128
+// that two resident blocks allow). At the end, in float64, the centred A_q
+// = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc"); each split writes
+// its cells' sum_n w_n Psi2_n and A into its float64 (Q + 1, M, M)
+// partial, Psi2 first, both triangles. Up to Q = 16, two resident blocks
+// per SM.
+template <int QM>
+__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, tc_cells_min_blocks(QM))
+psi2_fwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
+                         const float* __restrict__ w, const float* __restrict__ z,
+                         const float* __restrict__ alpha, const float* __restrict__ sf2,
+                         const float* __restrict__ zeta, const int2* __restrict__ cells,
+                         const float* __restrict__ ce, const float* __restrict__ shift, int n,
+                         int m, int q, int rows_per_split, double* __restrict__ out) {
+  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2;
+  constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM);
+  extern __shared__ float4 smem4[];
+  TcCarve cv(smem4);
+  const TcOperand cop = tc_take_operand<KP>(cv, NC);
+  double* s_tot = reinterpret_cast<double*>(cop.hi);  // at the end: NC x N2 (N2 == KP)
+  float* s_ce = cv.take<float>(NC * sizeof(float));
+  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
+  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
+  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
+  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
+  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
+  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
+  const TcOperand b2 = tc_take_operand<kTcRows>(cv, N2);
+  const int wg = threadIdx.x / kTcWarpgroup;
+  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
+  float* s_part = cv.take<float>(tc_wg(QM) * kTcWarpgroup * 2 * sizeof(float));
+  double* s_p2 = cv.take<double>(NC * sizeof(double));
+  for (int c = threadIdx.x; c < NC; c += blockDim.x) s_p2[c] = 0.0;
+  __syncthreads();
+
+  const int p0 = blockIdx.x * NC;
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
+                             nullptr);
+  const int tile = wg * kTcRows;  // the warpgroup's cells
+  double tot[N2 / 2];
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
+
+  const float logsf2 = logf(*sf2), sh = *shift;
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min(n, lo + rows_per_split);
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const float* st = ring + (t % S) * stage;
+    if (S == 2) {
+      if (t + 1 < ntiles)
+        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
+                                   ring + ((t + 1) % S) * stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, &b2);
+    tc_operands_ready();
+    const float* st_w = st + 2 * kTcRows * QM;
+    float d[32];
+    tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = tc_m(i), r = tc_n(i);
+      const float ev = tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
+      part[(i >> 1) & 1] += st_w[r] * ev;
+      d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * ev : 0.f;
+    }
+    s_part[2 * threadIdx.x] = part[0];
+    s_part[2 * threadIdx.x + 1] = part[1];
+    float d2[N2 / 2];
+    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+    __syncthreads();
+    // the tile's sums of this thread's two cells from their four threads
+    // (read before the next tile's operands are ready, written after)
+    if ((threadIdx.x & 3) == 0) {
+      const float4* pt = reinterpret_cast<const float4*>(s_part + 2 * threadIdx.x);
+      const float4 u = pt[0], v = pt[1];
+      s_p2[tile + tc_m(0)] += ((double)u.x + (double)u.z) + ((double)v.x + (double)v.z);
+      s_p2[tile + tc_m(2)] += ((double)u.y + (double)u.w) + ((double)v.y + (double)v.w);
+    }
+  }
+
+  // out: (splits, q + 1, M, M), Psi2 first
+  const size_t mm = (size_t)m * m;
+  double* o = out + (size_t)blockIdx.y * (q + 1) * mm;
+  const double unshift = ldexp(1.0, -(int)sh);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int2 ij = s_ij[tile + tc_m(2 * h)];
+    if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
+    const double v = s_p2[tile + tc_m(2 * h)] * unshift;
+    o[(size_t)ij.x * m + ij.y] = v;
+    if (ij.x != ij.y) o[(size_t)ij.y * m + ij.x] = v;
+  }
+  o += mm;
+  // the cells' sums through shared memory (the cells' operand is done with)
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) s_tot[(tile + tc_m(e)) * N2 + tc_n(e)] = tot[e];
+  __syncthreads();
+  // each (cell, dimension) written by one thread
+  for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
+    const int c = idx % NC, k0 = (idx / NC) * QS;
+    const int2 ij = s_ij[c];
+    if (ij.x < 0) continue;
+    const double* t_c = s_tot + c * N2;
+    for (int k = 0; k < QS; ++k) {
+      const int kk = k0 + k;
+      if (kk >= q) break;
+      const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
+                               (z[(size_t)ij.y * q + kk] - zeta[kk]));
+      const double a = (t_c[kk] - (double)zb * t_c[QM + kk]) * unshift;
+      o[kk * mm + (size_t)ij.x * m + ij.y] = a;
+      if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
     }
   }
 }
@@ -455,41 +631,79 @@ int launch_psi1_fwd(const float* mu, const float* s, Strides ls, const float* y,
   return (int)cudaGetLastError();
 }
 
+// What an SM holds of psi2_fwd_cells_tc_kernel<QM> as launched: out = (its
+// blocks by the card's occupancy calculator, from the kernel's registers,
+// launch bounds' threads and tc_cells_smem; the blocks its launch bounds
+// ask for; registers a thread; local memory bytes a thread).
+template <int QM>
+int cells_residency(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, psi2_fwd_cells_tc_kernel<QM>);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = tc_cells_smem(QM);
+  if ((err = allow_smem(psi2_fwd_cells_tc_kernel<QM>, smem)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], psi2_fwd_cells_tc_kernel<QM>,
+                                                      fa.maxThreadsPerBlock, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = tc_cells_min_blocks(QM);
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return 0;
+}
+inline int cells_residency_chunked(int*) { return (int)cudaErrorInvalidValue; }
+
+// The Psi2 grid, then the Psi1 grid: psi2_fwd_tc_kernel into p2_part
+// (splits2, M, M), or with cells_part psi2_fwd_cells_tc_kernel into it
+// (splits_f, Q + 1, M, M).
 template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
                const float* ce, const float* shift, const float* shift1, int n, int m,
                int q, int d, int qn, int splits2,
-               int splits1, double* p2_part, double* p1y_part,
-               cudaStream_t stream) {
+               int splits1, int splits_f, double* p2_part, double* p1y_part,
+               double* cells_part, cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
-  const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
-  dim3 grid2(tc_blocks(m, tc_fwd_cells(QM)), splits2);
-  const size_t smem2 = tc_fwd_smem(QM);
-  cudaError_t err = allow_smem(psi2_fwd_tc_kernel<QM>, smem2);
-  if (err != cudaSuccess) return (int)err;
-  // One launch unless the partials' budget lowered splits2 below
-  // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
-  for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
-    psi2_fwd_tc_kernel<QM><<<grid2, tc_wg(QM) * kTcWarpgroup, smem2, stream>>>(
-        mu, s, ls, w, z, alpha, sf2, zeta, reinterpret_cast<const int2*>(cells), ce, shift, n0,
-        n, m, q, rows2, p2_part);
+  const int2* cells2 = reinterpret_cast<const int2*>(cells);
+  cudaError_t err;
+  if (cells_part) {
+    const size_t smem_f = tc_cells_smem(QM);
+    if ((err = allow_smem(psi2_fwd_cells_tc_kernel<QM>, smem_f)) != cudaSuccess) return (int)err;
+    dim3 grid_f(tc_blocks(m, tc_cell_cells(QM)), splits_f);
+    psi2_fwd_cells_tc_kernel<QM><<<grid_f, tc_wg(QM) * kTcWarpgroup, smem_f, stream>>>(
+        mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q,
+        (n + splits_f - 1) / splits_f, cells_part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else {
+    const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
+    dim3 grid2(tc_blocks(m, tc_fwd_cells(QM)), splits2);
+    const size_t smem2 = tc_fwd_smem(QM);
+    if ((err = allow_smem(psi2_fwd_tc_kernel<QM>, smem2)) != cudaSuccess) return (int)err;
+    // One launch unless the partials' budget lowered splits2 below
+    // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
+    for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
+      psi2_fwd_tc_kernel<QM><<<grid2, tc_wg(QM) * kTcWarpgroup, smem2, stream>>>(
+          mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n0, n, m, q, rows2, p2_part);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
   }
   return launch_psi1_fwd<p1_qm(QM)>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, n, m, q,
                                      d, splits1, p1y_part, stream);
 }
 
 // launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel and the K-chunked
-// psi1y_fwd_tc_kernel, the same grids and partials.
+// psi1y_fwd_tc_kernel, the same grids and partials. No forward forms the
+// cell sums past Q = 64 (the backward's chunked cell pass does): a
+// cells_part is refused.
 inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
                               const float* shift, const float* shift1, int n, int m, int q,
-                              int d, int qn, int splits2, int splits1, double* p2_part,
-                              double* p1y_part, cudaStream_t stream) {
+                              int d, int qn, int splits2, int splits1, int splits_f,
+                              double* p2_part, double* p1y_part, double* cells_part,
+                              cudaStream_t stream) {
+  if (cells_part) return (int)cudaErrorInvalidValue;
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
   dim3 grid2(tc_blocks(m, kTcChunkFwdCells), splits2);
@@ -509,8 +723,9 @@ inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
 }  // namespace gparml
 
 // Launch plan of gparml_psi_fwd: plan = (splits2, splits1, the largest
-// dynamic shared memory of its blocks in bytes, the device's limit for it).
-// Each grid's float64 partials take at most partial_bytes.
+// dynamic shared memory of its blocks in bytes, the device's limit for it,
+// splits_f: the N-splits of psi2_fwd_cells_tc_kernel, 0 past Q = 64, where
+// there is none). Each grid's float64 partials take at most partial_bytes.
 extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
@@ -522,8 +737,13 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
   plan[1] = cap_splits(n_splits(n, p1b * p1_fwd_passes(d, p1), kTcRows,
                                 kFwdRowsMax, num_sms),
                        (size_t)m * d * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(std::max(qm == 0 ? tc_fwd_chunked_smem() : tc_fwd_smem(qm),
-                                tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))));
+  plan[4] = qm == 0 ? 0
+                    : cap_splits(n_splits(n, tc_blocks(m, tc_cell_cells(qm)), kRowsPsi2,
+                                          kCellRowsMax, num_sms),
+                                 (size_t)(q + 1) * m * m * sizeof(double), partial_bytes);
+  plan[2] = smem_bytes(std::max({qm == 0 ? tc_fwd_chunked_smem()
+                                         : std::max(tc_fwd_smem(qm), tc_cells_smem(qm)),
+                                 tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))}));
   return (int)smem_limit(plan);
 }
 
@@ -533,16 +753,24 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
 // upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2): their
 // E0 log2e; shift, shift1: one float each, the whole numbers S and S1 the
 // Psi2 and the Psi1 kernels add to every base-2 exponent and take off their
-// sums. p2_part: (splits2, M, M) float64 and p1y_part: (splits1, M, D)
-// float64, every element written. Returns cudaGetLastError.
+// sums. p1y_part: (splits1, M, D) float64; with cells_part null, p2_part:
+// (splits2, M, M) float64; else (Q <= 64) cells_part: (splits_f, Q + 1, M,
+// M) float64, the Psi2 totals then the centred cell sums A (p2_part
+// unused). Every element written. Returns cudaGetLastError.
 extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
                               const float* shift, const float* shift1, int n, int m, int q, int d,
-                              int qn, int splits2, int splits1, double* p2_part,
-                              double* p1y_part, void* stream) {
+                              int qn, int splits2, int splits1, int splits_f, double* p2_part,
+                              double* p1y_part, double* cells_part, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
                    y, w, z, alpha, sf2, zeta, cells, ce, shift, shift1, n, m, q, d, qn, splits2,
-                   splits1, p2_part, p1y_part, static_cast<cudaStream_t>(stream));
+                   splits1, splits_f, p2_part, p1y_part, cells_part,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// cells_residency at q's bucket (Q <= 64), into out (int[4]).
+extern "C" int gparml_psi_fwd_cells_residency(int q, int* out) {
+  GPARML_QM_SWITCH(q, gparml::cells_residency, gparml::cells_residency_chunked, out);
 }

@@ -128,9 +128,9 @@ __host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
 __host__ __device__ constexpr int tc_wg(int qm) { return qm <= 32 ? 2 : 1; }
 __host__ __device__ constexpr int tc_fwd_ct(int qm) { return qm <= 16 ? 2 : 1; }
 __host__ __device__ constexpr int tc_stages(int qm) { return qm <= 32 ? 2 : 1; }
-// N of the backward's reduction products (tc_reduce), a multiple of 8: the
-// row pass's [zb' | zb'^2 | 1] (2 QM + 1 columns) and the cell pass's
-// [c mu' | c] (2 QM).
+// N of the reduction products (tc_reduce), a multiple of 8: the backward
+// row pass's [zb' | zb'^2 | 1] (2 QM + 1 columns) and the cell sums'
+// [c mu' | c] (2 QM; psi2_fwd_cells_tc_kernel).
 __host__ __device__ constexpr int tc_n2_rows(int qm) { return (2 * qm + 1 + 7) / 8 * 8; }
 __host__ __device__ constexpr int tc_n2_cells(int qm) { return (2 * qm + 7) / 8 * 8; }
 // K position of column c (0..63) of an exponent tile when the tile, from
@@ -760,6 +760,11 @@ __device__ inline void tc_build_cells(const float* __restrict__ z, const float* 
   }
   __syncthreads();
 }
+
+// The most rows of one N-split of a pass whose blocks hold fixed cells or
+// points and walk the rows (psi2_fwd_cells_tc_kernel, the backward's point
+// pass and chunked cell pass).
+constexpr int kCellRowsMax = 262144;
 
 // --- the K-chunked pieces (Q > 64) ------------------------------------------
 

@@ -331,8 +331,9 @@ def _infer_objective(p: P.GPLVMParams, y_train, y_new, config: GPLVMConfig, mesh
     held; lat0 are the leaves of the nearest-neighbour init (over a process
     group, the nearest of every process's rows)."""
     _check_config(config)
-    glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob)))
-    z, sf2, alpha, beta = (t.detach() for t in P.constrain(glob, config.bijector))
+    # held: no gradient flows to the trained globals (nor the kernels' dZ)
+    glob = P.GlobalParams(*(t.detach() for t in P.leaves(p.glob))).requires_grad_(False)
+    z, sf2, alpha, beta = P.constrain(glob, config.bijector)
     with glog.span("gparml.infer.init"), torch.no_grad():
         stats_train = _stats(p, y_train, config, mesh=mesh, weights=weights)
         # the init runs row-major; views of (D, N) storage

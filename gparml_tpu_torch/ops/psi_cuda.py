@@ -37,6 +37,15 @@ exponents carry exact power-of-two shifts, which the wrapper computes
 the CUDA sources only (``gparml_psi_{fwd,bwd}_plan``); the wrappers raise
 ValueError if a block would need more shared memory than the card gives.
 
+Up to Q = 64 the centred cell sums that dZ takes come from the forward's
+sweep (``psi2_fwd_cells_tc_kernel``), so that a fit's evaluation sweeps
+the (row, cell) pairs twice (forward, the backward's row pass): where a
+caller will want dZ (``_emits_cells``), ``PsiFused`` and ``PsiFusedT`` run
+it in place of the forward's Psi2 kernel and save the sums for the
+backward; ``psi_bwd`` called alone runs it for them. Where Z needs no
+gradient no kernel forms them. Past Q = 64 the backward's chunked cell
+pass forms them.
+
 Each grid splits N and writes one float64 partial per split, which the
 wrapper sums; ``PARTIAL_BYTES`` bounds each grid's partials, and the plan
 lowers the split count to fit. The kernels add a split's rows into its
@@ -63,8 +72,9 @@ from gparml_tpu_torch.ops import psi as psi_plain
 
 # Kernel launches per wrapper: each successful kernel call adds one, under
 # the lock (a mesh over several cards runs its shards' backwards on
-# autograd's per-device threads).
-LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0}
+# autograd's per-device threads). fwd_cells / fwd_cells_t count the forward
+# calls (of those in fwd / fwd_t) that also formed the cell sums.
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 0, "fwd_cells_t": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 # Most bytes of one grid's float64 per-split partials.
@@ -122,6 +132,11 @@ def _on_cuda(tensors) -> bool:
                      f"got {sorted({str(t.device) for t in tensors})}")
 
 
+def _ptr(t) -> int:
+    """A kernel's pointer argument: the tensor's address, or null for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _check_kernel_inputs(named: dict, shapes: dict) -> None:
     for name, t in named.items():
         if t.dtype != torch.float32:
@@ -149,11 +164,13 @@ def _shapes(layout: str, mu, z, y):
 
 
 def _plan(n: int, m: int, q: int, d: int, device: torch.device):
-    """(splits2, splits1, splits_c, splits_m, splits_p): the N-splits of the
-    forward's and the backward's grids and the inducing-point splits of the
-    backward's Psi1 row pass, from the kernels' own launch plan (the same
-    in both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a
-    block would need more shared memory than the card gives one."""
+    """(splits2, splits1, splits_c, splits_m, splits_p, splits_f): the
+    N-splits of the forward's and the backward's grids (splits_c, the
+    chunked cell pass's, 0 up to Q = 64), the inducing-point splits of the
+    backward's Psi1 row pass and the N-splits of the forward that forms the
+    cell sums (0 past Q = 64), from the kernels' own launch plan (the same
+    in both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a block
+    would need more shared memory than the card gives one."""
     return _plan_for(n, m, q, d, device, PARTIAL_BYTES)
 
 
@@ -172,7 +189,7 @@ def _plan_for(n, m, q, d, device, partial_bytes):
         raise ValueError(
             f"the CUDA kernels need {need} bytes of shared memory per block at "
             f"M={m}, Q={q}, D={d}, and this card gives {limit}")
-    return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
+    return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4], fwd[4]
 
 
 @functools.lru_cache(maxsize=16)
@@ -235,38 +252,78 @@ def _terms(layout, s, z, sf2, alpha):
     return (*_cell_terms(z, alpha), *_shifts(layout, s, alpha, sf2))
 
 
-# layout -> (the kernels' qn flag, LAUNCHES keys of the forward and backward)
-_LAYOUTS = {"nq": (0, "fwd", "bwd"), "qn": (1, "fwd_t", "bwd_t")}
+# layout -> (the kernels' qn flag, LAUNCHES keys of the forward, the
+# backward and the forward that forms the cell sums)
+_LAYOUTS = {"nq": (0, "fwd", "bwd", "fwd_cells"), "qn": (1, "fwd_t", "bwd_t", "fwd_cells_t")}
 
 
-def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w):
+# The widest Q whose forward forms the cell sums (the last register bucket).
+_CELLS_MAX_Q = 64
+
+
+def _emits_cells(grad_enabled: bool, z_grad: bool, q: int) -> bool:
+    """Whether the forward forms the backward's centred cell sums: where
+    autograd records the call (``grad_enabled``), dZ will be wanted
+    (``z_grad``) and a Q bucket holds q (Q <= 64; past it the backward's
+    chunked cell pass forms them). A fit's evaluation does; latent
+    inference (Z held) and statistics under ``torch.no_grad`` do not."""
+    return grad_enabled and z_grad and q <= _CELLS_MAX_Q
+
+
+def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w, cells=False):
+    """(Psi1^T (w Y), sum_n w_n Psi2_n) from the forward kernels; with
+    ``cells`` (Q <= 64) also the centred cell sums A (Q, M, M) of the
+    backward (``_launch_bwd``'s ``a``), formed in the same sweep."""
+    out = _run_fwd(layout, mu, s, z, sf2, alpha, y, w, cells)
+    _, key, _, key_cells = _LAYOUTS[layout]
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
+        if cells:
+            LAUNCHES[key_cells] += 1
+    return out
+
+
+def _run_fwd(layout, mu, s, z, sf2, alpha, y, w, cells):
+    """``_launch_fwd``'s kernels, uncounted."""
     args = dict(mu=mu, s=s, z=z, sf2=sf2, alpha=alpha, y=y, w=w)
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
-    qn, key, _ = _LAYOUTS[layout]
-    splits2, splits1, _, _, _ = _plan(n, m, q, d, mu.device)
+    qn = _LAYOUTS[layout][0]
+    splits2, splits1, _, _, _, splits_f = _plan(n, m, q, d, mu.device)
     f64 = dict(dtype=torch.float64, device=mu.device)
-    p2_part = torch.empty((splits2, m, m), **f64)
     p1y_part = torch.empty((splits1, m, d), **f64)
+    if cells:
+        p2_part, cells_part = None, torch.empty((splits_f, q + 1, m, m), **f64)
+    else:
+        p2_part, cells_part = torch.empty((splits2, m, m), **f64), None
     terms = _terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms)),
-            n, m, q, d, qn, splits2, splits1, p2_part.data_ptr(),
-            p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
+            n, m, q, d, qn, splits2, splits1, splits_f,
+            *(_ptr(t) for t in (p2_part, p1y_part, cells_part)),
+            torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
-    with _LAUNCHES_LOCK:
-        LAUNCHES[key] += 1
-    return p1y_part.sum(0).to(mu.dtype), p2_part.sum(0).to(mu.dtype)
+    p1y = p1y_part.sum(0).to(mu.dtype)
+    if not cells:
+        return p1y, p2_part.sum(0).to(mu.dtype)
+    return p1y, cells_part[:, 0].sum(0).to(mu.dtype), cells_part[:, 1:].sum(0).to(mu.dtype)
 
 
-def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
+def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, dz=True):
+    """(dmu, ds, dz, dsf2, dalpha, dy) from the backward kernels. The
+    centred cell sums that dz takes come from ``a`` (the forward's, from
+    ``_launch_fwd(..., cells=True)``); without it, from a run of that sweep
+    here (Q <= 64) or from the backward's chunked cell pass (past Q = 64).
+    Without ``dz`` nothing forms them and dz is None."""
     args = dict(mu=mu, s=s, z=z, sf2=sf2, alpha=alpha, y=y, w=w,
                 p1y=p1y, p2=p2, dp1y=dp1y, dp2=dp2)
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
-    qn, _, key = _LAYOUTS[layout]
-    _, _, splits_c, splits_m, splits_p = _plan(n, m, q, d, mu.device)
+    qn, _, key, _ = _LAYOUTS[layout]
+    _, _, splits_c, splits_m, splits_p, _ = _plan(n, m, q, d, mu.device)
+    if dz and a is None and q <= _CELLS_MAX_Q:
+        a = _run_fwd(layout, mu, s, z, sf2, alpha, y, w, True)[2]
     f32 = dict(dtype=mu.dtype, device=mu.device)
     # Psi2 is symmetric, so only the symmetric part of its cotangent acts;
     # the row pass walks the upper triangle with off-diagonal cells doubled.
@@ -276,7 +333,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
     dmu, ds, dal = (torch.empty(mu.shape, **f32) for _ in range(3))
     dy = torch.empty(y.shape, **f32)
     f64 = dict(dtype=torch.float64, device=mu.device)
-    a_part = torch.empty((splits_c, q, m, m), **f64)
+    a_part = torch.empty((splits_c, q, m, m), **f64) if dz and a is None else None
     b_part = torch.empty((splits_m, q, m), **f64)
     row_part = torch.empty((splits_p, n, 2 * q + 1 + d) if splits_p > 1 else (0,), **f64)
     terms = _terms(layout, s, z, sf2, alpha)
@@ -284,15 +341,16 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2):
         rc = _build.load().gparml_psi_bwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms, kmat, dp1y)),
             n, m, q, d, qn, splits_c, splits_m, splits_p,
-            *(t.data_ptr() for t in (dmu, ds, dal, dy, a_part, b_part, row_part)),
+            *(_ptr(t) for t in (dmu, ds, dal, dy, a_part, b_part, row_part)),
             torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_bwd")
     with _LAUNCHES_LOCK:
         LAUNCHES[key] += 1
+    if a_part is not None:
+        a = a_part.sum(0).to(mu.dtype)
     dal_sum = dal.sum(0 if layout == "nq" else 1)
     dz, dsf2, dalpha = _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal_sum,
-                                     a_part.sum(0).to(mu.dtype),
-                                     b_part.sum(0).to(mu.dtype))
+                                     a if dz else None, b_part.sum(0).to(mu.dtype))
     return dmu, ds, dz, dsf2, dalpha, dy
 
 
@@ -338,35 +396,45 @@ def psi_bwd_t(mu_t, s_t, z, sf2, alpha, y_t, w, p1y, p2, dp1y, dp2,
 def _assemble_bwd(z, sf2, alpha, p1y, p2, dp1y, sym, dz2, dal_sum, a, b):
     """(dz, dsf2, dalpha) from the backward kernels' reductions: ``dal_sum``
     (Q,) the sum of the row passes' dalpha shares, ``a`` (Q, M, M) the centred cell
-    sums sum_n w e c (mu - zb), ``b`` (Q, M) the centred inducing-point sums
-    sum_n h c1 (mu - z); ``sym`` = sym(dPsi2), ``dz2`` (M, M, Q) the squared
-    coordinate differences of z."""
-    zt = z.T
+    sums sum_n w e c (mu - zb) (None: no dz), ``b`` (Q, M) the centred
+    inducing-point sums sum_n h c1 (mu - z); ``sym`` = sym(dPsi2), ``dz2``
+    (M, M, Q) the squared coordinate differences of z."""
     sp2 = sym * p2
-    # dz_m = 2 sum_m' S [A - (alpha/2)(z_m - z_m') Psi2] + B
-    dz_t = 2.0 * (
-        (sym * a).sum(-1)
-        - 0.5 * alpha[:, None] * (zt * sp2.sum(-1) - (sp2 @ z).T)
-    ) + b
+    dz = None
+    if a is not None:
+        # dz_m = 2 sum_m' S [A - (alpha/2)(z_m - z_m') Psi2] + B
+        dz = (2.0 * (
+            (sym * a).sum(-1)
+            - 0.5 * alpha[:, None] * (z.T * sp2.sum(-1) - (sp2 @ z).T)
+        ) + b).T
     dalpha = dal_sum - 0.25 * torch.einsum("mp,mpq->q", sp2, dz2)
     dlogsf2 = 2.0 * torch.sum(sp2) + torch.sum(dp1y * p1y)
-    return dz_t.T, dlogsf2 / sf2, dalpha
+    return dz, dlogsf2 / sf2, dalpha
 
 
-def _fused_function(name: str, fwd, bwd, doc: str):
-    """A ``torch.autograd.Function`` over the wrapper pair (fwd, bwd)."""
+def _fused_function(name: str, layout: str, fwd_ref, bwd_ref, doc: str):
+    """A ``torch.autograd.Function`` over the layout's kernels (CPU inputs:
+    the plain versions ``fwd_ref``, ``bwd_ref``). Its last input, ``cells``
+    (``_emits_cells``), sends a CUDA forward through the sweep that also
+    forms the cell sums, which it saves for the backward."""
 
-    def forward(ctx, mu, s, z, sf2, alpha, y, w, block):
-        p1y, p2 = fwd(mu, s, z, sf2, alpha, y, w, block=block)
-        ctx.save_for_backward(mu, s, z, sf2, alpha, y, w, p1y, p2)
-        ctx.block = block
-        return p1y, p2
+    def forward(ctx, mu, s, z, sf2, alpha, y, w, block, cells):
+        xs = (mu, s, z, sf2, alpha, y, w)
+        ctx.kernels, ctx.block = _on_cuda(xs), block
+        out = (_launch_fwd(layout, *xs, cells=cells) if ctx.kernels
+               else fwd_ref(*xs, block=block))
+        ctx.save_for_backward(*xs, *out)
+        return out[:2]
 
     def backward(ctx, dp1y, dp2):
-        mu, s, z, sf2, alpha, y, w, p1y, p2 = ctx.saved_tensors
-        grads = bwd(mu, s, z, sf2, alpha, y, w, p1y, p2,
-                    dp1y.contiguous(), dp2.contiguous(), block=ctx.block)
-        return (*grads, None, None)
+        xs, out = ctx.saved_tensors[:7], ctx.saved_tensors[7:]
+        dp1y, dp2 = dp1y.contiguous(), dp2.contiguous()
+        if ctx.kernels:
+            grads = _launch_bwd(layout, *xs, *out[:2], dp1y, dp2, a=out[2] if out[2:] else None,
+                                dz=ctx.needs_input_grad[2])
+        else:
+            grads = bwd_ref(*xs, dp1y, dp2, block=ctx.block)
+        return (*grads, None, None, None)
 
     return type(name, (torch.autograd.Function,), {
         "__doc__": doc, "__module__": __name__,
@@ -374,23 +442,25 @@ def _fused_function(name: str, fwd, bwd, doc: str):
 
 
 PsiFused = _fused_function(
-    "PsiFused", psi_fwd, psi_bwd,
+    "PsiFused", "nq", psi_fused_fwd_reference, psi_fused_bwd_reference,
     """(Psi1^T (w Y), sum_n w_n Psi2_n), differentiable in (mu, s, z, sf2,
     alpha, y); the weights w are data (no gradient).""")
 PsiFusedT = _fused_function(
-    "PsiFusedT", psi_fwd_t, psi_bwd_t,
+    "PsiFusedT", "qn", psi_fused_t_fwd_reference, psi_fused_t_bwd_reference,
     """``PsiFused`` in the qn layout: mu^T, s^T (Q, N) and y^T (D, N), whose
     gradients come back (Q, N) and (D, N).""")
 
 
 def psi_fused(mu, s, z, sf2, alpha, y, w, block: Optional[int] = None):
     """Fused (Psi1^T (w Y) (M, D), sum_n w_n Psi2_n (M, M))."""
-    return PsiFused.apply(mu, s, z, sf2, alpha, y, w, block)
+    cells = _emits_cells(torch.is_grad_enabled(), z.requires_grad, z.shape[1])
+    return PsiFused.apply(mu, s, z, sf2, alpha, y, w, block, cells)
 
 
 def psi_fused_t(mu_t, s_t, z, sf2, alpha, y_t, w, block: Optional[int] = None):
     """``psi_fused`` from mu^T, s^T (Q, N) and y^T (D, N)."""
-    return PsiFusedT.apply(mu_t, s_t, z, sf2, alpha, y_t, w, block)
+    cells = _emits_cells(torch.is_grad_enabled(), z.requires_grad, z.shape[1])
+    return PsiFusedT.apply(mu_t, s_t, z, sf2, alpha, y_t, w, block, cells)
 
 
 def suff_stats(y, mu, s, z, sf2, alpha, weights=None,

@@ -42,10 +42,11 @@ def test_kernel_parity(cuda, case, layout):
 def test_one_split_a_grid_matches_plain(cuda, layout):
     """A partial budget of one byte puts every grid in one N-split of
     70 000 rows: the launcher then runs the forward's Psi2 grid twice, the
-    cell pass flushes 69 times into its float64 partial, the Psi1 passes
-    add 1094 row tiles into their float64 totals, and the results must
-    still meet the plain versions."""
-    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 1, 1, 1)
+    sweep that forms the cell sums adds 1094 row tiles into its float64
+    totals, as the Psi1 passes do, and the results must still meet the
+    plain versions. Up to Q = 64 the backward has no cell pass (the plan's
+    third entry, 0)."""
+    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 0, 1, 1, 1)
     before = len(chip_smoke.FAILURES)
     with chip_smoke.partial_budget(1):
         res = chip_smoke.parity_case(70_000, 40, 3, 5, 0, device=cuda, layout=layout)
@@ -58,8 +59,9 @@ def test_chunked_kernels_match_plain(cuda, layout, q):
     """Past Q = 64 the chunked kernels, forward and backward, against their
     plain versions: with the default plan, and with every grid in one
     N-split of 5000 rows. The backward takes no per-row scratch: the plan's
-    fifth entry is the Psi1 row pass's inducing-point splits, 1 here."""
-    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 1)
+    fifth entry is the Psi1 row pass's inducing-point splits, 1 here; no
+    forward forms the cell sums past Q = 64 (the sixth, 0)."""
+    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 1, 0)
     before = len(chip_smoke.FAILURES)
     res = chip_smoke.parity_case(300, 90, q, 6, 7, device=cuda, layout=layout)
     with chip_smoke.partial_budget(1):
@@ -108,6 +110,112 @@ def test_chunked_qn_kernels_equal_nq_kernels_on_transposed_inputs(cuda, q):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
         else:
             assert torch.equal(a, b.T if i in (0, 1, 5) else b), i
+
+
+def _route_inputs(q, spread, n=1000, m=64, d=6):
+    """Float64 inputs and cotangents of the route tests: N(0, 1) latents as
+    ``chip_smoke.parity_case`` draws them, or ``chip_smoke.spread_inputs``."""
+    if spread:
+        return chip_smoke.spread_inputs(n, m, q, d, spread)
+    rng = np.random.default_rng(n + m + q)
+    return dict(mu=rng.standard_normal((n, q)), s=0.3 + 0.5 * rng.random((n, q)),
+                z=rng.standard_normal((m, q)), sf2=np.asarray(1.3), alpha=0.5 + rng.random(q),
+                y=rng.standard_normal((n, d)), w=np.ones(n), dp1y=rng.standard_normal((m, d)),
+                dp2=rng.standard_normal((m, m)))
+
+
+def _route_tensors(host, device, layout, dtype=torch.float32):
+    """(mu, s, z, sf2, alpha, y, w) in ``layout`` and the cotangents (dp1y,
+    dp2), as ``dtype`` tensors."""
+    t = lambda a: torch.tensor(np.array(a, order="C"), dtype=dtype, device=device)
+    tr = (lambda a: a.T) if layout == "qn" else (lambda a: a)
+    xs = (t(tr(host["mu"])), t(tr(host["s"])), t(host["z"]), t(host["sf2"]), t(host["alpha"]),
+          t(tr(host["y"])), t(host["w"]))
+    return xs, (t(host["dp1y"]), t(host["dp2"]))
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("spread", [None, 3.0], ids=["normal", "spread"])
+@pytest.mark.parametrize("q", [2, 4, 10, 16, 32, 64])
+def test_forward_with_cell_sums_matches_the_two_sweeps(cuda, q, spread, layout):
+    """At every Q bucket, in both layouts, on N(0, 1) and spread latents:
+    the forward that forms the cell sums (psi2_fwd_cells_tc_kernel) gives
+    the Psi2 of psi2_fwd_tc_kernel (its float64 partials summed in another
+    order) and the Psi1^T Y of the same Psi1 kernel; its cell sums with
+    every grid in one N-split are those of the default plan up to the
+    float32 rounding of float64 sums taken in another order; the backward
+    given them equals the backward wrapper called alone (which runs that
+    sweep for them) bit for bit; and the gradients from either plan's cell
+    sums stay within the parity tests' tolerance of the plain version in
+    float64 (dz is where the cell sums go)."""
+    host = _route_inputs(q, spread)
+    xs, cot = _route_tensors(host, cuda, layout)
+    fwd, bwd, _, _, bwd_ref = chip_smoke._wrappers(layout)
+    p1y, p2 = fwd(*xs)
+    p1y_f, p2_f, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
+    assert torch.equal(p1y_f, p1y)
+    torch.testing.assert_close(p2_f, p2, rtol=1e-6, atol=0)
+    with chip_smoke.partial_budget(1):
+        a_1 = psi_cuda._launch_fwd(layout, *xs, cells=True)[2]
+    assert chip_smoke._norm_err(a_1.double().cpu().numpy(), a.double().cpu().numpy()) <= 1e-6
+    got = psi_cuda._launch_bwd(layout, *xs, p1y_f, p2_f, *cot, a=a)
+    alone = bwd(*xs, p1y_f, p2_f, *cot)
+    for name, g, h in zip(chip_smoke.GRAD_NAMES, got, alone):
+        assert torch.equal(g, h), name
+    got_1 = psi_cuda._launch_bwd(layout, *xs, p1y_f, p2_f, *cot, a=a_1)
+    xs64, cot64 = _route_tensors(host, cuda, layout, torch.float64)
+    want = bwd_ref(*xs64, *cot64)
+    for grads in (got, got_1):
+        for name, g, h in zip(chip_smoke.GRAD_NAMES, grads, want):
+            err = chip_smoke._norm_err(g.double().cpu().numpy(), h.cpu().numpy())
+            assert err <= chip_smoke.GRAD_TOL_F64, (name, err)
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+def test_held_z_forms_no_cell_sums(cuda, layout):
+    """Through the autograd.Function: with Z needing a gradient the forward
+    forms the cell sums (fwd_cells counts it) and saves them for the
+    backward; with Z held it forms none, saves none and gives no dz, and
+    dmu and ds are those of the first, bit for bit."""
+    xs, cot = _route_tensors(_route_inputs(10, None), cuda, layout)
+    fused = chip_smoke._wrappers(layout)[2]
+    keys = ("fwd", "fwd_cells") if layout == "nq" else ("fwd_t", "fwd_cells_t")
+
+    def run(z_grad):
+        ins = [x.clone().requires_grad_(i != 2 or z_grad) for i, x in enumerate(xs[:6])]
+        before = dict(psi_cuda.LAUNCHES)
+        p1y, p2 = fused(*ins, xs[6])
+        saved = len(p2.grad_fn.saved_tensors)
+        f = torch.sum(p1y * cot[0]) + torch.sum(p2 * cot[1])
+        grads = torch.autograd.grad(f, [x for x in ins if x.requires_grad])
+        counts = tuple(psi_cuda.LAUNCHES[k] - before[k] for k in keys)
+        return counts, saved, grads
+
+    counts, saved, g_fit = run(True)
+    assert counts == (1, 1) and saved == 10
+    counts, saved, g_held = run(False)
+    assert counts == (1, 0) and saved == 9 and len(g_held) == 5
+    assert torch.equal(g_held[0], g_fit[0]) and torch.equal(g_held[1], g_fit[1])
+
+
+@pytest.mark.parametrize("layout", ["nq", "qn"])
+def test_fit_forms_the_cell_sums_in_every_forward(cuda, layout):
+    """A fit's evaluations on the card: every forward call forms the cell
+    sums (fwd_cells / fwd = 1), one backward a forward."""
+    from gparml_tpu_torch import data
+    from gparml_tpu_torch.models import gplvm
+
+    y_np, _ = data.oil_flow_like(n=3000, d=5, seed=1)
+    y = torch.tensor(y_np.T.copy() if layout == "qn" else y_np, dtype=torch.float32,
+                     device=cuda)
+    cfg = gplvm.GPLVMConfig(q=3, num_inducing=20, layout=layout,
+                            y_layout="dn" if layout == "qn" else "nd")
+    p = gplvm.init_params(torch.Generator(cuda).manual_seed(0), y, cfg)
+    keys = ("fwd", "bwd", "fwd_cells") if layout == "nq" else ("fwd_t", "bwd_t", "fwd_cells_t")
+    before = dict(psi_cuda.LAUNCHES)
+    gplvm.fit(p, y, cfg, iters=3)
+    fwd, bwd, cells = (psi_cuda.LAUNCHES[k] - before[k] for k in keys)
+    assert fwd > 0 and cells == fwd and bwd == fwd
 
 
 def test_wrappers_count_launches(cuda):
@@ -351,6 +459,9 @@ def test_infer_latents_launches_the_kernels(cuda, layout):
     before = dict(psi_cuda.LAUNCHES)
     mu, s, res = gplvm.infer_latents(p, y_tr, y_new, cfg, iters=4)
     assert all(psi_cuda.LAUNCHES[k] > before[k] for k in keys), psi_cuda.LAUNCHES
+    # Z is held: no forward forms the cell sums (fwd_cells / fwd = 0)
+    cells = "fwd_cells_t" if layout == "qn" else "fwd_cells"
+    assert psi_cuda.LAUNCHES[cells] == before[cells], psi_cuda.LAUNCHES
     assert mu.shape == (30, 3) and bool(torch.all(s > 0))
     b = res.trace["bound"][:4]
     assert np.all(np.isfinite(b)) and np.all(np.diff(b) >= 0)

@@ -182,6 +182,84 @@ def test_cpu_tensors_do_not_launch_kernels(rng):
     assert psi_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("grad_enabled, z_grad, q, want", [
+    (True, True, 10, True), (True, False, 10, False), (False, True, 10, False),
+    (True, True, 64, True), (True, True, 100, False),
+], ids=["fit", "infer_latents", "no_grad", "q64", "q100"])
+def test_forward_forms_the_cell_sums_where_dz_will_be_wanted(grad_enabled, z_grad, q, want):
+    """The route of the Psi autograd.Functions: the forward forms the
+    backward's centred cell sums where autograd records it, Z needs a
+    gradient and a Q bucket holds Q (<= 64)."""
+    assert psi_cuda._emits_cells(grad_enabled, z_grad, q) is want
+
+
+def _recorded_route(monkeypatch, run):
+    """The kernel calls ``run`` makes through PsiFused / PsiFusedT on CPU
+    tensors, with the wrappers' launchers replaced by recorders around the
+    plain versions: [("fwd", layout, cells) | ("bwd", layout, a given, dz)]."""
+    calls = []
+    refs = {"nq": (psi_cuda.psi_fused_fwd_reference, psi_cuda.psi_fused_bwd_reference),
+            "qn": (psi_cuda.psi_fused_t_fwd_reference, psi_cuda.psi_fused_t_bwd_reference)}
+
+    def fwd(layout, mu, s, z, sf2, alpha, y, w, cells=False):
+        calls.append(("fwd", layout, cells))
+        out = refs[layout][0](mu, s, z, sf2, alpha, y, w)
+        m, q = z.shape
+        return (*out, torch.zeros((q, m, m), dtype=z.dtype)) if cells else out
+
+    def bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, dz=True):
+        calls.append(("bwd", layout, a is not None, dz))
+        g = refs[layout][1](mu, s, z, sf2, alpha, y, w, dp1y, dp2)
+        return (*g[:2], g[2] if dz else None, *g[3:])
+
+    monkeypatch.setattr(psi_cuda, "_on_cuda", lambda xs: True)
+    monkeypatch.setattr(psi_cuda, "_launch_fwd", fwd)
+    monkeypatch.setattr(psi_cuda, "_launch_bwd", bwd)
+    run()
+    return calls
+
+
+@pytest.mark.parametrize("case", ["fit", "fit_qn", "infer_latents", "no_grad", "q100"])
+def test_model_paths_take_the_cell_sum_route(monkeypatch, case):
+    """Where each model path sends the Psi kernels: a fit's evaluation
+    forms the cell sums in the forward and hands them to the backward (both
+    layouts); infer_latents (Z held; its training statistics under no_grad)
+    forms none and wants no dZ; statistics under no_grad form none; at
+    Q = 100 the backward's cell pass forms them."""
+    from gparml_tpu_torch.models import gplvm
+
+    q = 100 if case == "q100" else 3
+    layout = "qn" if case == "fit_qn" else "nq"
+    y = torch.tensor(np.random.default_rng(0).standard_normal((40, 5)), dtype=torch.float64)
+    cfg = gplvm.GPLVMConfig(q=q, num_inducing=6, stats_impl="pallas", layout=layout,
+                            y_layout="dn" if layout == "qn" else "nd",
+                            init="random" if q > 5 else "pca")
+    if case == "infer_latents":
+        y, y_new = y[:30], y[30:]
+    y_in = y.T.contiguous() if layout == "qn" else y
+    p = gplvm.init_params(torch.Generator().manual_seed(0), y_in, cfg)
+
+    def run():
+        if case == "infer_latents":
+            vg, lat0 = gplvm._infer_objective(p, y, y_new, cfg)
+            vg(lat0)
+        elif case == "no_grad":
+            with torch.no_grad():
+                gplvm.log_bound(p, y_in, cfg)
+        else:
+            gplvm.neg_bound_value_and_grad(p, y_in, cfg)
+
+    want = {
+        "fit": [("fwd", "nq", True), ("bwd", "nq", True, True)],
+        "fit_qn": [("fwd", "qn", True), ("bwd", "qn", True, True)],
+        "infer_latents": [("fwd", "nq", False), ("fwd", "nq", False),
+                          ("bwd", "nq", False, False)],
+        "no_grad": [("fwd", "nq", False)],
+        "q100": [("fwd", "nq", False), ("bwd", "nq", False, True)],
+    }[case]
+    assert _recorded_route(monkeypatch, run) == want
+
+
 def _kernel_model(mu, s, z, sf2, alpha, y, w, dp1y, sym, zeta=None):
     """What the backward kernels of csrc/psi_bwd.cu compute, written out
     densely: the row passes' (dmu, ds, dalpha share, dy) and the column
