@@ -42,6 +42,15 @@ The value F and the replicated gradients come out of that second
 holds the same bits, and the optimizer's scalars (``LeafReduce``) are one
 sum over processes with the replicated leaves counted once: every process
 takes the same steps and the replicated globals stay equal bit for bit.
+
+Under a profiler the collectives of a fit open host spans
+(``utils/logging.py``): ``gparml.allreduce.stats`` (the statistics),
+``gparml.allreduce.grad`` (the replicated gradients and the value) and
+``gparml.allreduce.scalar`` (each of ``LeafReduce``'s sums and maxima, after
+this process's own reads). Each opens once the operands are ready, so it
+holds the collective's host time and the wait for the other processes, not
+this process's own device work. The mesh counts the bytes every
+``all_reduce`` reduces (``allreduce_bytes``).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ import torch
 from gparml_tpu_torch.opt import scg
 from gparml_tpu_torch.parallel.mesh import (Mesh, Sharded, pad_and_place, pad_to_multiple,
                                             replicated)
+from gparml_tpu_torch.utils import logging as glog
 
 
 def _dist():
@@ -272,9 +282,10 @@ def _buffer_device(mesh: Optional[Mesh] = None) -> torch.device:
 
 def _all_reduce(flat: torch.Tensor, mesh: Mesh, op=None) -> torch.Tensor:
     """``flat`` summed (or reduced by ``op``) over the mesh's processes, on
-    ``flat``'s device."""
+    ``flat``'s device, its bytes counted on the mesh."""
     dist = _dist()
     buf = flat.detach().to(_buffer_device(mesh)).clone()
+    mesh.allreduce_bytes += buf.numel() * buf.element_size()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op, group=mesh.group)
     return buf.to(flat.device)
 
@@ -301,14 +312,15 @@ def all_reduce_stats(st: Sequence[torch.Tensor], mesh: Mesh):
     """Partial sums (``SufficientStats``: M^2 + M D + 4 values; SVGP's
     data term: one) summed over the mesh's processes without their graph,
     in one ``all_reduce``, counted and timed on the mesh (``allreduces``,
-    ``allreduce_seconds``) from a synchronized start. Returns the same
-    container type."""
+    ``allreduce_seconds``) from a synchronized start, in a
+    ``gparml.allreduce.stats`` span. Returns the same container type."""
     flat = _flatten([t.detach() for t in st])
     if flat.is_cuda:
         torch.cuda.synchronize(flat.device)
-    t0 = time.perf_counter()
-    total = _all_reduce(flat, mesh)
-    mesh.allreduce_seconds += time.perf_counter() - t0
+    with glog.span("gparml.allreduce.stats"):
+        t0 = time.perf_counter()
+        total = _all_reduce(flat, mesh)
+        mesh.allreduce_seconds += time.perf_counter() - t0
     mesh.allreduces += 1
     return _like(st, _unflatten(total, st))
 
@@ -347,7 +359,7 @@ def value_and_grad(local_stats: Callable[[], Sequence[torch.Tensor]],
     bound's K_MM terms). The first ``n_replicated`` leaves are replicated
     (the globals, q(u)), the rest hold this process's rows (the latents).
     Two ``all_reduce``s: the sums, then the replicated leaves' gradients
-    and the value."""
+    and the value (a ``gparml.allreduce.grad`` span)."""
     st_local = local_stats()
     st_in = _like(st_local, (t.detach().requires_grad_()
                              for t in all_reduce_stats(st_local, mesh)))
@@ -363,7 +375,8 @@ def value_and_grad(local_stats: Callable[[], Sequence[torch.Tensor]],
     parts = [g_thr + g_dir if coordinator and g_dir is not None else g_thr
              for g_thr, g_dir in zip(through, direct)]
     f_part = f.detach().reshape(1) if coordinator else torch.zeros_like(f.detach()).reshape(1)
-    summed = _all_reduce(_flatten([*parts, f_part]), mesh)
+    with glog.span("gparml.allreduce.grad"):
+        summed = _all_reduce(_flatten([*parts, f_part]), mesh)
     *rep_grads, f_sum = _unflatten(summed, [*parts, f_part])
     return f_sum.reshape(()), rep_grads + through[n_replicated:]
 
@@ -386,7 +399,8 @@ class LeafReduce:
     ``numel`` of leaf lists whose leaves are replicated (counted once, by
     the coordinator) or hold this process's rows (summed over processes).
     ``sharded[i]`` says which leaf i is. Each leaf's scalar comes to the
-    host through ``scg.host_read``, a ``gparml.scg.read`` span."""
+    host through ``scg.host_read``, a ``gparml.scg.read`` span; the
+    reduction over processes is a ``gparml.allreduce.scalar`` span."""
 
     def __init__(self, mesh: Mesh, sharded: Sequence[bool]):
         self.mesh = mesh
@@ -396,8 +410,9 @@ class LeafReduce:
     def _sum(self, per_leaf, read=float) -> np.float64:
         local = sum(read(v) for v, sh in zip(per_leaf, self.sharded)
                     if sh or self.coordinator)
-        total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh)
-        return np.float64(total.item())
+        with glog.span("gparml.allreduce.scalar"):
+            total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh)
+            return np.float64(total.item())
 
     def dot(self, a, b) -> np.float64:
         return self._sum((torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b)),
@@ -405,9 +420,10 @@ class LeafReduce:
 
     def max_abs(self, x) -> np.float64:
         local = max(scg.host_read(torch.max(torch.abs(t))) for t in x)
-        total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh,
-                            op=_dist().ReduceOp.MAX)
-        return np.float64(total.item())
+        with glog.span("gparml.allreduce.scalar"):
+            total = _all_reduce(torch.tensor([local], dtype=torch.float64), self.mesh,
+                                op=_dist().ReduceOp.MAX)
+            return np.float64(total.item())
 
     def numel(self, x) -> int:
         return int(self._sum(t.numel() for t in x))

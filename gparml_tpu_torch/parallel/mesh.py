@@ -49,6 +49,9 @@ class Mesh:
         # their host seconds from a synchronized start (distributed.py)
         self.allreduces = 0
         self.allreduce_seconds = 0.0
+        # the bytes of every all_reduce over the processes (the statistics,
+        # the gradients and value, the optimizer's scalars)
+        self.allreduce_bytes = 0
 
     @property
     def home(self) -> torch.device:

@@ -23,7 +23,12 @@ nest on the calling thread:
     it ``gparml.eval.fwd`` (the bound's graph built and its work launched)
     and ``gparml.eval.bwd`` (the wait on ``torch.autograd.grad``, whose
     engine runs the backward of device tensors on a thread of its own);
-  * ``gparml.scg.read``: one blocking device-to-host read of an SCG scalar.
+  * ``gparml.scg.read``: one blocking device-to-host read of an SCG scalar;
+  * over a process group (``parallel/distributed.py``):
+    ``gparml.allreduce.stats`` and ``gparml.allreduce.grad`` in each
+    evaluation, the all_reduce of the statistics and that of the replicated
+    gradients and the value, and ``gparml.allreduce.scalar``, each reduction
+    of an SCG scalar over the processes.
 """
 
 from __future__ import annotations
