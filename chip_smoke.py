@@ -1215,17 +1215,18 @@ def _window_times(case, dev):
 
 
 # (N, M, D, layout, Q buckets) of phase 3's times of the sweep that forms
-# Psi2 and the cell sums: the slice's shape (nq) at every Q bucket, and
-# config 5's (qn, N=1e7, M=500) at Q=10.
+# Psi2 and the cell sums and of the backward's row pass: the slice's shape
+# (nq) at every Q bucket, and config 5's (qn, N=1e7, M=500) at Q=10.
 ROUTE_SHAPES = ((1_000_000, 200, 12, "nq", (2, 4, 10, 16, 32, 64)),
                 (10_000_000, 500, 12, "qn", (10,)))
 
 
 def _route_times(n, m, q, d, layout, dev):
     """Device ms a call of the sweep that forms Psi2 and the cell sums
-    together (``psi2_fwd_cells_tc_kernel``) and of the forward's Psi2 kernel
-    alone (``psi2_fwd_tc_kernel``, where no dZ is wanted), on N(0, 1)
-    latents at (n, m, q, d) in ``layout``."""
+    together (``psi2_fwd_cells_tc_kernel``), of the forward's Psi2 kernel
+    alone (``psi2_fwd_tc_kernel``, where no dZ is wanted) and of the
+    backward's Psi2 row pass given those sums (``psi2_bwd_rows_tc_kernel``),
+    on N(0, 1) latents at (n, m, q, d) in ``layout``."""
     import torch
     from gparml_tpu_torch.ops import psi_cuda
 
@@ -1237,7 +1238,11 @@ def _route_times(n, m, q, d, layout, dev):
           r(*((n, d) if layout == "nq" else (d, n))), torch.ones(n, device=dev))
     fused = _global_ms(lambda: psi_cuda._launch_fwd(layout, *xs, cells=True))
     alone = _global_ms(lambda: psi_cuda._launch_fwd(layout, *xs))
-    return fused[f"psi2_fwd_cells_tc_kernel<{q}>"], alone[f"psi2_fwd_tc_kernel<{q}>"]
+    p1y, p2, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
+    cot = _cotangents(m, d, dev)
+    rows = _global_ms(lambda: psi_cuda._launch_bwd(layout, *xs, p1y, p2, *cot, a=a))
+    return (fused[f"psi2_fwd_cells_tc_kernel<{q}>"], alone[f"psi2_fwd_tc_kernel<{q}>"],
+            rows[f"psi2_bwd_rows_tc_kernel<{q}>"])
 
 
 def _cli_run(argv):
@@ -2254,9 +2259,9 @@ def phase10_entry(dev, kernels):
     torch.cuda.synchronize()
     launches = dict(psi_cuda.LAUNCHES)
     _require(launches == {"fwd": 1, "bwd": 1, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 1,
-                          "fwd_cells_t": 0},
+                          "fwd_cells_t": 0, "bwd_rows_pipe": 1},
              f"phase 10(a) entry(): not one forward (forming the cell sums) and one "
-             f"backward kernel call: {launches}")
+             f"backward kernel call (its row pass pipelined): {launches}")
     for k in kernels:
         if k["name"] in ("psi_fwd_ml128", "psi_bwd_ml128"):
             k["launches_entry"] = launches[k["name"][4:7]]
@@ -2392,9 +2397,10 @@ def phase3(dev):
 
     for n, m, d, layout, buckets in ROUTE_SHAPES:
         for q in buckets:
-            fused, alone = _route_times(n, m, q, d, layout, dev)
+            fused, alone, rows = _route_times(n, m, q, d, layout, dev)
             print(f"phase 3 route {layout} N={n} M={m} Q={q} D={d}: psi2_fwd_cells_tc_kernel "
-                  f"{fused:.3f} ms; psi2_fwd_tc_kernel {alone:.3f} ms")
+                  f"{fused:.3f} ms; psi2_fwd_tc_kernel {alone:.3f} ms; "
+                  f"psi2_bwd_rows_tc_kernel {rows:.3f} ms")
             torch.cuda.empty_cache()
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")
 

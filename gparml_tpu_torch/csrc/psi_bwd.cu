@@ -19,7 +19,15 @@
 //        exponents and its sums G = sum g, t_q = sum g (zb - mu),
 //        u_q = sum g (zb - mu)^2 (g = K w Psi2) on the tensor cores
 //        (psi_tc.cuh); it writes dmu = 2 c t, ds = -c G + 2 c^2 u and the
-//        row's share of dalpha, -(s/den) G - u / den^2.
+//        row's share of dalpha, -(s/den) G - u / den^2. The walk is a
+//        software pipeline: a producer warpgroup builds the cell tiles
+//        into a ring of shared-memory stages (4 up to Q = 16, 2 at 32, 1
+//        at 64) handed to the consumer warpgroups by a full and an empty
+//        mbarrier a stage, with no block barrier in the walk; up to
+//        Q = 10 a consumer, its rows' operand in registers, issues the
+//        next tile's exponents and this tile's sums together, waits for
+//        the exponents alone (wgmma.wait_group 1) and runs the next
+//        tile's exp2 epilogue while the sums run.
 //      psi1_bwd_rows_tc_kernel<QM>, a block per 128 data rows, walks the
 //        inducing points in tiles of 64 (split over blocks at small N):
 //        per tile the exponents, y_n . dPsi1Y_m (K = D) and dY = p dPsi1Y
@@ -65,7 +73,14 @@
 // N M (M + 1) / 2 (n, cell) pairs once (rows; past Q = 64 twice where dZ
 // is wanted, rows and cells) and the N M (n, point) pairs twice; every
 // pass forms each tile's exponents on the tensor cores and spends a pair's exp2 on the MUFU and a few float32 operations
-// in the epilogue; the Psi2 passes' reductions run on the tensor cores, the
+// in the epilogue. The Q <= 64 row pass's floor is its 3-term TF32
+// products, 3 (K + N2) x 2 flops a pair (288 at Q = 10: 0.73 s at config
+// 5's N = 1e7, M = 500), above the MUFU's one exp2 a pair (0.30 s); its
+// pipeline runs the products, the exp2 epilogue and the next tile's build
+// at once, where an unpipelined walk runs them one after another, and on
+// an H100 the products now set its pace (their small-N reduction wgmmas
+// run well below the tensor cores' peak rate; PERF.md section 6);
+// the Psi2 passes' reductions run on the tensor cores, the
 // Psi1 passes' centred sums pair by pair on the CUDA cores (~4 Q float32
 // operations a pair: the tensor-core form of them, an expansion around
 // zeta, cancels where the latents lie far from zeta, ~1e-5 of float64 on
@@ -84,41 +99,252 @@
 
 namespace gparml {
 
-// Rows of one block of psi2_bwd_rows_tc_kernel (64 a warpgroup), and its
-// shared memory: the rows' operand, constants and weights, one cell tile's
-// operand and terms, and one region that holds in turn the rows' raw
-// stage, the cell tile's transposed operand [zb' | zb'^2 | 1] and, at the
-// end, the rows' float64 sums (rows x tc_n2_rows).
+// The Psi2 row pass's block (Q <= 64): tc_wg(qm) consumer warpgroups of 64
+// data rows each, then one producer warpgroup.
 __host__ __device__ constexpr int tc_row_rows(int qm) { return tc_wg(qm) * kTcRows; }
-__host__ __device__ constexpr size_t tc_rows_union_bytes(int qm) {
-  return std::max({tc_stage_bytes(tc_row_rows(qm), qm), tc_b2_bytes(tc_n2_rows(qm)),
+__host__ __device__ constexpr int tc_rows_threads(int qm) {
+  return (tc_wg(qm) + 1) * kTcWarpgroup;
+}
+// One stage of its ring: a 64-cell tile's operand, the tile's transposed
+// operand [zb' | zb'^2 | 1] (tc_n2_rows x 64) and the cells' ce and kmat
+// entries.
+__host__ __device__ constexpr size_t tc_rows_stage_bytes(int qm) {
+  return tc_operand_bytes(kTcRows, qm) + tc_b2_bytes(tc_n2_rows(qm)) +
+         2 * tc_region(kTcRows * sizeof(float));
+}
+// Its shared memory beside the ring: the rows' operand, constants and
+// weights, and the ring's full and empty barriers.
+constexpr int kTcRowsStagesMax = 4;
+__host__ __device__ constexpr size_t tc_rows_fixed_bytes(int qm) {
+  return tc_operand_bytes(tc_row_rows(qm), qm) + 2 * tc_region(tc_row_rows(qm) * sizeof(float)) +
+         tc_region(2 * kTcRowsStagesMax * sizeof(uint64_t));
+}
+// Stages of the ring: as many as fit beside that in an H100 block's shared
+// memory, up to kTcRowsStagesMax (4 up to Q = 16, 2 at 32, 1 at 64).
+__host__ __device__ constexpr int tc_rows_stages(int qm) {
+  return (int)std::min<size_t>(kTcRowsStagesMax,
+                               (kTcSmemMax - tc_rows_fixed_bytes(qm)) / tc_rows_stage_bytes(qm));
+}
+// Whether a consumer runs each tile's epilogue while the last tile's sums
+// are in flight (tc_rows_consume), its rows' operand in registers, up to
+// Q = 10: past it the registers of the float64 totals, the reduction and
+// that operand leave too few (at Q = 16 the overlapped walk spilled and
+// ran no faster on an H100 than running each tile's products in turn).
+__host__ __device__ constexpr bool tc_rows_ahead(int qm) { return qm <= 10; }
+// The ring's room, which holds the rows' raw stage before the walk and
+// their float64 sums (rows x tc_n2_rows) after it.
+__host__ __device__ constexpr size_t tc_rows_ring_bytes(int qm) {
+  return std::max({tc_rows_stages(qm) * tc_rows_stage_bytes(qm),
+                   tc_stage_bytes(tc_row_rows(qm), qm),
                    tc_region((size_t)tc_row_rows(qm) * tc_n2_rows(qm) * sizeof(double))});
 }
 __host__ __device__ constexpr size_t tc_rows_smem(int qm) {
-  return tc_operand_bytes(tc_row_rows(qm), qm) + 2 * tc_region(tc_row_rows(qm) * sizeof(float)) +
-         tc_operand_bytes(kTcRows, qm) + tc_cellterm_bytes(kTcRows) + tc_rows_union_bytes(qm) +
-         tc_scratch_bytes(tc_wg(qm));
+  return tc_rows_fixed_bytes(qm) + tc_rows_ring_bytes(qm);
+}
+// Registers of a producer thread and of a consumer thread where the block
+// runs two consumer warpgroups (setmaxnreg; the launch gives each of the
+// 384 threads 168): the producer holds a cell's QM / 2 values between its
+// reads and its writes, 40 registers up to Q = 16 and 72 at Q = 32; the
+// consumers share what it leaves of an SM's 65 536 (232, 216).
+__host__ __device__ constexpr int tc_rows_producer_regs(int qm) { return qm <= 16 ? 40 : 72; }
+__host__ __device__ constexpr int tc_rows_consumer_regs(int qm) {
+  return (65536 / kTcWarpgroup - tc_rows_producer_regs(qm)) / 2 / 8 * 8;
 }
 
-// The Psi2 row pass (Q <= 64): a block owns 64 data rows a warpgroup (the
-// rows' operand built once, the rows on the tile's M axis) and walks all
-// packed cells in tiles of 64 (the N axis). Per tile it builds the cells'
-// operand and its transpose [zb' | zb'^2 | 1] once for its warpgroups;
-// each warpgroup forms its rows' exponents on the tensor cores
-// (psi_tc.cuh), turns them in registers into g = K w exp2(L2) (K = mult *
+// Stage s of the ring.
+struct TcRowsStage {
+  TcOperand cop, b2;
+  float *ce, *k;
+};
+template <int QM>
+__device__ inline TcRowsStage tc_rows_stage(char* ring, int s) {
+  constexpr int KP = tc_k(QM), N2 = tc_n2_rows(QM);
+  TcCarve cv(ring + (size_t)s * tc_rows_stage_bytes(QM));
+  TcRowsStage st;
+  st.cop.hi = cv.take<float>(kTcRows * KP * sizeof(float));
+  st.cop.lo = cv.take<float>(kTcRows * KP * sizeof(float));
+  st.b2.hi = cv.take<float>(N2 * kTcRows * sizeof(float));
+  st.b2.lo = cv.take<float>(N2 * kTcRows * sizeof(float));
+  st.ce = cv.take<float>(kTcRows * sizeof(float));
+  st.k = cv.take<float>(kTcRows * sizeof(float));
+  return st;
+}
+
+// The producer warpgroup of psi2_bwd_rows_tc_kernel: cell tile p (packed
+// cells [64 p, 64 p + 64)) into stage p % NS once every consumer has
+// released the stage's last tile: thread (cell c, half h) writes the
+// cell's dimensions h, h + 2, ... of the operand [zb' | zb'^2] (as
+// tc_build_cells forms it) and of its transpose [zb' | zb'^2 | 1], half 0
+// also the cell's ce, its kmat entry and the transpose's row of ones (all
+// 0 past the last cell; the transpose's padding rows stay zero). The
+// tile's Z and kmat reads, and the next tile's (i, j) and ce, are in
+// flight while it waits for the stage.
+template <int QM>
+__device__ inline void tc_rows_produce(const float* __restrict__ z,
+                                       const float* __restrict__ zeta,
+                                       const int2* __restrict__ cells,
+                                       const float* __restrict__ ce,
+                                       const float* __restrict__ kmat, int m, int q, char* ring,
+                                       uint64_t* full, uint64_t* empty) {
+  constexpr int KP = tc_k(QM), NS = tc_rows_stages(QM), KE = QM / 2;
+  const int c = threadIdx.x % kTcWarpgroup >> 1, h = threadIdx.x & 1, kc = tc_kperm(c);
+  const int ncell = tri_cells(m), tiles = (ncell + kTcRows - 1) / kTcRows;
+  int2 ij = c < ncell ? cells[c] : make_int2(-1, -1);
+  float ce_c = c < ncell ? ce[c] : 0.f;
+  for (int p = 0; p < tiles; ++p) {
+    const int pn = (p + 1) * kTcRows + c;
+    const int2 ij_n = pn < ncell ? cells[pn] : make_int2(-1, -1);
+    const float ce_n = pn < ncell ? ce[pn] : 0.f;
+    const bool live = ij.x >= 0;
+    const float kv = live && h == 0 ? kmat[(size_t)ij.x * m + ij.y] : 0.f;
+    float zb[KE];
+#pragma unroll
+    for (int j = 0; j < KE; ++j) {
+      const int k = h + 2 * j;
+      zb[j] = 0.f;
+      if (live && k < q) {
+        const float zi = z[(size_t)ij.x * q + k] - zeta[k];
+        const float zj = z[(size_t)ij.y * q + k] - zeta[k];
+        zb[j] = 0.5f * (zi + zj);
+      }
+    }
+    const int s = p % NS;
+    tc_bar_wait(empty + s, (p / NS & 1) ^ 1);
+    const TcRowsStage st = tc_rows_stage<QM>(ring, s);
+#pragma unroll
+    for (int j = 0; j < KE; ++j) {
+      const int k = h + 2 * j;
+      tc_put(st.cop.hi, st.cop.lo, tc_at(c, k, KP), zb[j]);
+      tc_put(st.cop.hi, st.cop.lo, tc_at(c, QM + k, KP), zb[j] * zb[j]);
+      tc_put(st.b2.hi, st.b2.lo, tc_at(k, kc, 64), zb[j]);
+      tc_put(st.b2.hi, st.b2.lo, tc_at(QM + k, kc, 64), zb[j] * zb[j]);
+    }
+    if (h == 0) {
+      st.ce[c] = ce_c;
+      st.k[c] = kv;
+      tc_put(st.b2.hi, st.b2.lo, tc_at(2 * QM, kc, 64), live ? 1.f : 0.f);
+    }
+    tc_fence_async();
+    tc_bar_arrive(full + s);
+    ij = ij_n;
+    ce_c = ce_n;
+  }
+}
+
+// The consumer warpgroups of psi2_bwd_rows_tc_kernel: warpgroup wg's 64
+// rows against every cell tile in turn, as stage p % NS fills. Per tile
+// the exponents (tc_tile), g = K w exp2(L2) in their registers, and the
+// sums T1, T2, G of g [zb' | zb'^2 | 1] (tc_reduce), added into the rows'
+// float64 totals tot in tile order; then the stage is released. Up to
+// Q = 10 (tc_rows_ahead) a warpgroup keeps the tensor cores busy over its
+// epilogue: its rows' operand held in registers as the exponents' A
+// (TcRowsA), and tile p's g split into the reduction's A registers, it
+// issues tile p + 1's exponents and then tile p's sums and waits for the
+// exponents alone (wgmma.wait_group 1); tile p + 1's epilogue then runs
+// while tile p's sums are in flight, and waits for them (wait_group 0)
+// only before it splits its own g.
+template <int QM>
+__device__ inline void tc_rows_consume(const TcOperand& rop, const float* s_rc, const float* s_w,
+                                       char* ring, uint64_t* full, uint64_t* empty, int ncell,
+                                       double (&tot)[tc_n2_rows(QM) / 2]) {
+  constexpr int KP = tc_k(QM), N2 = tc_n2_rows(QM), NS = tc_rows_stages(QM);
+  const int rw = threadIdx.x / kTcWarpgroup * kTcRows;
+  // the constants and weights of the thread's two rows, tc_m(0) and tc_m(2)
+  const float rc[2] = {s_rc[rw + tc_m(0)], s_rc[rw + tc_m(2)]};
+  const float wr[2] = {s_w[rw + tc_m(0)], s_w[rw + tc_m(2)]};
+  const int tiles = (ncell + kTcRows - 1) / kTcRows;
+  auto weigh = [&](float (&d)[32], const TcRowsStage& st) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = tc_n(i), h = (i >> 1) & 1;
+      d[i] = st.k[c] * (wr[h] * tc_exp2(d[i] + rc[h] + st.ce[c]));
+    }
+  };
+  auto add = [&](const float (&d2)[N2 / 2]) {
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+  };
+  float d[32], d2[N2 / 2];
+  if constexpr (tc_rows_ahead(QM)) {
+    TcRowsA<KP> ra;
+    ra.load(rop.hi, rop.lo, rw);
+    TcRegA a;
+    auto exps = [&](int p) {
+      tc_bar_wait(full + p % NS, p / NS & 1);
+      const TcRowsStage sx = tc_rows_stage<QM>(ring, p % NS);
+      tc_tile_issue_regs<KP>(ra, sx.cop.hi, sx.cop.lo, d);
+    };
+    // tile p's epilogue and split, once tile p - 1's sums are in
+    auto front = [&](int p, const TcRowsStage& st) {
+      weigh(d, st);
+      tc_wgmma_wait<0>();
+      tc_fence_vals(d2);
+      a.fence();
+      if (p > 0) {
+        add(d2);
+        tc_bar_arrive(empty + (p - 1) % NS);
+      }
+      a.set(d, nullptr);
+    };
+    exps(0);
+    tc_wgmma_wait<0>();
+    tc_fence_vals(d);
+    int p = 0;
+    for (; p + 1 < tiles; ++p) {
+      const TcRowsStage st = tc_rows_stage<QM>(ring, p % NS);
+      front(p, st);
+      exps(p + 1);
+      tc_reduce_issue<N2>(a, st.b2.hi, st.b2.lo, d2);
+      tc_wgmma_wait<1>();
+      tc_fence_vals(d);
+    }
+    const TcRowsStage st = tc_rows_stage<QM>(ring, p % NS);
+    front(p, st);
+    tc_reduce_issue<N2>(a, st.b2.hi, st.b2.lo, d2);
+    tc_wgmma_wait<0>();
+    tc_fence_vals(d2);
+    a.fence();
+    add(d2);
+    tc_bar_arrive(empty + p % NS);
+  } else {
+    const float* a_hi = rop.hi + rw * KP;
+    const float* a_lo = rop.lo + rw * KP;
+    for (int p = 0; p < tiles; ++p) {
+      tc_bar_wait(full + p % NS, p / NS & 1);
+      const TcRowsStage st = tc_rows_stage<QM>(ring, p % NS);
+      tc_tile<KP>(a_hi, a_lo, st.cop.hi, st.cop.lo, d);
+      weigh(d, st);
+      tc_reduce<N2>(d, st.b2.hi, st.b2.lo, d2, nullptr);
+      add(d2);
+      tc_bar_arrive(empty + p % NS);
+    }
+  }
+}
+
+// The Psi2 row pass (Q <= 64): a block owns 64 data rows a consumer
+// warpgroup (the rows' operand built once, the rows on the tile's M axis)
+// and walks all packed cells in tiles of 64 (the N axis), pipelined: a
+// producer warpgroup builds each tile's cell operand and its transpose
+// [zb' | zb'^2 | 1] once for the block into a ring of tc_rows_stages
+// stages (4 up to Q = 16, 2 at 32, 1 at 64), handed over by a full and an
+// empty mbarrier a stage, with no block barrier in the walk; each consumer
+// warpgroup forms its rows' exponents on the tensor cores (psi_tc.cuh),
+// turns them in registers into g = K w exp2(L2) (K = mult *
 // sym(dPsi2), 0 past the last cell), and multiplies that tile, still in
 // registers, by the transpose on the tensor cores again (tc_reduce):
 // T1_q = sum g zb'_q, T2_q = sum g zb'_q^2 and G = sum g over the tile's
 // cells, which it adds to float64 registers (no float32 sum spans more than
 // 64 cells; one over a row's 125 250 cells at M = 500 put dalpha 4e-5 off
-// float64). At the end, in float64, t_q = sum g (zb' - mu')_q =
-// T1 - mu' G and u_q = sum g (zb' - mu')_q^2 = T2 - 2 mu' T1 + mu'^2 G
-// (centred on zeta, the expansion keeps float32's accuracy:
-// ops/psi_tc_model.py, form "tc"), and thread (row, half of the latent
-// dimensions) writes dmu = 2 c t, ds = -c G + 2 c^2 u and the row's share
-// of dalpha, -(s/den) G - u/den^2.
+// float64), tile after tile (tc_rows_consume: up to Q = 10 a tile's sums
+// run on the tensor cores over the next tile's epilogue). At the end,
+// in float64, t_q = sum g (zb' - mu')_q = T1 - mu' G and u_q = sum g (zb' -
+// mu')_q^2 = T2 - 2 mu' T1 + mu'^2 G (centred on zeta, the expansion keeps
+// float32's accuracy: ops/psi_tc_model.py, form "tc"), and thread (row,
+// half of the latent dimensions) writes dmu = 2 c t, ds = -c G + 2 c^2 u
+// and the row's share of dalpha, -(s/den) G - u/den^2. Every value and sum
+// is the one the unpipelined walk formed, in the same order.
 template <int QM>
-__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup)
+__global__ void __launch_bounds__(tc_rows_threads(QM), 1)
 psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
                         const float* __restrict__ w, const float* __restrict__ z,
                         const float* __restrict__ alpha, const float* __restrict__ sf2,
@@ -128,22 +354,18 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
                         float* __restrict__ dmu, float* __restrict__ ds,
                         float* __restrict__ dal) {
   constexpr int KP = tc_k(QM), QS = QM / 2, R = tc_row_rows(QM), N2 = tc_n2_rows(QM);
+  constexpr int NC = tc_wg(QM) * kTcWarpgroup, NS = tc_rows_stages(QM);
+  static_assert(NS >= (tc_rows_ahead(QM) ? 2 : 1), "the ring holds too few stages");
   extern __shared__ float4 smem4[];
   TcCarve cv(smem4);
   const TcOperand rop = tc_take_operand<KP>(cv, R);
   float* s_rc = cv.take<float>(R * sizeof(float));
   float* s_w = cv.take<float>(R * sizeof(float));
-  const TcOperand cop = tc_take_operand<KP>(cv, kTcRows);
-  float* s_ce = cv.take<float>(kTcRows * sizeof(float));
-  float* s_k = cv.take<float>(kTcRows * sizeof(float));
-  int2* s_ij = cv.take<int2>(kTcRows * sizeof(int2));
-  char* uni = cv.take<char>(tc_rows_union_bytes(QM));
-  const int wg = threadIdx.x / kTcWarpgroup;
-  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
-  float* st = reinterpret_cast<float*>(uni);
-  const size_t b2_half = tc_b2_bytes(N2) / 2;
-  const TcOperand b2{reinterpret_cast<float*>(uni), reinterpret_cast<float*>(uni + b2_half)};
-  double* s_tot = reinterpret_cast<double*>(uni);
+  uint64_t* full = cv.take<uint64_t>(2 * kTcRowsStagesMax * sizeof(uint64_t));
+  uint64_t* empty = full + NS;
+  char* ring = cv.take<char>(tc_rows_ring_bytes(QM));
+  float* st = reinterpret_cast<float*>(ring);
+  double* s_tot = reinterpret_cast<double*>(ring);
 
   const int n0 = blockIdx.x * R;
   tc_stage_rows<QM, R>(mu, s, ls, w, q, n0, n, st);
@@ -151,58 +373,60 @@ psi2_bwd_rows_tc_kernel(const float* __restrict__ mu, const float* __restrict__ 
   cp_async_wait<0>();
   __syncthreads();
   const float sh = *shift;
-  tc_build_rows<QM, KP, R>(st, alpha, zeta, logf(*sf2), sh, q, rop, s_rc, nullptr);
+  if (threadIdx.x < NC)
+    tc_build_rows<QM, KP, R, false, NC>(st, alpha, zeta, logf(*sf2), sh, q, rop, s_rc, nullptr);
   for (int r = threadIdx.x; r < R; r += blockDim.x) s_w[r] = st[2 * R * QM + r];
-  __syncthreads();  // the stage's room is the cells' transpose's from here
-
-  const int rw = wg * kTcRows;  // the warpgroup's first row
-  double tot[N2 / 2];
-#pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
-  const int ncell = tri_cells(m);
-  for (int p0 = 0; p0 < ncell; p0 += kTcRows) {
-    tc_build_cells<QM, KP, kTcRows>(z, zeta, cells, ce, kmat, m, q, p0, cop, s_ce, s_ij, &b2,
-                                    s_k);
-    tc_operands_ready();
-    float d[32];
-    tc_tile<KP>(rop.hi + rw * KP, rop.lo + rw * KP, cop.hi, cop.lo, d);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int rr = rw + tc_m(i), c = tc_n(i);
-      d[i] = s_k[c] * (s_w[rr] * tc_exp2(d[i] + s_rc[rr] + s_ce[c]));
+  __syncthreads();  // the stage's room is the ring's from here; its padding stays zero
+  for (int i = threadIdx.x; i < (int)(tc_rows_ring_bytes(QM) / sizeof(float)); i += blockDim.x)
+    st[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      tc_bar_init(full + i, kTcWarpgroup);
+      tc_bar_init(empty + i, NC);
     }
-    float d2[N2 / 2];
-    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
-#pragma unroll
-    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
-    __syncthreads();
+    tc_bar_init_fence();
   }
+  tc_operands_ready();
 
-  // the rows' sums through shared memory, then thread (row, half) writes
+  if (threadIdx.x >= NC) {
+    if constexpr (NC > kTcWarpgroup) tc_setmaxnreg_dec<tc_rows_producer_regs(QM)>();
+    tc_rows_produce<QM>(z, zeta, cells, ce, kmat, m, q, ring, full, empty);
+  } else {
+    if constexpr (NC > kTcWarpgroup) tc_setmaxnreg_inc<tc_rows_consumer_regs(QM)>();
+    double tot[N2 / 2];
 #pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) s_tot[(rw + tc_m(e)) * N2 + tc_n(e)] = tot[e];
-  __syncthreads();
-  const int r = threadIdx.x % R, k0 = (threadIdx.x / R) * QS;
-  const int row = n0 + r;
-  if (row >= n) return;
-  const double* t_r = s_tot + r * N2;
-  const double unshift = ldexp(1.0, -(int)sh);
-  const double g = t_r[2 * QM] * unshift;
-  const float gs = (float)g;
-  for (int k = 0; k < QS; ++k) {
-    const int kk = k0 + k;
-    if (kk >= q) break;
-    const size_t i = ls.at(row, kk);
-    const double mv = (double)(mu[i] - zeta[kk]);
-    const double t1 = t_r[kk] * unshift, t2 = t_r[QM + kk] * unshift;
-    const float t = (float)(t1 - mv * g);
-    const float u = (float)(t2 - 2.0 * mv * t1 + mv * mv * g);
-    const float a = alpha[kk];
-    const float den = 2.f * a * s[i] + 1.f;
-    const float c = a / den;
-    dmu[i] = 2.f * c * t;
-    ds[i] = -c * gs + 2.f * c * c * u;
-    dal[i] = -(s[i] / den) * gs - u / (den * den);
+    for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
+    tc_rows_consume<QM>(rop, s_rc, s_w, ring, full, empty, tri_cells(m), tot);
+
+    // the rows' sums through the ring's room once every consumer is done
+    // with it, then thread (row, half) writes
+    const int rw = threadIdx.x / kTcWarpgroup * kTcRows;
+    tc_bar_sync(1, NC);
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) s_tot[(rw + tc_m(e)) * N2 + tc_n(e)] = tot[e];
+    tc_bar_sync(1, NC);
+    const int r = threadIdx.x % R, k0 = (threadIdx.x / R) * QS;
+    const int row = n0 + r;
+    if (row >= n) return;
+    const double* t_r = s_tot + r * N2;
+    const double unshift = ldexp(1.0, -(int)sh);
+    const double g = t_r[2 * QM] * unshift;
+    const float gs = (float)g;
+    for (int k = 0; k < QS; ++k) {
+      const int kk = k0 + k;
+      if (kk >= q) break;
+      const size_t i = ls.at(row, kk);
+      const double mv = (double)(mu[i] - zeta[kk]);
+      const double t1 = t_r[kk] * unshift, t2 = t_r[QM + kk] * unshift;
+      const float t = (float)(t1 - mv * g);
+      const float u = (float)(t2 - 2.0 * mv * t1 + mv * mv * g);
+      const float a = alpha[kk];
+      const float den = 2.f * a * s[i] + 1.f;
+      const float c = a / den;
+      dmu[i] = 2.f * c * t;
+      ds[i] = -c * gs + 2.f * c * c * u;
+      dal[i] = -(s[i] / den) * gs - u / (den * den);
+    }
   }
 }
 
@@ -1236,7 +1460,7 @@ int launch_bwd(const float* mu, const float* s, const float* y,
   if (err != cudaSuccess) return (int)err;
   const int2* cells2 = reinterpret_cast<const int2*>(cells);
   constexpr int R = tc_row_rows(QM);
-  psi2_bwd_rows_tc_kernel<QM><<<(n + R - 1) / R, tc_wg(QM) * kTcWarpgroup, smem_r, stream>>>(
+  psi2_bwd_rows_tc_kernel<QM><<<(n + R - 1) / R, tc_rows_threads(QM), smem_r, stream>>>(
       mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, kmat, n, m, q, dmu, ds, dal);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 

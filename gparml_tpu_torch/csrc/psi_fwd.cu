@@ -120,8 +120,7 @@ psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, St
   __syncthreads();
 
   const int p0 = blockIdx.x * NC;
-  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
-                             nullptr);
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, p0, cop, s_ce, s_ij);
   const int wg = threadIdx.x / kTcWarpgroup;
 
   const float logsf2 = logf(*sf2), sh = *shift;
@@ -262,8 +261,7 @@ psi2_fwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
   __syncthreads();
 
   const int p0 = blockIdx.x * NC;
-  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, nullptr, m, q, p0, cop, s_ce, s_ij, nullptr,
-                             nullptr);
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, p0, cop, s_ce, s_ij);
   const int tile = wg * kTcRows;  // the warpgroup's cells
   double tot[N2 / 2];
 #pragma unroll

@@ -68,12 +68,20 @@
 // staged by cp.async up to the widest bucket, and read from device memory
 // into each chunk's build past it.
 //
-// What bounds the kernels built on it, on an H100: the exp2 of each pair on
-// the MUFU (16 a clock per SM) and the rate of issuing wgmma, then the per-pair
-// float32 work of the epilogues and the per-tile operand builds; device
-// memory carries O(N (Q + D)) bytes. Off the card (CPU emulation of these
-// sources) tc_tile and tc_reduce run as scalar loops of the same 3-term
-// split over the same layouts (their #ifndef __CUDA_ARCH__ twins).
+// What bounds the kernels built on it, on an H100: operations, of three
+// kinds that a kernel can overlap. The 3-term TF32 products are the
+// largest floor: 3 K x 2 flops a pair for the exponents and, where a
+// reduction follows, 3 N2 x 2 more (the Psi2 row pass at Q = 10: 288 flops
+// a pair, 0.73 s at N = 1e7, M = 500 at 495 TFLOP/s); then the exp2 of
+// each pair on the MUFU (16 a clock per SM: 0.30 s there); then the
+// per-pair float32 and integer work of the epilogues (the constants, the
+// weight, the hi/lo split of a register A operand) and the per-tile
+// operand builds. Device memory carries O(N (Q + D)) bytes. The pipeline
+// pieces below (mbarriers, named barriers, setmaxnreg) let a producer
+// warpgroup build tiles while consumer warpgroups multiply them. Off the
+// card (CPU emulation of these sources) tc_tile and tc_reduce run as scalar
+// loops of the same 3-term split over the same layouts (their #ifndef
+// __CUDA_ARCH__ twins); the pipeline pieces have none.
 #pragma once
 
 #include <string.h>
@@ -218,13 +226,106 @@ __device__ inline void cp_async_wait() {
 #endif
 }
 
-// Make this block's shared-memory stores visible to wgmma (the async
-// proxy), then a block barrier.
-__device__ inline void tc_operands_ready() {
+// Order this thread's shared-memory stores before wgmma's reads of them
+// (the async proxy), for whoever synchronises with it next.
+__device__ inline void tc_fence_async() {
 #ifdef __CUDA_ARCH__
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #endif
+}
+
+// Make this block's shared-memory stores visible to wgmma, then a block
+// barrier.
+__device__ inline void tc_operands_ready() {
+  tc_fence_async();
   __syncthreads();
+}
+
+// --- the pipeline pieces: a ring of stages in shared memory that a
+// producer warpgroup fills and consumer warpgroups drain (psi_bwd.cu
+// psi2_bwd_rows_tc_kernel) -------------------------------------------------
+
+// The most dynamic shared memory an H100 gives a block.
+constexpr size_t kTcSmemMax = 232448;
+
+// An mbarrier in shared memory: tc_bar_init sets the arrivals that
+// complete a phase (before a block barrier, after tc_bar_init_fence);
+// tc_bar_arrive arrives, releasing this thread's earlier memory operations
+// to whoever waits for the phase; tc_bar_wait waits (acquire) until the
+// phase of the given parity has completed. A freshly initialised barrier
+// is in phase 0, and counts the phase before it, parity 1, as complete.
+__device__ inline void tc_bar_init(uint64_t* bar, int count) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(bar)),
+               "r"(count)
+               : "memory");
+#endif
+}
+__device__ inline void tc_bar_init_fence() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+__device__ inline void tc_bar_arrive(uint64_t* bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(bar))
+               : "memory");
+#endif
+}
+#ifdef __CUDA_ARCH__
+__device__ inline bool tc_bar_try(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+#endif
+__device__ inline void tc_bar_wait(uint64_t* bar, int parity) {
+#ifdef __CUDA_ARCH__
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  while (!tc_bar_try(b, parity)) {
+  }
+#endif
+}
+
+// Named barrier id (0 is __syncthreads') of `threads` threads.
+__device__ inline void tc_bar_sync(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+#endif
+}
+
+// Give a warpgroup's registers back (dec) or take them (inc): every thread
+// of the warpgroup, N a multiple of 8 in [24, 256].
+template <int N>
+__device__ inline void tc_setmaxnreg_dec() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+template <int N>
+__device__ inline void tc_setmaxnreg_inc() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+
+// Keep values in registers live and unmoved up to here: an accumulator or
+// A register of a wgmma group belongs to the hardware until the group is
+// waited for, and the compiler must not read it earlier or reuse it.
+template <int N>
+__device__ inline void tc_fence_vals(float (&v)[N]) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+#endif
 }
 
 #ifdef __CUDA_ARCH__
@@ -237,11 +338,6 @@ __device__ inline uint64_t tc_desc(const float* p, int kp) {
   d |= (uint64_t)(128 >> 4) << 16;
   d |= (uint64_t)((32 * kp) >> 4) << 32;
   return d;
-}
-
-__device__ inline void tc_fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A (64 x 8) . B (64 x 8)^T, TF32 in, float32 accumulate.
@@ -265,15 +361,27 @@ __device__ inline void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int 
 }
 #endif
 
+// Wait until at most N of this warpgroup's committed wgmma groups are
+// still in flight (they complete in order).
+template <int N>
+__device__ inline void tc_wgmma_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
 // The tile's product: d[i] (+)= sum_k A[tc_m(i), k] B[tc_n(i), k] in the
 // 3-term split, the small terms first, A and B 64-row operands; with
 // `accumulate` (a later K chunk) added to d. Every thread of a warpgroup
-// calls it (each warpgroup on its own A), after tc_operands_ready.
+// calls it (each warpgroup on its own A), after its operands are ready.
+// tc_tile_issue commits the products as one wgmma group and returns at
+// once: d is the hardware's until tc_wgmma_wait has seen the group
+// complete, and the caller then fences it (tc_fence_vals) before reading.
 template <int KP>
-__device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float* b_hi,
-                               const float* b_lo, float (&d)[32], bool accumulate = false) {
+__device__ inline void tc_tile_issue(const float* a_hi, const float* a_lo, const float* b_hi,
+                                     const float* b_lo, float (&d)[32], bool accumulate = false) {
 #ifdef __CUDA_ARCH__
-  tc_fence_acc(d);
+  tc_fence_vals(d);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int s = 0; s < KP / 8; ++s) {
@@ -284,8 +392,16 @@ __device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float
   for (int s = 0; s < KP / 8; ++s)
     wgmma_tf32(d, tc_desc(a_hi + 64 * s, KP), tc_desc(b_hi + 64 * s, KP), 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  tc_fence_acc(d);
+#endif
+}
+
+template <int KP>
+__device__ inline void tc_tile(const float* a_hi, const float* a_lo, const float* b_hi,
+                               const float* b_lo, float (&d)[32], bool accumulate = false) {
+#ifdef __CUDA_ARCH__
+  tc_tile_issue<KP>(a_hi, a_lo, b_hi, b_lo, d, accumulate);
+  tc_wgmma_wait<0>();
+  tc_fence_vals(d);
 #else
   for (int i = 0; i < 32; ++i) {
     const int r = tc_m(i), c = tc_n(i);
@@ -483,14 +599,67 @@ struct TcRegA {
       hi[i] = __float_as_uint(h);
       lo[i] = __float_as_uint(to_tf32(x[i] - h));
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(hi[i]), "+r"(lo[i])::"memory");
+    fence();
 #else
     for (int i = 0; i < 32; ++i) scratch[tc_m(i) * kTcTileLd + tc_n(i)] = x[i];
     __syncthreads();
 #endif
   }
+  // tc_fence_vals of the registers
+  __device__ void fence() {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(hi[i]), "+r"(lo[i])::"memory");
+#endif
+  }
 };
+
+// A warpgroup's 64-row K-major operand (hi, lo; KP columns, rows r0 ..
+// r0 + 63) as the A registers of tc_tile_issue_regs: for K step s its
+// elements (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of columns 8 s
+// .. 8 s + 7, g = 16 warp + lane / 4, t = lane % 4, the TF32 A fragment.
+// Loaded once where the operand stays fixed over a walk (the rows of the
+// Psi2 row pass), it spares the walk's products their A reads from shared
+// memory.
+template <int KP>
+struct TcRowsA {
+  uint32_t hi[KP / 2], lo[KP / 2];
+  __device__ void load(const float* o_hi, const float* o_lo, int r0) {
+    const int lane = threadIdx.x & 31;
+    const int g = r0 + (threadIdx.x & (kTcWarpgroup - 1)) / 32 * 16 + lane / 4, t = lane % 4;
+#pragma unroll
+    for (int s = 0; s < KP / 8; ++s)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int at = tc_at(g + 8 * (j & 1), 8 * s + t + 4 * (j >> 1), KP);
+        hi[4 * s + j] = __float_as_uint(o_hi[at]);
+        lo[4 * s + j] = __float_as_uint(o_lo[at]);
+      }
+  }
+};
+
+// tc_tile_issue with A from registers (TcRowsA): the same products in the
+// same order, committed as one wgmma group.
+template <int KP>
+__device__ inline void tc_tile_issue_regs(const TcRowsA<KP>& a, const float* b_hi,
+                                          const float* b_lo, float (&d)[32]) {
+#ifdef __CUDA_ARCH__
+  tc_fence_vals(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < KP / 8; ++s) {
+    TcRs<64>::mma(d, a.hi[4 * s], a.hi[4 * s + 1], a.hi[4 * s + 2], a.hi[4 * s + 3],
+                  tc_desc(b_lo + 64 * s, KP), s > 0);
+    TcRs<64>::mma(d, a.lo[4 * s], a.lo[4 * s + 1], a.lo[4 * s + 2], a.lo[4 * s + 3],
+                  tc_desc(b_hi + 64 * s, KP), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < KP / 8; ++s)
+    TcRs<64>::mma(d, a.hi[4 * s], a.hi[4 * s + 1], a.hi[4 * s + 2], a.hi[4 * s + 3],
+                  tc_desc(b_hi + 64 * s, KP), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#endif
+}
 
 // A reduction product of the backward: d2 = X . B2^T with X a warpgroup's
 // 64 x 64 tile of values, split into a (TcRegA), and B2 an N2 x 64 K-major
@@ -498,13 +667,15 @@ struct TcRegA {
 // order; d2[e] is element (tc_m(e), tc_n(e)) of the 64 x N2 result. 3-term
 // TF32 split as tc_tile's, the small terms first; wgmma m64nNk8 with A from
 // registers, one per K step and term. Every thread of a warpgroup calls it,
-// after tc_operands_ready.
+// after its operands are ready. tc_reduce_issue commits the products as one
+// wgmma group and returns at once: d2 and a are the hardware's until
+// tc_wgmma_wait has seen the group complete (then tc_fence_vals(d2),
+// a.fence()).
 template <int N2>
-__device__ inline void tc_reduce_split(TcRegA& a, const float* b_hi, const float* b_lo,
-                                       float (&d2)[N2 / 2], const float* scratch) {
+__device__ inline void tc_reduce_issue(TcRegA& a, const float* b_hi, const float* b_lo,
+                                       float (&d2)[N2 / 2]) {
 #ifdef __CUDA_ARCH__
-#pragma unroll
-  for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
+  tc_fence_vals(d2);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
@@ -518,11 +689,17 @@ __device__ inline void tc_reduce_split(TcRegA& a, const float* b_hi, const float
     TcRs<N2>::mma(d2, a.hi[4 * s], a.hi[4 * s + 2], a.hi[4 * s + 1], a.hi[4 * s + 3],
                   tc_desc(b_hi + 64 * s, 64), 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < N2 / 2; ++i) asm volatile("" : "+f"(d2[i])::"memory");
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(a.hi[i]), "+r"(a.lo[i])::"memory");
+#endif
+}
+
+template <int N2>
+__device__ inline void tc_reduce_split(TcRegA& a, const float* b_hi, const float* b_lo,
+                                       float (&d2)[N2 / 2], const float* scratch) {
+#ifdef __CUDA_ARCH__
+  tc_reduce_issue<N2>(a, b_hi, b_lo, d2);
+  tc_wgmma_wait<0>();
+  tc_fence_vals(d2);
+  a.fence();
 #else
   for (int e = 0; e < N2 / 2; ++e) {
     const int r = tc_m(e), n = tc_n(e);
@@ -649,12 +826,13 @@ __device__ inline void tc_stage_rows(const float* __restrict__ mu, const float* 
 // pass), the transposed operand [c mu' | c] (2 QM x 64, row r of the stage
 // at K position tc_kperm(r)) of its reduction product, whose padding rows
 // stay zero; with cmu (Psi1), c and mu' as floats, cmu[k * R + r] and
-// cmu[(QM + k) * R + r]. blockDim.x / R neighbouring threads share a row,
-// each taking every (blockDim.x / R)-th dimension, and add their parts of
+// cmu[(QM + k) * R + r]. The block's first NT threads build (NT = 0: all
+// of them): NT / R neighbouring threads share a row, each taking every
+// (NT / R)-th dimension, and add their parts of
 // the row constant with warp shuffles in a fixed order: sum_q log den as
 // the logs of float32 products of up to 8 terms, and sum_q c mu'^2, both in
 // double.
-template <int QM, int KP, int R, bool P1 = false>
+template <int QM, int KP, int R, bool P1 = false, int NT = 0>
 __device__ inline void tc_build_rows(const float* st, const float* __restrict__ alpha,
                                      const float* __restrict__ zeta, float logsf2, float shift,
                                      int q, const TcOperand& op, float* s_rc,
@@ -662,7 +840,7 @@ __device__ inline void tc_build_rows(const float* st, const float* __restrict__ 
   using F = TcForm<P1>;
   const float* st_mu = st;
   const float* st_s = st + R * QM;
-  const int tpr = blockDim.x / R;  // 1, 2 or 4
+  const int tpr = (NT ? NT : blockDim.x) / R;  // 1, 2 or 4
   const int r = threadIdx.x / tpr, sub = threadIdx.x % tpr;
   double lsum = 0.0, cm = 0.0;
   float prod = 1.f;
@@ -723,24 +901,14 @@ __device__ inline void tc_stage_cells(const int2* __restrict__ cells, const floa
 
 // The cell operand of packed cells [p0, p0 + NC) (cells[p] = (i, j), i <=
 // j; ce[p] = E0 log2e, both from the wrapper), and per cell c: s_ce[c]
-// (0 past the last cell), s_ij[c] ((-1, -1) past it), with s_k the entry
-// kmat[i, j] (0 past it), and with b2 (NC = 64, the row pass) the
-// transposed operand [zb' | zb'^2 | 1 | 0 ...] (tc_n2_rows(QM) x 64, cell c
-// at K position tc_kperm(c), every row written) of its reduction product.
-// Two barriers inside.
+// (0 past the last cell) and s_ij[c] ((-1, -1) past it). Two barriers
+// inside.
 template <int QM, int KP, int NC>
 __device__ inline void tc_build_cells(const float* __restrict__ z, const float* __restrict__ zeta,
                                       const int2* __restrict__ cells,
-                                      const float* __restrict__ ce,
-                                      const float* __restrict__ kmat, int m, int q, int p0,
-                                      const TcOperand& op, float* s_ce, int2* s_ij,
-                                      const TcOperand* b2, float* s_k) {
-  tc_stage_cells<NC>(cells, ce, kmat, m, p0, s_ij, s_ce, s_k);
-  if (b2)
-    for (int c = threadIdx.x; c < NC; c += blockDim.x)
-      for (int nn = 2 * QM; nn < tc_n2_rows(QM); ++nn)
-        tc_put(b2->hi, b2->lo, tc_at(nn, tc_kperm(c), 64),
-               nn == 2 * QM && p0 + c < tri_cells(m) ? 1.f : 0.f);
+                                      const float* __restrict__ ce, int m, int q, int p0,
+                                      const TcOperand& op, float* s_ce, int2* s_ij) {
+  tc_stage_cells<NC>(cells, ce, nullptr, m, p0, s_ij, s_ce, nullptr);
   __syncthreads();
   for (int t = threadIdx.x; t < NC * QM; t += blockDim.x) {
     const int c = t / QM, k = t % QM;
@@ -753,10 +921,6 @@ __device__ inline void tc_build_cells(const float* __restrict__ z, const float* 
     }
     tc_put(op.hi, op.lo, tc_at(c, k, KP), zb);
     tc_put(op.hi, op.lo, tc_at(c, QM + k, KP), zb * zb);
-    if (b2) {
-      tc_put(b2->hi, b2->lo, tc_at(k, tc_kperm(c), 64), zb);
-      tc_put(b2->hi, b2->lo, tc_at(QM + k, tc_kperm(c), 64), zb * zb);
-    }
   }
   __syncthreads();
 }

@@ -73,8 +73,12 @@ from gparml_tpu_torch.ops import psi as psi_plain
 # Kernel launches per wrapper: each successful kernel call adds one, under
 # the lock (a mesh over several cards runs its shards' backwards on
 # autograd's per-device threads). fwd_cells / fwd_cells_t count the forward
-# calls (of those in fwd / fwd_t) that also formed the cell sums.
-LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 0, "fwd_cells_t": 0}
+# calls (of those in fwd / fwd_t) that also formed the cell sums;
+# bwd_rows_pipe the backward calls of either layout whose Psi2 row pass was
+# the pipelined psi2_bwd_rows_tc_kernel (Q <= 64; past it the K-chunked
+# row pass runs).
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 0, "fwd_cells_t": 0,
+            "bwd_rows_pipe": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 # Most bytes of one grid's float64 per-split partials.
@@ -257,8 +261,10 @@ def _terms(layout, s, z, sf2, alpha):
 _LAYOUTS = {"nq": (0, "fwd", "bwd", "fwd_cells"), "qn": (1, "fwd_t", "bwd_t", "fwd_cells_t")}
 
 
-# The widest Q whose forward forms the cell sums (the last register bucket).
-_CELLS_MAX_Q = 64
+# The widest Q of the register buckets (csrc/psi_common.cuh qm_for): up to
+# it the forward forms the cell sums and the backward's Psi2 row pass is
+# the pipelined kernel.
+_BUCKET_MAX_Q = 64
 
 
 def _emits_cells(grad_enabled: bool, z_grad: bool, q: int) -> bool:
@@ -267,7 +273,7 @@ def _emits_cells(grad_enabled: bool, z_grad: bool, q: int) -> bool:
     (``z_grad``) and a Q bucket holds q (Q <= 64; past it the backward's
     chunked cell pass forms them). A fit's evaluation does; latent
     inference (Z held) and statistics under ``torch.no_grad`` do not."""
-    return grad_enabled and z_grad and q <= _CELLS_MAX_Q
+    return grad_enabled and z_grad and q <= _BUCKET_MAX_Q
 
 
 def _launch_fwd(layout, mu, s, z, sf2, alpha, y, w, cells=False):
@@ -322,7 +328,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, 
     _check_kernel_inputs(args, shapes)
     qn, _, key, _ = _LAYOUTS[layout]
     _, _, splits_c, splits_m, splits_p, _ = _plan(n, m, q, d, mu.device)
-    if dz and a is None and q <= _CELLS_MAX_Q:
+    if dz and a is None and q <= _BUCKET_MAX_Q:
         a = _run_fwd(layout, mu, s, z, sf2, alpha, y, w, True)[2]
     f32 = dict(dtype=mu.dtype, device=mu.device)
     # Psi2 is symmetric, so only the symmetric part of its cotangent acts;
@@ -346,6 +352,8 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, 
     _build.check(rc, "psi_bwd")
     with _LAUNCHES_LOCK:
         LAUNCHES[key] += 1
+        if q <= _BUCKET_MAX_Q:
+            LAUNCHES["bwd_rows_pipe"] += 1
     if a_part is not None:
         a = a_part.sum(0).to(mu.dtype)
     dal_sum = dal.sum(0 if layout == "nq" else 1)

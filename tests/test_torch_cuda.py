@@ -172,6 +172,32 @@ def test_forward_with_cell_sums_matches_the_two_sweeps(cuda, q, spread, layout):
 
 
 @pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("n, m, q", [(1000, 37, q) for q in (2, 4, 10, 16, 32, 33, 64)]
+                         + [(1001, 200, 10), (16, 200, 10), (16, 37, 64), (1001, 64, 64)],
+                         ids=str)
+def test_pipelined_row_pass_matches_float64(cuda, n, m, q, layout):
+    """The backward's Psi2 row pass (psi2_bwd_rows_tc_kernel: a producer
+    warpgroup hands 64-cell tiles to the consumer warpgroups through a ring
+    of stages) at every Q bucket, and at Q = 33, in both layouts: M = 37
+    ends on a ragged tile (703 cells), N = 1001 is no multiple of a block's
+    rows, N = 16 and N = 1000 fill a few blocks as infer_latents' batches
+    do. Given the forward's cell sums, dmu, ds and dalpha stay within the
+    parity tests' tolerance of the plain version in float64, and
+    bwd_rows_pipe counts the call."""
+    host = _route_inputs(q, None, n=n, m=m)
+    xs, cot = _route_tensors(host, cuda, layout)
+    p1y, p2, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
+    before = dict(psi_cuda.LAUNCHES)
+    got = psi_cuda._launch_bwd(layout, *xs, p1y, p2, *cot, a=a)
+    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + 1
+    xs64, cot64 = _route_tensors(host, cuda, layout, torch.float64)
+    want = chip_smoke._wrappers(layout)[4](*xs64, *cot64)
+    for i in (0, 1, 4):
+        err = chip_smoke._norm_err(got[i].double().cpu().numpy(), want[i].cpu().numpy())
+        assert err <= chip_smoke.GRAD_TOL_F64, (chip_smoke.GRAD_NAMES[i], err)
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
 def test_held_z_forms_no_cell_sums(cuda, layout):
     """Through the autograd.Function: with Z needing a gradient the forward
     forms the cell sums (fwd_cells counts it) and saves them for the
@@ -218,25 +244,32 @@ def test_fit_forms_the_cell_sums_in_every_forward(cuda, layout):
     assert fwd > 0 and cells == fwd and bwd == fwd
 
 
-def test_wrappers_count_launches(cuda):
-    xs = _inputs(cuda)
+@pytest.mark.parametrize("q", [4, 65])
+def test_wrappers_count_launches(cuda, q):
+    """One count a wrapper call; the backward's row pass is the pipelined
+    kernel (bwd_rows_pipe) up to Q = 64 and the K-chunked one past it."""
+    xs = _inputs(cuda, q=q)
     before = dict(psi_cuda.LAUNCHES)
     p1y, p2 = psi_cuda.psi_fwd(*xs)
     psi_cuda.psi_bwd(*xs, p1y, p2, torch.ones_like(p1y), torch.ones_like(p2))
     torch.cuda.synchronize()
     assert psi_cuda.LAUNCHES["fwd"] == before["fwd"] + 1
     assert psi_cuda.LAUNCHES["bwd"] == before["bwd"] + 1
+    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + (q <= 64)
     assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"]
 
 
-def test_qn_wrappers_count_launches(cuda):
-    xs = [t.T.contiguous() if i in (0, 1, 5) else t for i, t in enumerate(_inputs(cuda))]
+@pytest.mark.parametrize("q", [4, 65])
+def test_qn_wrappers_count_launches(cuda, q):
+    xs = [t.T.contiguous() if i in (0, 1, 5) else t
+          for i, t in enumerate(_inputs(cuda, q=q))]
     before = dict(psi_cuda.LAUNCHES)
     p1y, p2 = psi_cuda.psi_fwd_t(*xs)
     psi_cuda.psi_bwd_t(*xs, p1y, p2, torch.ones_like(p1y), torch.ones_like(p2))
     torch.cuda.synchronize()
     assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"] + 1
     assert psi_cuda.LAUNCHES["bwd_t"] == before["bwd_t"] + 1
+    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + (q <= 64)
     assert psi_cuda.LAUNCHES["fwd"] == before["fwd"]
     with pytest.raises(ValueError, match="shape"):
         psi_cuda.psi_fwd_t(*_inputs(cuda))
