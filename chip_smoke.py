@@ -6,9 +6,10 @@ Phases, one line each or more:
      (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
   2. build: compiles the CUDA kernels from gparml_tpu_torch/csrc with nvcc
      (one process per source, all started together), prints ptxas's
-     registers and spills, requires the forward that forms the cell sums
-     to keep its launch bounds' blocks per SM at every Q bucket (the card's
-     occupancy calculator, from its registers and shared memory), and
+     registers and spills, requires the Psi2 forward, with and without the
+     cell sums, to keep its launch bounds' blocks per SM at every Q bucket
+     (the card's occupancy calculator, from its registers and shared
+     memory), and
      counts the HGMMA instructions of every
      tensor-core kernel (Psi2's Q <= 64 buckets and K-chunked kernels past
      Q = 64, Psi1's Q <= 16 buckets and K-chunked instantiation past it) in
@@ -22,9 +23,10 @@ Phases, one line each or more:
      at M=1000, Q=44 (the Psi1 passes walk 16 tiles of points); and the
      flush case: the slice's shape at sf2 = 1e-20, every Psi2 entry below
      2^-126, Psi2 and the gradients of a Psi2 probe against the plain
-     version in float64; then the device ms of the sweep that forms Psi2
-     and the cell sums together, beside the forward's Psi2 kernel alone, at
-     the slice's shape at every Q bucket and at config 5's (qn);
+     version in float64; then the device ms of the Psi2 forward sweep with
+     the cell sums and without them, and of the backward's row pass, at
+     the slice's shape at every Q bucket, at config 5's (qn) and at
+     infer_latents' batch (N=1000);
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -136,6 +138,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -531,25 +534,39 @@ def _max_abs(a, b):
 
 def _ptxas(log):
     """{kernel: (registers, spill-store bytes)} from nvcc's -Xptxas -v
-    output: the Q-bucket-10 instantiation of every kernel, the tensor-core
+    output: the Q-bucket-10 instantiations of every kernel, the tensor-core
     kernels' buckets 32 and 64 and their K-chunked forms (Psi1's past
-    Q = 16 is its instantiation 0), and the Psi1 row pass's finish."""
+    Q = 16 is its instantiation 0), and the Psi1 row pass's finish; names
+    as the profiler prints them (``_kernel_id``)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled, spill = ln.split("'")[1], 0
-            rest = mangled.split("gparml", 1)[1]
-            digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
-            ident = rest[len(digits):len(digits) + int(digits)]
-            qm = mangled.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in mangled else ""
+            ident, args = _kernel_id(mangled)
+            qm = args[0] if args else ""
             keep = (qm == "10" or not qm or ("_tc_" in ident and qm in ("0", "32", "64")))
-            name = (ident + (f"<{qm}>" if qm and qm != "10" else "")) if keep else None
+            name = (f"{ident}<{', '.join(args)}>" if args else ident) if keep else None
         elif name and "spill stores" in ln:
             spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
         elif name and "Used" in ln and "registers" in ln:
             out[name] = (int(ln.split("Used")[1].split()[0]), spill)
             name = None
     return out
+
+
+def _kernel_id(mangled):
+    """(identifier, template arguments) of a ``gparml::`` kernel's mangled
+    name, the arguments as the profiler prints them (``10``, ``true``)."""
+    rest = mangled.split("gparml", 1)[-1]
+    digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
+    if not digits:
+        return mangled, []
+    ident = rest[len(digits):len(digits) + int(digits)]
+    tail, args = rest[len(digits) + int(digits):], []
+    if tail.startswith("I"):
+        for kind, value in re.findall(r"L([ib])(\d+)E", tail[1:tail.index("EE") + 1]):
+            args.append(value if kind == "i" else ("true" if value == "1" else "false"))
+    return ident, args
 
 
 def _hgmma_counts(lib_path):
@@ -562,12 +579,8 @@ def _hgmma_counts(lib_path):
     counts, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            mangled = ln.split("Function :")[1].strip()
-            rest = mangled.split("gparml", 1)[-1]
-            digits = rest[:len(rest) - len(rest.lstrip("0123456789"))]
-            ident = rest[len(digits):len(digits) + int(digits)] if digits else mangled
-            qm = mangled.split("ILi", 1)[1].split("E", 1)[0] if "ILi" in mangled else ""
-            name = (f"{ident}<{qm}>" if qm else ident) if "_tc_" in ident else None
+            ident, args = _kernel_id(ln.split("Function :")[1].strip())
+            name = (f"{ident}<{', '.join(args)}>" if args else ident) if "_tc_" in ident else None
             if name:
                 counts[name] = 0
         elif name and "HGMMA" in ln:
@@ -589,9 +602,9 @@ def _mufu_rate():
 
 
 # The tensor-core kernel instantiations phase 2 finds HGMMA in: Psi2's
-# three at the six Q buckets (the forward, the forward that forms the cell
-# sums, the backward's row pass) and three K-chunked (the forward, the row
-# and the cell pass), and Psi1's three at its four buckets (Q <= 16) and
+# three at the six Q buckets (the forward without and with the cell sums,
+# the backward's row pass) and three K-chunked (the forward, the row and
+# the cell pass), and Psi1's three at its four buckets (Q <= 16) and
 # K-chunked (instantiation 0).
 TC_KERNELS = 3 * (6 + 1) + 3 * (4 + 1)
 
@@ -605,9 +618,8 @@ def _globals(kind, q, cells=False):
     qm = next((b for b in (2, 4, 10, 16, 32, 64) if q <= b), 0)
     p1 = qm if qm <= 16 else 0
     if qm:
-        psi2 = ([f"psi2_fwd{'_cells' if cells else ''}_tc_kernel"] if kind == "fwd" else
-                ["psi2_bwd_rows_tc_kernel"])
-        psi2 = [f"{k}<{qm}>" for k in psi2]
+        psi2 = ([f"psi2_fwd_tc_kernel<{qm}, {'true' if cells else 'false'}>"] if kind == "fwd"
+                else [f"psi2_bwd_rows_tc_kernel<{qm}>"])
     else:
         psi2 = (["psi2_fwd_tc_chunked_kernel"] if kind == "fwd" else
                 ["psi2_bwd_rows_tc_chunked_kernel", "psi2_bwd_cells_tc_chunked_kernel"])
@@ -1214,19 +1226,21 @@ def _window_times(case, dev):
             _cuda_ms(lambda: fwd_ref(*xs), 3), _cuda_ms(lambda: bwd_ref(*xs, *cot), 3))
 
 
-# (N, M, D, layout, Q buckets) of phase 3's times of the sweep that forms
-# Psi2 and the cell sums and of the backward's row pass: the slice's shape
-# (nq) at every Q bucket, and config 5's (qn, N=1e7, M=500) at Q=10.
+# (N, M, D, layout, Q buckets) of phase 3's times of the Psi2 forward sweep
+# with and without the cell sums and of the backward's row pass: the
+# slice's shape (nq) at every Q bucket, config 5's (qn, N=1e7, M=500) and
+# infer_latents' batch of the slice (N=1000) at Q=10.
 ROUTE_SHAPES = ((1_000_000, 200, 12, "nq", (2, 4, 10, 16, 32, 64)),
-                (10_000_000, 500, 12, "qn", (10,)))
+                (10_000_000, 500, 12, "qn", (10,)),
+                (1_000, 200, 12, "nq", (10,)))
 
 
 def _route_times(n, m, q, d, layout, dev):
-    """Device ms a call of the sweep that forms Psi2 and the cell sums
-    together (``psi2_fwd_cells_tc_kernel``), of the forward's Psi2 kernel
-    alone (``psi2_fwd_tc_kernel``, where no dZ is wanted) and of the
-    backward's Psi2 row pass given those sums (``psi2_bwd_rows_tc_kernel``),
-    on N(0, 1) latents at (n, m, q, d) in ``layout``."""
+    """Device ms a call of the Psi2 forward sweep that forms the cell sums
+    too (``psi2_fwd_tc_kernel<QM, true>``), of the same sweep without them
+    (``<QM, false>``, where no dZ is wanted) and of the backward's Psi2 row
+    pass given those sums (``psi2_bwd_rows_tc_kernel``), on N(0, 1) latents
+    at (n, m, q, d) in ``layout``."""
     import torch
     from gparml_tpu_torch.ops import psi_cuda
 
@@ -1241,7 +1255,7 @@ def _route_times(n, m, q, d, layout, dev):
     p1y, p2, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
     cot = _cotangents(m, d, dev)
     rows = _global_ms(lambda: psi_cuda._launch_bwd(layout, *xs, p1y, p2, *cot, a=a))
-    return (fused[f"psi2_fwd_cells_tc_kernel<{q}>"], alone[f"psi2_fwd_tc_kernel<{q}>"],
+    return (fused[f"psi2_fwd_tc_kernel<{q}, true>"], alone[f"psi2_fwd_tc_kernel<{q}, false>"],
             rows[f"psi2_bwd_rows_tc_kernel<{q}>"])
 
 
@@ -2259,9 +2273,9 @@ def phase10_entry(dev, kernels):
     torch.cuda.synchronize()
     launches = dict(psi_cuda.LAUNCHES)
     _require(launches == {"fwd": 1, "bwd": 1, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 1,
-                          "fwd_cells_t": 0, "bwd_rows_pipe": 1},
+                          "fwd_cells_t": 0},
              f"phase 10(a) entry(): not one forward (forming the cell sums) and one "
-             f"backward kernel call (its row pass pipelined): {launches}")
+             f"backward kernel call: {launches}")
     for k in kernels:
         if k["name"] in ("psi_fwd_ml128", "psi_bwd_ml128"):
             k["launches_entry"] = launches[k["name"][4:7]]
@@ -2357,17 +2371,19 @@ def phase2():
           f"at Q=32, 64 and K-chunked: " + ", ".join(
               f"{k} {r} regs {sp} B spilled" for k, (r, sp) in _ptxas(
                   (_build.library_path().parent / "nvcc.log").read_text()).items()))
-    # the forward that forms the cell sums keeps its launch bounds' blocks
-    # per SM at every bucket
+    # the Psi2 forward, with and without the cell sums, keeps its launch
+    # bounds' blocks per SM at every bucket
     texts = []
     for q in (2, 4, 10, 16, 32, 64):
-        out = (ctypes.c_int * 4)()
-        _build.check(_build.load().gparml_psi_fwd_cells_residency(q, out), "cells_residency")
-        blocks, want, regs, local = out
-        texts.append(f"Q={q} {blocks} blocks ({want} asked), {regs} regs, {local} B local")
-        _require(blocks >= want, f"phase 2: psi2_fwd_cells_tc_kernel<{q}> keeps {blocks} "
-                 f"blocks an SM, its launch bounds ask for {want}")
-    print("phase 2 psi2_fwd_cells_tc_kernel residency: " + "; ".join(texts))
+        for cells in (True, False):
+            out = (ctypes.c_int * 4)()
+            _build.check(_build.load().gparml_psi_fwd_residency(q, cells, out), "fwd_residency")
+            blocks, want, regs, local = out
+            name = f"psi2_fwd_tc_kernel<{q}, {'true' if cells else 'false'}>"
+            texts.append(f"{name} {blocks} blocks ({want} asked), {regs} regs, {local} B local")
+            _require(blocks >= want, f"phase 2: {name} keeps {blocks} blocks an SM, its launch "
+                     f"bounds ask for {want}")
+    print("phase 2 residency: " + "; ".join(texts))
     hgmma = _hgmma_counts(_build.library_path())
     _require(len(hgmma) == TC_KERNELS and min(hgmma.values()) > 0,
              f"phase 2: a tensor-core kernel has no HGMMA in its SASS: {hgmma}")
@@ -2398,8 +2414,8 @@ def phase3(dev):
     for n, m, d, layout, buckets in ROUTE_SHAPES:
         for q in buckets:
             fused, alone, rows = _route_times(n, m, q, d, layout, dev)
-            print(f"phase 3 route {layout} N={n} M={m} Q={q} D={d}: psi2_fwd_cells_tc_kernel "
-                  f"{fused:.3f} ms; psi2_fwd_tc_kernel {alone:.3f} ms; "
+            print(f"phase 3 route {layout} N={n} M={m} Q={q} D={d}: psi2_fwd_tc_kernel<{q}, "
+                  f"true> {fused:.3f} ms; psi2_fwd_tc_kernel<{q}, false> {alone:.3f} ms; "
                   f"psi2_bwd_rows_tc_kernel {rows:.3f} ms")
             torch.cuda.empty_cache()
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")

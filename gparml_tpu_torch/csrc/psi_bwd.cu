@@ -39,7 +39,7 @@
 //      the Psi2 cell sums A_q = sum_n w e c_nq (mu_nq - zb_q) with
 //        e = Psi2[n, m, m'], which dZ takes, do not depend on dPsi2: up to
 //        Q = 64 the forward's sweep forms them (psi_fwd.cu
-//        psi2_fwd_cells_tc_kernel) and the caller passes them in, so no
+//        psi2_fwd_tc_kernel<QM, true>) and the caller passes them in, so no
 //        pass here forms them; past Q = 64 psi2_bwd_cells_tc_chunked_kernel
 //        does, per block of 64 packed cells, wherever dZ is wanted (a_part
 //        given). Where no dZ is wanted (Z held), nothing forms A;
@@ -645,8 +645,9 @@ psi2_bwd_rows_tc_chunked_kernel(const float* __restrict__ mu, const float* __res
   }
 }
 
-// The cell sums of psi2_fwd_cells_tc_kernel (psi_fwd.cu) for any Q > 64, in
-// the backward and with K in chunks: per block of 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
+// The cell sums that psi2_fwd_tc_kernel<QM, true> (psi_fwd.cu) forms up to
+// Q = 64, for any Q > 64, in the backward and with K in chunks: per block of
+// 64 packed cells (on the tiles' M axis) and N-split, A_q = sum_n w e c_nq
 // (mu'_nq - zb'_q), centred on the cell. The split's rows are walked 128
 // at a time, a tile of 64 for each of the two warpgroups; per step the
 // exponents come from the tensor cores over the K chunks (the cells'
@@ -1443,7 +1444,7 @@ int launch_psi1_bwd_m(const float* mu, const float* s, Strides ls, const float* 
 }
 
 // The row passes, then the Psi1 point pass (Q <= 64). The cell sums come
-// from the forward (psi2_fwd_cells_tc_kernel): an a_part is refused.
+// from the forward (psi2_fwd_tc_kernel<QM, true>): an a_part is refused.
 template <int QM>
 int launch_bwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,

@@ -8,28 +8,24 @@
 // on the MXU. One set of kernels serves both layouts through the Strides of
 // psi_common.cuh (the qn twin reads mu^T, s^T (Q, N) and Y^T (D, N)). Here:
 //
-//  * psi2_fwd_tc_kernel (Q <= 64): one grid axis over blocks of packed
-//    upper-triangle cells (up to 256: two warpgroups, two tiles of 64
-//    cells each), one over N-splits. The exponents of each 64-cell x
-//    64-row tile come from the tensor cores (psi_tc.cuh, 3-term TF32,
-//    centred on zeta, an exact shift 2^S in the row constants, undone on
-//    the float64 totals); each thread adds w_n exp2(L2) over its 16 rows into
-//    float32 tile sums of its two cells, then into float64 registers, and
-//    the four threads of a cell add theirs at the end. Each split writes its totals
-//    into its own float64 (M, M) partial, in both triangles; the wrapper
-//    sums the partials (deterministic, no atomics). When the partials'
-//    memory budget lowers the split count, the launcher runs the grid again
-//    for each further kFwdRowsMax rows a split, adding in. The wrapper takes
-//    this kernel where no dZ will be wanted (Z held or no gradient), and
-//  * psi2_fwd_cells_tc_kernel (Q <= 64) where it will: one 64-cell tile a
-//    warpgroup, the rows walked through the same ring, and beside the
-//    exponents the rows' transposed operand [c mu' | c], by which the
+//  * psi2_fwd_tc_kernel<QM, CELLS> (Q <= 64): one grid axis over blocks of
+//    packed upper-triangle cells (a tile of 64 a warpgroup; two up to
+//    Q = 16 without the cell sums), one over N-splits. The exponents of
+//    each 64-cell x 64-row tile come from the tensor cores (psi_tc.cuh,
+//    3-term TF32, centred on zeta, an exact shift 2^S in the row constants,
+//    undone on the float64 totals), the rows staged through a cp.async
+//    ring; each thread adds w_n exp2(L2) over its 16 rows into float32 tile
+//    sums of its two cells a tile, and the four threads of a cell add theirs
+//    in float64 into the cell's total in shared memory.
+//    With CELLS (where dZ will be wanted: the wrapper passes the flag) the
+//    sweep also builds the rows' transposed operand [c mu' | c], by which the
 //    tensor cores multiply each tile's w exp2(L2), so that each pair's
-//    exponent and exp2 serve both sum_n w_n Psi2_n (this kernel's float32
-//    tile sums, then float64 totals in shared memory) and the centred cell
-//    sums A_q = sum_n w e c_nq (mu'_nq - zb'_q) that dZ takes. Each split
-//    writes both into its own float64 (Q + 1, M, M) partial; the backward
-//    (psi_bwd.cu) takes A and forms no cell sums.
+//    exponent and exp2 serve both sum_n w_n Psi2_n and the centred cell sums
+//    A_q = sum_n w e c_nq (mu'_nq - zb'_q) that dZ takes; without it that
+//    operand, its product and its memory are compiled out. Each split writes
+//    its totals into its own float64 (Q + 1, M, M) partial, Psi2 first, A
+//    after it with CELLS; the wrapper sums the partials (deterministic, no
+//    atomics), and the backward (psi_bwd.cu) takes A and forms no cell sums.
 //  * psi1y_fwd_tc_kernel<QM>: one grid axis over blocks of 64 inducing
 //    points (one warpgroup, the points on the tile's M axis), one over
 //    N-splits, one over passes of up to kP1FwdCols columns of Y. Psi1 is
@@ -56,13 +52,13 @@
 // What bounds it on an H100: operations, not bytes. The Psi2 kernels are
 // bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
 // rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row
-// operand's build, shared by the block's 256 cells (128 in the one that
-// forms A, whose reduction product on the tensor cores and [c mu' | c]
-// build come on top: about what the backward's cell pass cost alone); the
-// epilogue costs two float32
-// adds and an FMA a pair, and the rows come from device memory once
-// per cell block (cp.async, one tile ahead); past Q = 64 the rows' and the
-// 128 cells' operands are rebuilt chunk by chunk for every row tile, the
+// operand's build, shared by the block's cells (128 up to Q = 32, 64 past
+// it; 256 up to Q = 16 without the cell sums), with CELLS the reduction
+// product on the tensor cores and the [c mu' | c] build on top (about what
+// the backward's cell pass cost alone); the epilogue costs two float32 adds
+// and an FMA a pair, and the rows come from device memory once per cell
+// block (cp.async, one tile ahead); past Q = 64 the rows' and the 128
+// cells' operands are rebuilt chunk by chunk for every row tile, the
 // rows read from device memory (L1, L2) once per cell block. The Psi1
 // kernel (N M pairs) is bound the same way: an exp2 a pair on the MUFU, a
 // float32 add and product, and per 64-row tile the row operand's and the
@@ -71,198 +67,93 @@
 
 namespace gparml {
 
-// Most rows of one N-split of the Psi2 kernel in one launch.
+// Most rows of one N-split of psi2_fwd_tc_chunked_kernel in one launch.
 constexpr int kFwdRowsMax = 1024 * kRowsPsi2;
 
-// Cells of one block of psi2_fwd_tc_kernel, and its shared memory: the
-// cells' operand and terms, the rows' operand and terms, and the ring of
-// raw row stages.
-__host__ __device__ constexpr int tc_fwd_cells(int qm) {
-  return tc_wg(qm) * tc_fwd_ct(qm) * kTcRows;
+// Cell tiles of 64 per warpgroup of psi2_fwd_tc_kernel (one with the cell
+// sums, whose reduction takes the registers; without them tc_fwd_ct, so
+// that each row tile's operand build serves twice the cells up to Q = 16),
+// its cells a block, and its shared memory: the cells' operand and terms
+// (the operand's room holds the cells' float64 sums of the centred products
+// at the end), the rows' operand and constants, the ring of raw row stages,
+// with the cell sums the rows' transposed operand [c mu' | c] and the
+// reduction's scratch, each thread's two float32 tile sums of w Psi2 a tile
+// and the cells' float64 totals of it (at Q = 64 with the cell sums nearly
+// all of an H100's 227 KB).
+__host__ __device__ constexpr int tc_cell_tiles(int qm, bool cells) {
+  return cells ? 1 : tc_fwd_ct(qm);
 }
-__host__ __device__ constexpr size_t tc_fwd_smem(int qm) {
-  return tc_operand_bytes(tc_fwd_cells(qm), qm) + tc_cellterm_bytes(tc_fwd_cells(qm)) +
-         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
-         tc_stages(qm) * tc_stage_bytes(kTcRows, qm);
+__host__ __device__ constexpr int tc_cell_cells(int qm, bool cells) {
+  return tc_wg(qm) * tc_cell_tiles(qm, cells) * kTcRows;
 }
+__host__ __device__ constexpr size_t tc_cells_smem(int qm, bool cells) {
+  return tc_operand_bytes(tc_cell_cells(qm, cells), qm) +
+         tc_cellterm_bytes(tc_cell_cells(qm, cells)) + tc_operand_bytes(kTcRows, qm) +
+         tc_region(kTcRows * sizeof(float)) + tc_stages(qm) * tc_stage_bytes(kTcRows, qm) +
+         (cells ? tc_b2_bytes(tc_n2_cells(qm)) + tc_scratch_bytes(tc_wg(qm)) : 0) +
+         tc_region((size_t)tc_wg(qm) * kTcWarpgroup * 2 * tc_cell_tiles(qm, cells) *
+                   sizeof(float)) +
+         tc_region((size_t)tc_cell_cells(qm, cells) * sizeof(double));
+}
+// Blocks of psi2_fwd_tc_kernel an SM must hold (its launch bounds).
+__host__ __device__ constexpr int tc_cells_min_blocks(int qm) { return qm <= 16 ? 2 : 1; }
 
-// sum_n w_n Psi2_n for one block of packed cells (grid x: tc_wg warpgroups,
-// each with tc_fwd_ct tiles of 64 cells, the cells on the tile's M axis)
-// and one N-split (grid y). The cells' operand is built once; the split's
-// rows are walked in tiles of 64 (the tile's N axis), staged by cp.async
-// one tile ahead, each tile's row operand built once in shared memory for
-// all the block's cell tiles. Per tile each thread adds w_n exp2(L2) over
-// its 16 rows into its two cells' float32 tile sums, then into float64
-// registers; at the end the four threads that share a cell add theirs (warp
-// shuffles) and one writes the split's float64 (M, M) partial, both
-// triangles: the grid's first launch writes it, a further one adds to it.
-// Cells past the last (the last block's tail) are dropped there.
-template <int QM>
-__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup)
+// The Psi2 forward (Q <= 64): sum_n w_n Psi2_n and, with CELLS (where dZ
+// will be wanted), the centred cell sums A_q = sum_n w e c_nq (mu'_nq -
+// zb'_q) that dZ takes (e = Psi2[n, cell]) in the same sweep, per block of
+// packed cells (grid x: tc_wg warpgroups with tc_cell_tiles tiles of 64
+// cells each, on the tiles' M axis) and N-split (grid y). The cells'
+// operand is built once; the split's rows are walked in tiles of 64 (the
+// tile's N axis), staged by cp.async (a ring of tc_stages), each tile's row
+// operand built once in shared memory for all the block's cell tiles, and
+// with CELLS the rows' transposed operand [c mu' | c] beside it. The
+// exponents come from the tensor cores. Each thread adds w exp2(L2) over
+// its 16 rows into float32 tile sums of its two cells a tile and leaves
+// them in shared memory; with CELLS the warpgroup turns the tile's
+// exponents in registers into ev = w exp2(L2) (0 past the last cell) and
+// multiplies that tile by the transpose on the tensor cores (tc_reduce):
+// S1_q = sum ev c mu'_q and S2_q = sum ev c_q over the tile's 64 rows,
+// added to float64 registers. After the tile, one of the four threads of a
+// cell adds their four tile sums in float64 into the cell's total in shared
+// memory (no register lives across the loop beside the products' totals:
+// at Q = 10 those fill the 128 that two resident blocks allow). At the end
+// each split writes its cells' sum_n w_n Psi2_n into its float64 (Q + 1, M,
+// M) partial, Psi2 first, both triangles, and with CELLS, in float64, the
+// centred A_q = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc") after
+// it. A cell's tile takes the same rows, threads and order in both
+// instantiations, so Psi2 does not depend on CELLS, bit for bit. Up to
+// Q = 16, two resident blocks per SM.
+template <int QM, bool CELLS>
+__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, tc_cells_min_blocks(QM))
 psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
                    const float* __restrict__ w, const float* __restrict__ z,
                    const float* __restrict__ alpha, const float* __restrict__ sf2,
                    const float* __restrict__ zeta, const int2* __restrict__ cells,
-                   const float* __restrict__ ce, const float* __restrict__ shift, int n_begin,
-                   int n, int m, int q, int rows_per_split, double* __restrict__ out) {
-  constexpr int KP = tc_k(QM), S = tc_stages(QM), CT = tc_fwd_ct(QM);
-  constexpr int NC = tc_fwd_cells(QM);
+                   const float* __restrict__ ce, const float* __restrict__ shift, int n, int m,
+                   int q, int rows_per_split, double* __restrict__ out) {
+  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2, CT = tc_cell_tiles(QM, CELLS);
+  constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM, CELLS);
   extern __shared__ float4 smem4[];
   TcCarve cv(smem4);
   const TcOperand cop = tc_take_operand<KP>(cv, NC);
   float* s_ce = cv.take<float>(NC * sizeof(float));
-  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
   int2* s_ij = cv.take<int2>(NC * sizeof(int2));
   const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
   float* s_rc = cv.take<float>(kTcRows * sizeof(float));
   const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
   float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
-  __syncthreads();
-
-  const int p0 = blockIdx.x * NC;
-  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, p0, cop, s_ce, s_ij);
+  const TcOperand b2 = CELLS ? tc_take_operand<kTcRows>(cv, N2) : TcOperand{nullptr, nullptr};
   const int wg = threadIdx.x / kTcWarpgroup;
-
-  const float logsf2 = logf(*sf2), sh = *shift;
-  const int lo = n_begin + blockIdx.y * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
-  double acc[CT][2];
-#pragma unroll
-  for (int j = 0; j < CT; ++j) acc[j][0] = acc[j][1] = 0.0;
-  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const float* st = ring + (t % S) * stage;
-    if (S == 2) {
-      if (t + 1 < ntiles)
-        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
-                                   ring + ((t + 1) % S) * stage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, nullptr);
-    tc_operands_ready();
-    const float* st_w = st + 2 * kTcRows * QM;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int tile = (wg * CT + j) * kTcRows;
-      float d[32];
-      tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
-      float part[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int c = tc_m(i), r = tc_n(i);
-        part[(i >> 1) & 1] += st_w[r] * tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
-      }
-      acc[j][0] += part[0];
-      acc[j][1] += part[1];
-    }
-    __syncthreads();
-  }
-
-  double* o = out + (size_t)blockIdx.y * m * m;
-  const bool first = n_begin == 0;
-  const double unshift = ldexp(1.0, -(int)sh);
-#pragma unroll
-  for (int j = 0; j < CT; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      double v = acc[j][h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v *= unshift;
-      const int c = (wg * CT + j) * kTcRows + tc_m(2 * h);
-      const int2 ij = s_ij[c];
-      if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
-      double* up = o + (size_t)ij.x * m + ij.y;
-      *up = first ? v : *up + v;
-      if (ij.x != ij.y) {
-        double* mirror = o + (size_t)ij.y * m + ij.x;
-        *mirror = first ? v : *mirror + v;
-      }
-    }
-  }
-}
-
-// Cells of one block of psi2_fwd_cells_tc_kernel (a 64-tile a warpgroup),
-// and its shared memory: the cells' operand and terms (the operand's room
-// holds the cells' float64 sums of the centred products at the end), the
-// rows' operand and constants, the ring of raw row stages, the rows'
-// transposed operand [c mu' | c], each thread's two float32 tile sums of
-// w Psi2 and the cells' float64 totals of it (at Q = 64 all of an H100's
-// 227 KB).
-__host__ __device__ constexpr int tc_cell_cells(int qm) { return tc_wg(qm) * kTcRows; }
-__host__ __device__ constexpr size_t tc_cells_smem(int qm) {
-  return tc_operand_bytes(tc_cell_cells(qm), qm) + tc_cellterm_bytes(tc_cell_cells(qm)) +
-         tc_operand_bytes(kTcRows, qm) + tc_region(kTcRows * sizeof(float)) +
-         tc_stages(qm) * tc_stage_bytes(kTcRows, qm) + tc_b2_bytes(tc_n2_cells(qm)) +
-         tc_scratch_bytes(tc_wg(qm)) +
-         tc_region((size_t)tc_wg(qm) * kTcWarpgroup * 2 * sizeof(float)) +
-         tc_region((size_t)tc_cell_cells(qm) * sizeof(double));
-}
-// Blocks of psi2_fwd_cells_tc_kernel an SM must hold (its launch bounds).
-__host__ __device__ constexpr int tc_cells_min_blocks(int qm) { return qm <= 16 ? 2 : 1; }
-
-// The forward where dZ will be wanted (Q <= 64): sum_n w_n Psi2_n and the
-// centred cell sums A_q = sum_n w e c_nq (mu'_nq - zb'_q) that dZ takes
-// (e = Psi2[n, cell]) in one sweep, per block of packed cells (grid x:
-// tc_wg warpgroups with a tile of 64 cells each, on the tile's M axis) and
-// N-split (grid y). The rows are walked as in psi2_fwd_tc_kernel (cp.async
-// ring, the row operand built once a row tile for all the block's cell
-// tiles, exponents on the tensor cores), with the rows' transposed operand
-// [c mu' | c] beside it. Each thread adds w exp2(L2) over its 16 rows into
-// float32 tile sums of its two cells, as psi2_fwd_tc_kernel does (the same
-// rows of the same cells a thread, the same float32 sums), and leaves them
-// in shared memory; the warpgroup turns the tile's exponents in registers
-// into ev = w exp2(L2) (0 past the last cell) and multiplies that tile by
-// the transpose on the tensor cores (tc_reduce): S1_q = sum ev c mu'_q and
-// S2_q = sum ev c_q over the tile's 64 rows, added to float64 registers.
-// After the tile, one of the four threads of a cell adds their four tile
-// sums in float64 into the cell's total in shared memory (no register lives
-// across the loop beside the products' totals: at Q = 10 those fill the 128
-// that two resident blocks allow). At the end, in float64, the centred A_q
-// = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc"); each split writes
-// its cells' sum_n w_n Psi2_n and A into its float64 (Q + 1, M, M)
-// partial, Psi2 first, both triangles. Up to Q = 16, two resident blocks
-// per SM.
-template <int QM>
-__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, tc_cells_min_blocks(QM))
-psi2_fwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
-                         const float* __restrict__ w, const float* __restrict__ z,
-                         const float* __restrict__ alpha, const float* __restrict__ sf2,
-                         const float* __restrict__ zeta, const int2* __restrict__ cells,
-                         const float* __restrict__ ce, const float* __restrict__ shift, int n,
-                         int m, int q, int rows_per_split, double* __restrict__ out) {
-  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2;
-  constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM);
-  extern __shared__ float4 smem4[];
-  TcCarve cv(smem4);
-  const TcOperand cop = tc_take_operand<KP>(cv, NC);
-  double* s_tot = reinterpret_cast<double*>(cop.hi);  // at the end: NC x N2 (N2 == KP)
-  float* s_ce = cv.take<float>(NC * sizeof(float));
-  cv.take<float>(NC * sizeof(float));  // (kmat entries: the row pass's)
-  int2* s_ij = cv.take<int2>(NC * sizeof(int2));
-  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
-  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
-  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
-  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
-  const TcOperand b2 = tc_take_operand<kTcRows>(cv, N2);
-  const int wg = threadIdx.x / kTcWarpgroup;
-  float* scratch = cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd;
-  float* s_part = cv.take<float>(tc_wg(QM) * kTcWarpgroup * 2 * sizeof(float));
+  float* scratch =
+      CELLS ? cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd : nullptr;
+  float* s_part = cv.take<float>(tc_wg(QM) * kTcWarpgroup * 2 * CT * sizeof(float));
   double* s_p2 = cv.take<double>(NC * sizeof(double));
   for (int c = threadIdx.x; c < NC; c += blockDim.x) s_p2[c] = 0.0;
   __syncthreads();
 
   const int p0 = blockIdx.x * NC;
   tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, p0, cop, s_ce, s_ij);
-  const int tile = wg * kTcRows;  // the warpgroup's cells
+  const int tile0 = wg * CT * kTcRows;  // the warpgroup's cells
   double tot[N2 / 2];
 #pragma unroll
   for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
@@ -287,33 +178,46 @@ psi2_fwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
       cp_async_wait<0>();
     }
     __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc, &b2);
+    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc,
+                                   CELLS ? &b2 : nullptr);
     tc_operands_ready();
     const float* st_w = st + 2 * kTcRows * QM;
-    float d[32];
-    tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
-    float part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = tc_m(i), r = tc_n(i);
-      const float ev = tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
-      part[(i >> 1) & 1] += st_w[r] * ev;
-      d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * ev : 0.f;
+    for (int j = 0; j < CT; ++j) {
+      const int tile = tile0 + j * kTcRows;
+      float d[32];
+      tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = tc_m(i), r = tc_n(i);
+        const float ev = tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
+        part[(i >> 1) & 1] += st_w[r] * ev;
+        if constexpr (CELLS) d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * ev : 0.f;
+      }
+      float* sp = s_part + 2 * (j * blockDim.x + threadIdx.x);
+      sp[0] = part[0];
+      sp[1] = part[1];
+      if constexpr (CELLS) {
+        float d2[N2 / 2];
+        tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
+#pragma unroll
+        for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+      }
     }
-    s_part[2 * threadIdx.x] = part[0];
-    s_part[2 * threadIdx.x + 1] = part[1];
-    float d2[N2 / 2];
-    tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
-#pragma unroll
-    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
     __syncthreads();
-    // the tile's sums of this thread's two cells from their four threads
-    // (read before the next tile's operands are ready, written after)
+    // the tile's sums of this thread's two cells a tile from their four
+    // threads (read before the next tile's operands are ready, written after)
     if ((threadIdx.x & 3) == 0) {
-      const float4* pt = reinterpret_cast<const float4*>(s_part + 2 * threadIdx.x);
-      const float4 u = pt[0], v = pt[1];
-      s_p2[tile + tc_m(0)] += ((double)u.x + (double)u.z) + ((double)v.x + (double)v.z);
-      s_p2[tile + tc_m(2)] += ((double)u.y + (double)u.w) + ((double)v.y + (double)v.w);
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int tile = tile0 + j * kTcRows;
+        const float4* pt =
+            reinterpret_cast<const float4*>(s_part + 2 * (j * blockDim.x + threadIdx.x));
+        const float4 u = pt[0], v = pt[1];
+        s_p2[tile + tc_m(0)] += ((double)u.x + (double)u.z) + ((double)v.x + (double)v.z);
+        s_p2[tile + tc_m(2)] += ((double)u.y + (double)u.w) + ((double)v.y + (double)v.w);
+      }
     }
   }
 
@@ -322,32 +226,37 @@ psi2_fwd_cells_tc_kernel(const float* __restrict__ mu, const float* __restrict__
   double* o = out + (size_t)blockIdx.y * (q + 1) * mm;
   const double unshift = ldexp(1.0, -(int)sh);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int2 ij = s_ij[tile + tc_m(2 * h)];
+  for (int h = 0; h < 2 * CT; ++h) {
+    const int c = tile0 + (h >> 1) * kTcRows + tc_m(2 * (h & 1));
+    const int2 ij = s_ij[c];
     if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
-    const double v = s_p2[tile + tc_m(2 * h)] * unshift;
+    const double v = s_p2[c] * unshift;
     o[(size_t)ij.x * m + ij.y] = v;
     if (ij.x != ij.y) o[(size_t)ij.y * m + ij.x] = v;
   }
-  o += mm;
-  // the cells' sums through shared memory (the cells' operand is done with)
+  if constexpr (CELLS) {
+    o += mm;
+    // the cells' sums through shared memory (the cells' operand is done
+    // with): NC x N2 (N2 == KP)
+    double* s_tot = reinterpret_cast<double*>(cop.hi);
 #pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) s_tot[(tile + tc_m(e)) * N2 + tc_n(e)] = tot[e];
-  __syncthreads();
-  // each (cell, dimension) written by one thread
-  for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
-    const int c = idx % NC, k0 = (idx / NC) * QS;
-    const int2 ij = s_ij[c];
-    if (ij.x < 0) continue;
-    const double* t_c = s_tot + c * N2;
-    for (int k = 0; k < QS; ++k) {
-      const int kk = k0 + k;
-      if (kk >= q) break;
-      const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
-                               (z[(size_t)ij.y * q + kk] - zeta[kk]));
-      const double a = (t_c[kk] - (double)zb * t_c[QM + kk]) * unshift;
-      o[kk * mm + (size_t)ij.x * m + ij.y] = a;
-      if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
+    for (int e = 0; e < N2 / 2; ++e) s_tot[(tile0 + tc_m(e)) * N2 + tc_n(e)] = tot[e];
+    __syncthreads();
+    // each (cell, dimension) written by one thread
+    for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
+      const int c = idx % NC, k0 = (idx / NC) * QS;
+      const int2 ij = s_ij[c];
+      if (ij.x < 0) continue;
+      const double* t_c = s_tot + c * N2;
+      for (int k = 0; k < QS; ++k) {
+        const int kk = k0 + k;
+        if (kk >= q) break;
+        const float zb = 0.5f * ((z[(size_t)ij.x * q + kk] - zeta[kk]) +
+                                 (z[(size_t)ij.y * q + kk] - zeta[kk]));
+        const double a = (t_c[kk] - (double)zb * t_c[QM + kk]) * unshift;
+        o[kk * mm + (size_t)ij.x * m + ij.y] = a;
+        if (ij.x != ij.y) o[kk * mm + (size_t)ij.y * m + ij.x] = a;
+      }
     }
   }
 }
@@ -362,8 +271,11 @@ __host__ __device__ constexpr size_t tc_fwd_chunked_smem() {
          2 * tc_region(kTcRows * sizeof(float));
 }
 
-// psi2_fwd_tc_kernel for any Q > 64, with K in chunks: the same grid (128
-// packed cells a block, on the tiles' M axis), partials and relaunches.
+// sum_n w_n Psi2_n for any Q > 64, with K in chunks: 128 packed cells a
+// block (two warpgroups, on the tiles' M axis) and one N-split (grid y),
+// each split into its own float64 (M, M) partial; where the partials'
+// budget lowered the split count, the launcher runs the grid again for each
+// further kFwdRowsMax rows a split, adding in.
 // Per 64-row tile of the split, each chunk of kTcQChunk latent dimensions
 // is built into shared memory for the rows and the block's cells and
 // multiplied into the warpgroups' accumulators (tc_tile, accumulating over
@@ -629,79 +541,83 @@ int launch_psi1_fwd(const float* mu, const float* s, Strides ls, const float* y,
   return (int)cudaGetLastError();
 }
 
-// What an SM holds of psi2_fwd_cells_tc_kernel<QM> as launched: out = (its
-// blocks by the card's occupancy calculator, from the kernel's registers,
-// launch bounds' threads and tc_cells_smem; the blocks its launch bounds
-// ask for; registers a thread; local memory bytes a thread).
-template <int QM>
-int cells_residency(int* out) {
+// What an SM holds of psi2_fwd_tc_kernel<QM, CELLS> as launched: out =
+// (its blocks by the card's occupancy calculator, from the kernel's
+// registers, launch bounds' threads and tc_cells_smem; the blocks its launch
+// bounds ask for; registers a thread; local memory bytes a thread).
+template <int QM, bool CELLS>
+int psi2_fwd_residency(int* out) {
+  const auto kernel = psi2_fwd_tc_kernel<QM, CELLS>;
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, psi2_fwd_cells_tc_kernel<QM>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = tc_cells_smem(QM);
-  if ((err = allow_smem(psi2_fwd_cells_tc_kernel<QM>, smem)) != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], psi2_fwd_cells_tc_kernel<QM>,
-                                                      fa.maxThreadsPerBlock, smem);
+  const size_t smem = tc_cells_smem(QM, CELLS);
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, fa.maxThreadsPerBlock,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   out[1] = tc_cells_min_blocks(QM);
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;
   return 0;
 }
-inline int cells_residency_chunked(int*) { return (int)cudaErrorInvalidValue; }
+template <int QM>
+int fwd_residency(int cells, int* out) {
+  return cells ? psi2_fwd_residency<QM, true>(out) : psi2_fwd_residency<QM, false>(out);
+}
+inline int fwd_residency_chunked(int, int*) { return (int)cudaErrorInvalidValue; }
 
-// The Psi2 grid, then the Psi1 grid: psi2_fwd_tc_kernel into p2_part
-// (splits2, M, M), or with cells_part psi2_fwd_cells_tc_kernel into it
-// (splits_f, Q + 1, M, M).
+// The Psi2 grid of psi2_fwd_tc_kernel<QM, CELLS> into p2_part (splits2,
+// Q + 1, M, M).
+template <int QM, bool CELLS>
+cudaError_t launch_psi2_fwd(const float* mu, const float* s, Strides ls, const float* w,
+                            const float* z, const float* alpha, const float* sf2,
+                            const float* zeta, const int2* cells, const float* ce,
+                            const float* shift, int n, int m, int q, int splits2,
+                            double* p2_part, cudaStream_t stream) {
+  const size_t smem = tc_cells_smem(QM, CELLS);
+  cudaError_t err = allow_smem(psi2_fwd_tc_kernel<QM, CELLS>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tc_blocks(m, tc_cell_cells(QM, CELLS)), splits2);
+  psi2_fwd_tc_kernel<QM, CELLS><<<grid, tc_wg(QM) * kTcWarpgroup, smem, stream>>>(
+      mu, s, ls, w, z, alpha, sf2, zeta, cells, ce, shift, n, m, q,
+      (n + splits2 - 1) / splits2, p2_part);
+  return cudaGetLastError();
+}
+
+// The Psi2 grid (with cells_sums, forming the cell sums A too), then the
+// Psi1 grid.
 template <int QM>
 int launch_fwd(const float* mu, const float* s, const float* y,
                const float* w, const float* z, const float* alpha,
                const float* sf2, const float* zeta, const int* cells,
                const float* ce, const float* shift, const float* shift1, int n, int m,
-               int q, int d, int qn, int splits2,
-               int splits1, int splits_f, double* p2_part, double* p1y_part,
-               double* cells_part, cudaStream_t stream) {
+               int q, int d, int qn, int splits2, int splits1, int cell_sums,
+               double* p2_part, double* p1y_part, cudaStream_t stream) {
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int2* cells2 = reinterpret_cast<const int2*>(cells);
-  cudaError_t err;
-  if (cells_part) {
-    const size_t smem_f = tc_cells_smem(QM);
-    if ((err = allow_smem(psi2_fwd_cells_tc_kernel<QM>, smem_f)) != cudaSuccess) return (int)err;
-    dim3 grid_f(tc_blocks(m, tc_cell_cells(QM)), splits_f);
-    psi2_fwd_cells_tc_kernel<QM><<<grid_f, tc_wg(QM) * kTcWarpgroup, smem_f, stream>>>(
-        mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n, m, q,
-        (n + splits_f - 1) / splits_f, cells_part);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  } else {
-    const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
-    dim3 grid2(tc_blocks(m, tc_fwd_cells(QM)), splits2);
-    const size_t smem2 = tc_fwd_smem(QM);
-    if ((err = allow_smem(psi2_fwd_tc_kernel<QM>, smem2)) != cudaSuccess) return (int)err;
-    // One launch unless the partials' budget lowered splits2 below
-    // n / kFwdRowsMax: each further launch adds the next rows2 rows a split.
-    for (int n0 = 0; n0 < n; n0 += splits2 * rows2) {
-      psi2_fwd_tc_kernel<QM><<<grid2, tc_wg(QM) * kTcWarpgroup, smem2, stream>>>(
-          mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift, n0, n, m, q, rows2, p2_part);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-  }
+  const cudaError_t err =
+      cell_sums ? launch_psi2_fwd<QM, true>(mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce, shift,
+                                            n, m, q, splits2, p2_part, stream)
+                : launch_psi2_fwd<QM, false>(mu, s, ls, w, z, alpha, sf2, zeta, cells2, ce,
+                                             shift, n, m, q, splits2, p2_part, stream);
+  if (err != cudaSuccess) return (int)err;
   return launch_psi1_fwd<p1_qm(QM)>(mu, s, ls, y, ys, w, z, alpha, sf2, zeta, shift1, n, m, q,
                                      d, splits1, p1y_part, stream);
 }
 
-// launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel and the K-chunked
-// psi1y_fwd_tc_kernel, the same grids and partials. No forward forms the
-// cell sums past Q = 64 (the backward's chunked cell pass does): a
-// cells_part is refused.
+// launch_fwd for Q > 64: psi2_fwd_tc_chunked_kernel into p2_part (splits2,
+// M, M) and the K-chunked psi1y_fwd_tc_kernel. No forward forms the cell
+// sums past Q = 64 (the backward's chunked cell pass does): cell_sums is
+// refused.
 inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
                               const float* shift, const float* shift1, int n, int m, int q,
-                              int d, int qn, int splits2, int splits1, int splits_f,
-                              double* p2_part, double* p1y_part, double* cells_part,
-                              cudaStream_t stream) {
-  if (cells_part) return (int)cudaErrorInvalidValue;
+                              int d, int qn, int splits2, int splits1, int cell_sums,
+                              double* p2_part, double* p1y_part, cudaStream_t stream) {
+  if (cell_sums) return (int)cudaErrorInvalidValue;
   const Strides ls = strides_of(qn, n, q), ys = strides_of(qn, n, d);
   const int rows2 = std::min((n + splits2 - 1) / splits2, kFwdRowsMax);
   dim3 grid2(tc_blocks(m, kTcChunkFwdCells), splits2);
@@ -720,28 +636,27 @@ inline int launch_fwd_chunked(const float* mu, const float* s, const float* y,
 
 }  // namespace gparml
 
-// Launch plan of gparml_psi_fwd: plan = (splits2, splits1, the largest
-// dynamic shared memory of its blocks in bytes, the device's limit for it,
-// splits_f: the N-splits of psi2_fwd_cells_tc_kernel, 0 past Q = 64, where
-// there is none). Each grid's float64 partials take at most partial_bytes.
+// Launch plan of gparml_psi_fwd: plan (int[4]) = (splits2, the N-splits of
+// the Psi2 grid, whether or not it forms the cell sums; splits1, the Psi1
+// grid's; the largest dynamic shared memory of its blocks in bytes; the
+// device's limit for it). Each grid's float64 partials take at most
+// partial_bytes.
 extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
                                    size_t partial_bytes, int* plan) {
   using namespace gparml;
   const int qm = qm_for(q);
-  const int tiles = tc_blocks(m, qm == 0 ? kTcChunkFwdCells : tc_fwd_cells(qm));
-  plan[0] = cap_splits(n_splits(n, tiles, kRowsPsi2, kFwdRowsMax, num_sms),
-                       (size_t)m * m * sizeof(double), partial_bytes);
+  plan[0] = qm == 0 ? cap_splits(n_splits(n, tc_blocks(m, kTcChunkFwdCells), kRowsPsi2,
+                                          kFwdRowsMax, num_sms),
+                                 (size_t)m * m * sizeof(double), partial_bytes)
+                    : cap_splits(n_splits(n, tc_blocks(m, tc_cell_cells(qm, true)), kRowsPsi2,
+                                          kCellRowsMax, num_sms),
+                                 (size_t)(q + 1) * m * m * sizeof(double), partial_bytes);
   const int p1 = p1_qm(qm), p1b = (m + p1_points(p1) - 1) / p1_points(p1);
   plan[1] = cap_splits(n_splits(n, p1b * p1_fwd_passes(d, p1), kTcRows,
                                 kFwdRowsMax, num_sms),
                        (size_t)m * d * sizeof(double), partial_bytes);
-  plan[4] = qm == 0 ? 0
-                    : cap_splits(n_splits(n, tc_blocks(m, tc_cell_cells(qm)), kRowsPsi2,
-                                          kCellRowsMax, num_sms),
-                                 (size_t)(q + 1) * m * m * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(std::max({qm == 0 ? tc_fwd_chunked_smem()
-                                         : std::max(tc_fwd_smem(qm), tc_cells_smem(qm)),
-                                 tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))}));
+  plan[2] = smem_bytes(std::max(qm == 0 ? tc_fwd_chunked_smem() : tc_cells_smem(qm, true),
+                                tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))));
   return (int)smem_limit(plan);
 }
 
@@ -751,24 +666,24 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
 // upper-triangle cells (i, j), i <= j, row by row; ce (M (M + 1) / 2): their
 // E0 log2e; shift, shift1: one float each, the whole numbers S and S1 the
 // Psi2 and the Psi1 kernels add to every base-2 exponent and take off their
-// sums. p1y_part: (splits1, M, D) float64; with cells_part null, p2_part:
-// (splits2, M, M) float64; else (Q <= 64) cells_part: (splits_f, Q + 1, M,
-// M) float64, the Psi2 totals then the centred cell sums A (p2_part
-// unused). Every element written. Returns cudaGetLastError.
+// sums. p1y_part: (splits1, M, D) float64; p2_part: (splits2, Q + 1, M, M)
+// float64 up to Q = 64, the Psi2 totals, then with cell_sums the centred
+// cell sums A (without, those Q slabs are not written); past Q = 64
+// (splits2, M, M), and cell_sums refused. Returns cudaGetLastError.
 extern "C" int gparml_psi_fwd(const float* mu, const float* s, const float* y,
                               const float* w, const float* z,
                               const float* alpha, const float* sf2,
                               const float* zeta, const int* cells, const float* ce,
                               const float* shift, const float* shift1, int n, int m, int q, int d,
-                              int qn, int splits2, int splits1, int splits_f, double* p2_part,
-                              double* p1y_part, double* cells_part, void* stream) {
+                              int qn, int splits2, int splits1, int cell_sums, double* p2_part,
+                              double* p1y_part, void* stream) {
   GPARML_QM_SWITCH(q, gparml::launch_fwd, gparml::launch_fwd_chunked, mu, s,
                    y, w, z, alpha, sf2, zeta, cells, ce, shift, shift1, n, m, q, d, qn, splits2,
-                   splits1, splits_f, p2_part, p1y_part, cells_part,
-                   static_cast<cudaStream_t>(stream));
+                   splits1, cell_sums, p2_part, p1y_part, static_cast<cudaStream_t>(stream));
 }
 
-// cells_residency at q's bucket (Q <= 64), into out (int[4]).
-extern "C" int gparml_psi_fwd_cells_residency(int q, int* out) {
-  GPARML_QM_SWITCH(q, gparml::cells_residency, gparml::cells_residency_chunked, out);
+// psi2_fwd_tc_kernel<Q's bucket, cell_sums>'s residency (Q <= 64), into
+// out (int[4]).
+extern "C" int gparml_psi_fwd_residency(int q, int cell_sums, int* out) {
+  GPARML_QM_SWITCH(q, gparml::fwd_residency, gparml::fwd_residency_chunked, cell_sums, out);
 }

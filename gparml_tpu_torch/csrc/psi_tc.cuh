@@ -129,16 +129,17 @@ struct TcForm {
 
 // K of a bucket: [2 c mu' | -c], 2 QM columns padded to a multiple of 8.
 __host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
-// Warpgroups of a block, cell tiles per warpgroup of the forward, and
-// stages of the raw-row ring, by bucket: as many as keep two blocks
-// resident on an H100 at Q <= 10 and one block in 227 KB at Q = 64 (the
-// backward passes take one tile a warpgroup: two took 200 registers).
+// Warpgroups of a block, cell tiles per warpgroup of the forward without
+// the cell sums, and stages of the raw-row ring, by bucket: as many as keep
+// two blocks resident on an H100 at Q <= 10 and one block in 227 KB at
+// Q = 64 (the passes that reduce on the tensor cores take one tile a
+// warpgroup: two took 200 registers in the backward).
 __host__ __device__ constexpr int tc_wg(int qm) { return qm <= 32 ? 2 : 1; }
 __host__ __device__ constexpr int tc_fwd_ct(int qm) { return qm <= 16 ? 2 : 1; }
 __host__ __device__ constexpr int tc_stages(int qm) { return qm <= 32 ? 2 : 1; }
 // N of the reduction products (tc_reduce), a multiple of 8: the backward
 // row pass's [zb' | zb'^2 | 1] (2 QM + 1 columns) and the cell sums'
-// [c mu' | c] (2 QM; psi2_fwd_cells_tc_kernel).
+// [c mu' | c] (2 QM; psi2_fwd_tc_kernel<QM, true>).
 __host__ __device__ constexpr int tc_n2_rows(int qm) { return (2 * qm + 1 + 7) / 8 * 8; }
 __host__ __device__ constexpr int tc_n2_cells(int qm) { return (2 * qm + 7) / 8 * 8; }
 // K position of column c (0..63) of an exponent tile when the tile, from
@@ -759,10 +760,10 @@ __host__ __device__ constexpr size_t tc_stage_bytes(int rows, int qm) {
 __host__ __device__ constexpr size_t tc_b2_bytes(int n2) {
   return 2 * tc_region((size_t)n2 * kTcRows * sizeof(float));
 }
-// What tc_build_cells writes beside the operand for `cells` cells: ce,
-// kmat entries and (i, j).
+// What tc_build_cells writes beside the operand for `cells` cells: ce and
+// (i, j).
 __host__ __device__ constexpr size_t tc_cellterm_bytes(int cells) {
-  return 2 * tc_region((size_t)cells * sizeof(float)) + tc_region((size_t)cells * sizeof(int2));
+  return tc_region((size_t)cells * sizeof(float)) + tc_region((size_t)cells * sizeof(int2));
 }
 
 struct TcCarve {
@@ -926,7 +927,7 @@ __device__ inline void tc_build_cells(const float* __restrict__ z, const float* 
 }
 
 // The most rows of one N-split of a pass whose blocks hold fixed cells or
-// points and walk the rows (psi2_fwd_cells_tc_kernel, the backward's point
+// points and walk the rows (psi2_fwd_tc_kernel, the backward's point
 // pass and chunked cell pass).
 constexpr int kCellRowsMax = 262144;
 

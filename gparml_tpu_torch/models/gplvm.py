@@ -139,9 +139,10 @@ def _d_of(y, config: GPLVMConfig) -> int:
 def _qn_native(config: GPLVMConfig, mesh, cuda: bool) -> bool:
     """The (Q, N)-layout kernel route: qn storage, no mesh, and the
     'pallas' engine ('auto' resolves to it for CUDA tensors, as in
-    ``parallel.stats``). On CUDA tensors the kernels raise ValueError for a
-    shape they do not take (Q > 64, M or D past shared memory), as in nq.
-    Other qn configurations take the plain transposed engine
+    ``parallel.stats``). On CUDA tensors the kernels take every Q, M and D,
+    as in nq: up to Q = 64 one Psi2 forward sweep, which also forms the
+    cell sums that dZ takes where dZ is wanted; past it the K-chunked
+    kernels. Other qn configurations take the plain transposed engine
     ``psi.suff_stats_t``."""
     if config.layout != "qn" or mesh is not None:
         return False

@@ -33,20 +33,21 @@ _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 _SZ = ctypes.c_size_t
 # name -> argument types, in the order of the extern "C" signatures
 _ENTRY_POINTS = {
-    # n m q d num_sms | partial_bytes | plan (int[5]): N-splits, shared
-    # memory need, limit, the forward's cell-sum grid's N-splits or the
-    # backward's Psi1 row-pass point splits
+    # n m q d num_sms | partial_bytes | plan (forward int[4], backward
+    # int[5]): N-splits, shared memory need, limit, and the backward's Psi1
+    # row-pass point splits
     "gparml_psi_fwd_plan": [_I] * 5 + [_SZ, _IP],
     "gparml_psi_bwd_plan": [_I] * 5 + [_SZ, _IP],
     # mu s y w z alpha sf2 zeta cells ce shift shift1 | n m q d qn splits2
-    # splits1 splits_f | p2_part p1y_part cells_part stream
-    "gparml_psi_fwd": [_P] * 12 + [_I] * 8 + [_P] * 4,
+    # splits1 cell_sums | p2_part p1y_part stream
+    "gparml_psi_fwd": [_P] * 12 + [_I] * 8 + [_P] * 3,
     # mu s y w z alpha sf2 zeta cells ce shift shift1 kmat r1 | n m q d qn
     # splits_c splits_m splits_p | dmu ds dal dy a_part b_part row_part stream
     "gparml_psi_bwd": [_P] * 14 + [_I] * 8 + [_P] * 8,
-    # q | out (int[4]): psi2_fwd_cells_tc_kernel's blocks an SM holds, the
-    # blocks its launch bounds ask for, registers, local bytes
-    "gparml_psi_fwd_cells_residency": [_I, _IP],
+    # q cell_sums | out (int[4]): psi2_fwd_tc_kernel<Q's bucket, cell_sums>'s
+    # blocks an SM holds, the blocks its launch bounds ask for, registers,
+    # local bytes
+    "gparml_psi_fwd_residency": [_I, _I, _IP],
 }
 
 # Seconds the last ``load()`` spent compiling (0.0 when the library was

@@ -37,13 +37,14 @@ exponents carry exact power-of-two shifts, which the wrapper computes
 the CUDA sources only (``gparml_psi_{fwd,bwd}_plan``); the wrappers raise
 ValueError if a block would need more shared memory than the card gives.
 
-Up to Q = 64 the centred cell sums that dZ takes come from the forward's
-sweep (``psi2_fwd_cells_tc_kernel``), so that a fit's evaluation sweeps
-the (row, cell) pairs twice (forward, the backward's row pass): where a
-caller will want dZ (``_emits_cells``), ``PsiFused`` and ``PsiFusedT`` run
-it in place of the forward's Psi2 kernel and save the sums for the
-backward; ``psi_bwd`` called alone runs it for them. Where Z needs no
-gradient no kernel forms them. Past Q = 64 the backward's chunked cell
+Up to Q = 64 one Psi2 forward sweep (``psi2_fwd_tc_kernel<QM, CELLS>``)
+serves every call, and where dZ will be wanted it also forms the centred
+cell sums that dZ takes, so that a fit's evaluation sweeps the (row, cell)
+pairs twice (forward, the backward's row pass): where a caller will want dZ
+(``_emits_cells``), ``PsiFused`` and ``PsiFusedT`` pass the flag that adds
+the sums (CELLS) and save them for the backward; ``psi_bwd`` called alone
+runs the sweep for them. Where Z needs no gradient no kernel forms them,
+and Psi2 is the same, bit for bit. Past Q = 64 the backward's chunked cell
 pass forms them.
 
 Each grid splits N and writes one float64 partial per split, which the
@@ -73,12 +74,8 @@ from gparml_tpu_torch.ops import psi as psi_plain
 # Kernel launches per wrapper: each successful kernel call adds one, under
 # the lock (a mesh over several cards runs its shards' backwards on
 # autograd's per-device threads). fwd_cells / fwd_cells_t count the forward
-# calls (of those in fwd / fwd_t) that also formed the cell sums;
-# bwd_rows_pipe the backward calls of either layout whose Psi2 row pass was
-# the pipelined psi2_bwd_rows_tc_kernel (Q <= 64; past it the K-chunked
-# row pass runs).
-LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 0, "fwd_cells_t": 0,
-            "bwd_rows_pipe": 0}
+# calls (of those in fwd / fwd_t) that also formed the cell sums.
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_t": 0, "bwd_t": 0, "fwd_cells": 0, "fwd_cells_t": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 # Most bytes of one grid's float64 per-split partials.
@@ -168,13 +165,13 @@ def _shapes(layout: str, mu, z, y):
 
 
 def _plan(n: int, m: int, q: int, d: int, device: torch.device):
-    """(splits2, splits1, splits_c, splits_m, splits_p, splits_f): the
-    N-splits of the forward's and the backward's grids (splits_c, the
-    chunked cell pass's, 0 up to Q = 64), the inducing-point splits of the
-    backward's Psi1 row pass and the N-splits of the forward that forms the
-    cell sums (0 past Q = 64), from the kernels' own launch plan (the same
-    in both layouts) under ``PARTIAL_BYTES``. Raises ValueError when a block
-    would need more shared memory than the card gives one."""
+    """(splits2, splits1, splits_c, splits_m, splits_p): the N-splits of
+    the forward's Psi2 grid (whether or not it forms the cell sums) and Psi1
+    grid, and of the backward's grids (splits_c, the chunked cell pass's, 0
+    up to Q = 64), and the inducing-point splits of the backward's Psi1 row
+    pass, from the kernels' own launch plan (the same in both layouts) under
+    ``PARTIAL_BYTES``. Raises ValueError when a block would need more shared
+    memory than the card gives one."""
     return _plan_for(n, m, q, d, device, PARTIAL_BYTES)
 
 
@@ -182,7 +179,7 @@ def _plan(n: int, m: int, q: int, d: int, device: torch.device):
 def _plan_for(n, m, q, d, device, partial_bytes):
     lib = _build.load()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fwd, bwd = (ctypes.c_int * 5)(), (ctypes.c_int * 5)()
+    fwd, bwd = (ctypes.c_int * 4)(), (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         _build.check(lib.gparml_psi_fwd_plan(n, m, q, d, sms, partial_bytes, fwd),
                      "psi_fwd_plan")
@@ -193,7 +190,7 @@ def _plan_for(n, m, q, d, device, partial_bytes):
         raise ValueError(
             f"the CUDA kernels need {need} bytes of shared memory per block at "
             f"M={m}, Q={q}, D={d}, and this card gives {limit}")
-    return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4], fwd[4]
+    return fwd[0], fwd[1], bwd[0], bwd[1], bwd[4]
 
 
 @functools.lru_cache(maxsize=16)
@@ -262,8 +259,7 @@ _LAYOUTS = {"nq": (0, "fwd", "bwd", "fwd_cells"), "qn": (1, "fwd_t", "bwd_t", "f
 
 
 # The widest Q of the register buckets (csrc/psi_common.cuh qm_for): up to
-# it the forward forms the cell sums and the backward's Psi2 row pass is
-# the pipelined kernel.
+# it the forward forms the cell sums and its partials hold room for them.
 _BUCKET_MAX_Q = 64
 
 
@@ -295,25 +291,21 @@ def _run_fwd(layout, mu, s, z, sf2, alpha, y, w, cells):
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
     qn = _LAYOUTS[layout][0]
-    splits2, splits1, _, _, _, splits_f = _plan(n, m, q, d, mu.device)
+    splits2, splits1 = _plan(n, m, q, d, mu.device)[:2]
     f64 = dict(dtype=torch.float64, device=mu.device)
     p1y_part = torch.empty((splits1, m, d), **f64)
-    if cells:
-        p2_part, cells_part = None, torch.empty((splits_f, q + 1, m, m), **f64)
-    else:
-        p2_part, cells_part = torch.empty((splits2, m, m), **f64), None
+    # Psi2's partials, then (Q <= 64) room for the cell sums, whether or not
+    # the kernel forms them
+    p2_part = torch.empty((splits2, q + 1 if q <= _BUCKET_MAX_Q else 1, m, m), **f64)
     terms = _terms(layout, s, z, sf2, alpha)   # alive until the kernels have read them
     with torch.cuda.device(mu.device):
         rc = _build.load().gparml_psi_fwd(
             *(t.data_ptr() for t in (mu, s, y, w, z, alpha, sf2, *terms)),
-            n, m, q, d, qn, splits2, splits1, splits_f,
-            *(_ptr(t) for t in (p2_part, p1y_part, cells_part)),
-            torch.cuda.current_stream(mu.device).cuda_stream)
+            n, m, q, d, qn, splits2, splits1, int(cells), p2_part.data_ptr(),
+            p1y_part.data_ptr(), torch.cuda.current_stream(mu.device).cuda_stream)
     _build.check(rc, "psi_fwd")
-    p1y = p1y_part.sum(0).to(mu.dtype)
-    if not cells:
-        return p1y, p2_part.sum(0).to(mu.dtype)
-    return p1y, cells_part[:, 0].sum(0).to(mu.dtype), cells_part[:, 1:].sum(0).to(mu.dtype)
+    out = p1y_part.sum(0).to(mu.dtype), p2_part[:, 0].sum(0).to(mu.dtype)
+    return (*out, p2_part[:, 1:].sum(0).to(mu.dtype)) if cells else out
 
 
 def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, dz=True):
@@ -327,7 +319,7 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, 
     n, m, q, d, shapes = _shapes(layout, mu, z, y)
     _check_kernel_inputs(args, shapes)
     qn, _, key, _ = _LAYOUTS[layout]
-    _, _, splits_c, splits_m, splits_p, _ = _plan(n, m, q, d, mu.device)
+    _, _, splits_c, splits_m, splits_p = _plan(n, m, q, d, mu.device)
     if dz and a is None and q <= _BUCKET_MAX_Q:
         a = _run_fwd(layout, mu, s, z, sf2, alpha, y, w, True)[2]
     f32 = dict(dtype=mu.dtype, device=mu.device)
@@ -352,8 +344,6 @@ def _launch_bwd(layout, mu, s, z, sf2, alpha, y, w, p1y, p2, dp1y, dp2, a=None, 
     _build.check(rc, "psi_bwd")
     with _LAUNCHES_LOCK:
         LAUNCHES[key] += 1
-        if q <= _BUCKET_MAX_Q:
-            LAUNCHES["bwd_rows_pipe"] += 1
     if a_part is not None:
         a = a_part.sum(0).to(mu.dtype)
     dal_sum = dal.sum(0 if layout == "nq" else 1)

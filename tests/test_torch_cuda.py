@@ -41,12 +41,11 @@ def test_kernel_parity(cuda, case, layout):
 @pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
 def test_one_split_a_grid_matches_plain(cuda, layout):
     """A partial budget of one byte puts every grid in one N-split of
-    70 000 rows: the launcher then runs the forward's Psi2 grid twice, the
-    sweep that forms the cell sums adds 1094 row tiles into its float64
-    totals, as the Psi1 passes do, and the results must still meet the
-    plain versions. Up to Q = 64 the backward has no cell pass (the plan's
-    third entry, 0)."""
-    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 0, 1, 1, 1)
+    70 000 rows: the forward's Psi2 sweep adds 1094 row tiles into its
+    float64 totals, as the Psi1 passes do, and the results must still meet
+    the plain versions. Up to Q = 64 the backward has no cell pass (the
+    plan's third entry, 0)."""
+    assert psi_cuda._plan_for(70_000, 40, 3, 5, cuda, 1) == (1, 1, 0, 1, 1)
     before = len(chip_smoke.FAILURES)
     with chip_smoke.partial_budget(1):
         res = chip_smoke.parity_case(70_000, 40, 3, 5, 0, device=cuda, layout=layout)
@@ -59,9 +58,8 @@ def test_chunked_kernels_match_plain(cuda, layout, q):
     """Past Q = 64 the chunked kernels, forward and backward, against their
     plain versions: with the default plan, and with every grid in one
     N-split of 5000 rows. The backward takes no per-row scratch: the plan's
-    fifth entry is the Psi1 row pass's inducing-point splits, 1 here; no
-    forward forms the cell sums past Q = 64 (the sixth, 0)."""
-    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 1, 0)
+    fifth entry is the Psi1 row pass's inducing-point splits, 1 here."""
+    assert psi_cuda._plan_for(5000, 30, q, 6, cuda, 1) == (1, 1, 1, 1, 1)
     before = len(chip_smoke.FAILURES)
     res = chip_smoke.parity_case(300, 90, q, 6, 7, device=cuda, layout=layout)
     with chip_smoke.partial_budget(1):
@@ -139,9 +137,10 @@ def _route_tensors(host, device, layout, dtype=torch.float32):
 @pytest.mark.parametrize("q", [2, 4, 10, 16, 32, 64])
 def test_forward_with_cell_sums_matches_the_two_sweeps(cuda, q, spread, layout):
     """At every Q bucket, in both layouts, on N(0, 1) and spread latents:
-    the forward that forms the cell sums (psi2_fwd_cells_tc_kernel) gives
-    the Psi2 of psi2_fwd_tc_kernel (its float64 partials summed in another
-    order) and the Psi1^T Y of the same Psi1 kernel; its cell sums with
+    the Psi2 forward sweep that forms the cell sums too
+    (psi2_fwd_tc_kernel<QM, true>) gives the Psi2 of the sweep without them
+    (<QM, false>, the same sums in the same order) and the Psi1^T Y of the
+    same Psi1 kernel, bit for bit; its cell sums with
     every grid in one N-split are those of the default plan up to the
     float32 rounding of float64 sums taken in another order; the backward
     given them equals the backward wrapper called alone (which runs that
@@ -153,8 +152,7 @@ def test_forward_with_cell_sums_matches_the_two_sweeps(cuda, q, spread, layout):
     fwd, bwd, _, _, bwd_ref = chip_smoke._wrappers(layout)
     p1y, p2 = fwd(*xs)
     p1y_f, p2_f, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
-    assert torch.equal(p1y_f, p1y)
-    torch.testing.assert_close(p2_f, p2, rtol=1e-6, atol=0)
+    assert torch.equal(p1y_f, p1y) and torch.equal(p2_f, p2)
     with chip_smoke.partial_budget(1):
         a_1 = psi_cuda._launch_fwd(layout, *xs, cells=True)[2]
     assert chip_smoke._norm_err(a_1.double().cpu().numpy(), a.double().cpu().numpy()) <= 1e-6
@@ -182,14 +180,11 @@ def test_pipelined_row_pass_matches_float64(cuda, n, m, q, layout):
     ends on a ragged tile (703 cells), N = 1001 is no multiple of a block's
     rows, N = 16 and N = 1000 fill a few blocks as infer_latents' batches
     do. Given the forward's cell sums, dmu, ds and dalpha stay within the
-    parity tests' tolerance of the plain version in float64, and
-    bwd_rows_pipe counts the call."""
+    parity tests' tolerance of the plain version in float64."""
     host = _route_inputs(q, None, n=n, m=m)
     xs, cot = _route_tensors(host, cuda, layout)
     p1y, p2, a = psi_cuda._launch_fwd(layout, *xs, cells=True)
-    before = dict(psi_cuda.LAUNCHES)
     got = psi_cuda._launch_bwd(layout, *xs, p1y, p2, *cot, a=a)
-    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + 1
     xs64, cot64 = _route_tensors(host, cuda, layout, torch.float64)
     want = chip_smoke._wrappers(layout)[4](*xs64, *cot64)
     for i in (0, 1, 4):
@@ -246,8 +241,7 @@ def test_fit_forms_the_cell_sums_in_every_forward(cuda, layout):
 
 @pytest.mark.parametrize("q", [4, 65])
 def test_wrappers_count_launches(cuda, q):
-    """One count a wrapper call; the backward's row pass is the pipelined
-    kernel (bwd_rows_pipe) up to Q = 64 and the K-chunked one past it."""
+    """One count a wrapper call, up to Q = 64 and past it."""
     xs = _inputs(cuda, q=q)
     before = dict(psi_cuda.LAUNCHES)
     p1y, p2 = psi_cuda.psi_fwd(*xs)
@@ -255,7 +249,6 @@ def test_wrappers_count_launches(cuda, q):
     torch.cuda.synchronize()
     assert psi_cuda.LAUNCHES["fwd"] == before["fwd"] + 1
     assert psi_cuda.LAUNCHES["bwd"] == before["bwd"] + 1
-    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + (q <= 64)
     assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"]
 
 
@@ -269,7 +262,6 @@ def test_qn_wrappers_count_launches(cuda, q):
     torch.cuda.synchronize()
     assert psi_cuda.LAUNCHES["fwd_t"] == before["fwd_t"] + 1
     assert psi_cuda.LAUNCHES["bwd_t"] == before["bwd_t"] + 1
-    assert psi_cuda.LAUNCHES["bwd_rows_pipe"] == before["bwd_rows_pipe"] + (q <= 64)
     assert psi_cuda.LAUNCHES["fwd"] == before["fwd"]
     with pytest.raises(ValueError, match="shape"):
         psi_cuda.psi_fwd_t(*_inputs(cuda))

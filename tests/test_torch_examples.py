@@ -44,7 +44,7 @@ def test_example_runs_on_the_cpu(tmp_path, script, args, fields):
     if script != "sparse_gp_regression.py":
         last = json.loads(out.strip().splitlines()[-1])
         assert set(last["kernel_launches"]) == {"fwd", "bwd", "fwd_t", "bwd_t", "fwd_cells",
-                                                "fwd_cells_t", "bwd_rows_pipe"}
+                                                "fwd_cells_t"}
         assert not any(last["kernel_launches"].values()), last
 
 
