@@ -24,9 +24,10 @@ Phases, one line each or more:
      flush case: the slice's shape at sf2 = 1e-20, every Psi2 entry below
      2^-126, Psi2 and the gradients of a Psi2 probe against the plain
      version in float64; then the device ms of the Psi2 forward sweep with
-     the cell sums and without them, and of the backward's row pass, at
-     the slice's shape at every Q bucket, at config 5's (qn) and at
-     infer_latents' batch (N=1000);
+     the cell sums and without them, and of the backward's row pass, each
+     beside its 3-term TF32 floor, at the slice's shape and at
+     infer_latents' batch (N=1000) at every Q bucket and at config 5's (qn)
+     up to Q = 16;
   4. the GPLVM main path at N=1e6, Q=10, M=200, D=12, float32: kernel and
      plain-version times at that shape, neg_bound_value_and_grad with the
      kernels ("auto") and with the plain engine ("xla", block=4000), then a
@@ -1228,11 +1229,25 @@ def _window_times(case, dev):
 
 # (N, M, D, layout, Q buckets) of phase 3's times of the Psi2 forward sweep
 # with and without the cell sums and of the backward's row pass: the
-# slice's shape (nq) at every Q bucket, config 5's (qn, N=1e7, M=500) and
-# infer_latents' batch of the slice (N=1000) at Q=10.
+# slice's shape (nq) and infer_latents' batch of the slice (N=1000) at every
+# Q bucket, config 5's (qn, N=1e7, M=500) up to Q = 16 (a call there does
+# 62 times the slice's pairs: past Q = 16 minutes for the three kernels).
 ROUTE_SHAPES = ((1_000_000, 200, 12, "nq", (2, 4, 10, 16, 32, 64)),
-                (10_000_000, 500, 12, "qn", (10,)),
-                (1_000, 200, 12, "nq", (10,)))
+                (10_000_000, 500, 12, "qn", (2, 4, 10, 16)),
+                (1_000, 200, 12, "nq", (2, 4, 10, 16, 32, 64)))
+
+
+def _tc_floor_ms(kernel, n, m, q):
+    """The 3-term TF32 floor of a Psi2 sweep up to Q = 64: its products at
+    the tensor cores' rate, 3 (K + N2) x 2 flops a (row, cell) pair, with K
+    the exponents' padded K (csrc/psi_tc.cuh tc_k) and N2 that of the
+    kernel's reduction: the forward with the cell sums ('fwd_cells',
+    tc_n2_cells), without them ('fwd', none), the backward's row pass
+    ('rows', tc_n2_rows)."""
+    qm = next(b for b in (2, 4, 10, 16, 32, 64) if q <= b)
+    k = (2 * qm + 7) // 8 * 8
+    n2 = {"fwd_cells": k, "fwd": 0, "rows": (2 * qm + 1 + 7) // 8 * 8}[kernel]
+    return 3 * (k + n2) * 2 * n * (m * (m + 1) // 2) / TF32_PEAK * 1e3
 
 
 def _route_times(n, m, q, d, layout, dev):
@@ -2414,9 +2429,11 @@ def phase3(dev):
     for n, m, d, layout, buckets in ROUTE_SHAPES:
         for q in buckets:
             fused, alone, rows = _route_times(n, m, q, d, layout, dev)
+            floor = lambda k: _tc_floor_ms(k, n, m, q)
             print(f"phase 3 route {layout} N={n} M={m} Q={q} D={d}: psi2_fwd_tc_kernel<{q}, "
-                  f"true> {fused:.3f} ms; psi2_fwd_tc_kernel<{q}, false> {alone:.3f} ms; "
-                  f"psi2_bwd_rows_tc_kernel {rows:.3f} ms")
+                  f"true> {fused:.3f} ms (3-term floor {floor('fwd_cells'):.3f}); "
+                  f"psi2_fwd_tc_kernel<{q}, false> {alone:.3f} ms (floor {floor('fwd'):.3f}); "
+                  f"psi2_bwd_rows_tc_kernel {rows:.3f} ms (floor {floor('rows'):.3f})")
             torch.cuda.empty_cache()
     print(f"phase 3: {time.perf_counter() - t0:.2f} s")
 

@@ -9,14 +9,20 @@
 // psi_common.cuh (the qn twin reads mu^T, s^T (Q, N) and Y^T (D, N)). Here:
 //
 //  * psi2_fwd_tc_kernel<QM, CELLS> (Q <= 64): one grid axis over blocks of
-//    packed upper-triangle cells (a tile of 64 a warpgroup; two up to
-//    Q = 16 without the cell sums), one over N-splits. The exponents of
+//    packed upper-triangle cells (a tile of 64 a consumer warpgroup; two up
+//    to Q = 16 without the cell sums), one over N-splits. The exponents of
 //    each 64-cell x 64-row tile come from the tensor cores (psi_tc.cuh,
 //    3-term TF32, centred on zeta, an exact shift 2^S in the row constants,
-//    undone on the float64 totals), the rows staged through a cp.async
-//    ring; each thread adds w_n exp2(L2) over its 16 rows into float32 tile
+//    undone on the float64 totals). The walk over row tiles is a software
+//    pipeline: producer warpgroups load each tile's rows into registers
+//    and build their operand into a ring of shared-memory stages (4 up to
+//    Q = 16, fewer past it) handed to the consumer warpgroups by a full and
+//    an empty mbarrier a stage, with no block barrier in the walk; each
+//    consumer thread adds w_n exp2(L2) over its 16 rows into float32 tile
 //    sums of its two cells a tile, and the four threads of a cell add theirs
-//    in float64 into the cell's total in shared memory.
+//    in float64 by quad shuffles into the cell's total in a register; up to
+//    Q = 10 a consumer, its cells' operand in registers, forms the next
+//    tile's exponents while this tile's epilogue (or sums) runs.
 //    With CELLS (where dZ will be wanted: the wrapper passes the flag) the
 //    sweep also builds the rows' transposed operand [c mu' | c], by which the
 //    tensor cores multiply each tile's w exp2(L2), so that each pair's
@@ -50,16 +56,19 @@
 // 512 < M <= 640) as they take the flat window.
 //
 // What bounds it on an H100: operations, not bytes. The Psi2 kernels are
-// bound by the exp2 of each of the N M (M + 1) / 2 pairs on the MUFU, the
-// rate of issuing the exponent tiles' wgmma (psi_tc.cuh) and the row
-// operand's build, shared by the block's cells (128 up to Q = 32, 64 past
-// it; 256 up to Q = 16 without the cell sums), with CELLS the reduction
-// product on the tensor cores and the [c mu' | c] build on top (about what
-// the backward's cell pass cost alone); the epilogue costs two float32 adds
-// and an FMA a pair, and the rows come from device memory once per cell
-// block (cp.async, one tile ahead); past Q = 64 the rows' and the 128
-// cells' operands are rebuilt chunk by chunk for every row tile, the
-// rows read from device memory (L1, L2) once per cell block. The Psi1
+// bound by the 3-term TF32 products of the exponent tiles (psi_tc.cuh; 3 K
+// x 2 flops a pair, with CELLS 3 (K + N2) x 2: 288 at Q = 10, 0.73 s at
+// config 5's N = 1e7, M = 500), by the exp2 of each of the N M (M + 1) / 2
+// pairs on the MUFU (0.30 s there) and by the row operand's build, shared
+// by the block's cells (128 up to Q = 32, 64 past it; 256 up to Q = 16
+// without the cell sums), with CELLS the [c mu' | c] build on top; the
+// epilogue costs two float32 adds and an FMA a pair, and the rows come
+// from device memory once per cell block. Up to Q = 64 the pipeline runs
+// the products, the exp2 epilogues and the next tiles' builds at once,
+// where an unpipelined walk ran them one after another; past Q = 64 the
+// rows' and the 128 cells' operands are rebuilt chunk by chunk for every
+// row tile, the rows read from device memory (L1, L2) once per cell
+// block. The Psi1
 // kernel (N M pairs) is bound the same way: an exp2 a pair on the MUFU, a
 // float32 add and product, and per 64-row tile the row operand's and the
 // Y chunk's builds, which M / 64 point blocks repeat.
@@ -70,180 +79,505 @@ namespace gparml {
 // Most rows of one N-split of psi2_fwd_tc_chunked_kernel in one launch.
 constexpr int kFwdRowsMax = 1024 * kRowsPsi2;
 
-// Cell tiles of 64 per warpgroup of psi2_fwd_tc_kernel (one with the cell
-// sums, whose reduction takes the registers; without them tc_fwd_ct, so
-// that each row tile's operand build serves twice the cells up to Q = 16),
-// its cells a block, and its shared memory: the cells' operand and terms
-// (the operand's room holds the cells' float64 sums of the centred products
-// at the end), the rows' operand and constants, the ring of raw row stages,
-// with the cell sums the rows' transposed operand [c mu' | c] and the
-// reduction's scratch, each thread's two float32 tile sums of w Psi2 a tile
-// and the cells' float64 totals of it (at Q = 64 with the cell sums nearly
-// all of an H100's 227 KB).
+// The block of psi2_fwd_tc_kernel: tc_wg consumer warpgroups, each owning
+// tc_cell_tiles tiles of 64 cells (one with the cell sums, whose reduction
+// takes the registers; without them tc_fwd_ct, so that each row tile's
+// operand build serves twice the cells up to Q = 16), then the producer
+// warpgroups that build the row tiles.
 __host__ __device__ constexpr int tc_cell_tiles(int qm, bool cells) {
   return cells ? 1 : tc_fwd_ct(qm);
 }
 __host__ __device__ constexpr int tc_cell_cells(int qm, bool cells) {
   return tc_wg(qm) * tc_cell_tiles(qm, cells) * kTcRows;
 }
-__host__ __device__ constexpr size_t tc_cells_smem(int qm, bool cells) {
-  return tc_operand_bytes(tc_cell_cells(qm, cells), qm) +
-         tc_cellterm_bytes(tc_cell_cells(qm, cells)) + tc_operand_bytes(kTcRows, qm) +
-         tc_region(kTcRows * sizeof(float)) + tc_stages(qm) * tc_stage_bytes(kTcRows, qm) +
-         (cells ? tc_b2_bytes(tc_n2_cells(qm)) + tc_scratch_bytes(tc_wg(qm)) : 0) +
-         tc_region((size_t)tc_wg(qm) * kTcWarpgroup * 2 * tc_cell_tiles(qm, cells) *
-                   sizeof(float)) +
-         tc_region((size_t)tc_cell_cells(qm, cells) * sizeof(double));
+// Producer warpgroups: as many as consumer warpgroups, so that each thread
+// of an unpipelined build of the whole block has a producer thread.
+__host__ __device__ constexpr int tc_cells_producers(int qm) { return tc_wg(qm); }
+__host__ __device__ constexpr int tc_cells_threads(int qm) {
+  return (tc_wg(qm) + tc_cells_producers(qm)) * kTcWarpgroup;
 }
-// Blocks of psi2_fwd_tc_kernel an SM must hold (its launch bounds).
-__host__ __device__ constexpr int tc_cells_min_blocks(int qm) { return qm <= 16 ? 2 : 1; }
+// One stage of its ring: a 64-row tile's operand, constants and weights,
+// and with the cell sums the tile's transposed operand [c mu' | c]
+// (tc_n2_cells x 64).
+__host__ __device__ constexpr size_t tc_cells_stage_bytes(int qm, bool cells) {
+  return tc_operand_bytes(kTcRows, qm) + 2 * tc_region(kTcRows * sizeof(float)) +
+         (cells ? tc_b2_bytes(tc_n2_cells(qm)) : 0);
+}
+// Its shared memory beside the ring: the cells' operand (whose room holds
+// the cells' float64 sums of the centred products at the end) and terms,
+// the ring's full and empty barriers, and alpha and zeta.
+constexpr int kTcCellsStagesMax = 4;
+__host__ __device__ constexpr size_t tc_cells_fixed_bytes(int qm, bool cells) {
+  return tc_operand_bytes(tc_cell_cells(qm, cells), qm) +
+         tc_cellterm_bytes(tc_cell_cells(qm, cells)) +
+         tc_region(2 * kTcCellsStagesMax * sizeof(uint64_t)) + tc_region(2 * qm * sizeof(float));
+}
+// Stages of the ring: as many as fit beside that in an H100 block's shared
+// memory, up to kTcCellsStagesMax (4 up to Q = 16; 2 at Q = 32 with the
+// cell sums, 4 without; 1 at Q = 64 with them, 2 without).
+__host__ __device__ constexpr int tc_cells_stages(int qm, bool cells) {
+  return (int)std::min<size_t>(kTcCellsStagesMax, (kTcSmemMax - tc_cells_fixed_bytes(qm, cells)) /
+                                                      tc_cells_stage_bytes(qm, cells));
+}
+__host__ __device__ constexpr size_t tc_cells_smem(int qm, bool cells) {
+  return tc_cells_fixed_bytes(qm, cells) +
+         tc_cells_stages(qm, cells) * tc_cells_stage_bytes(qm, cells);
+}
+// Whether a consumer forms a tile's exponents while the last tile's
+// epilogue (with the cell sums: while its sums) runs, its cells' operand
+// in registers, up to Q = 10 (as the backward's row pass, whose registers
+// run out past it the same way).
+__host__ __device__ constexpr bool tc_cells_ahead(int qm) { return qm <= 10; }
+// Registers of a producer thread and of a consumer thread where the block
+// runs four warpgroups (up to Q = 32; setmaxnreg): the launch gives each
+// of the 512 threads 128; a producer holds the raw values of the row tiles
+// it has in flight and a row's constant sums, 64 up to Q = 16 and 48 at
+// Q = 32; the consumers take what the producers give back (192, 208).
+__host__ __device__ constexpr int tc_cells_regs(int qm) {
+  return 65536 / tc_cells_threads(qm) / 8 * 8;
+}
+__host__ __device__ constexpr int tc_cells_producer_regs(int qm) { return qm <= 16 ? 64 : 48; }
+__host__ __device__ constexpr int tc_cells_consumer_regs(int qm) {
+  return (2 * tc_cells_regs(qm) - tc_cells_producer_regs(qm)) / 8 * 8;
+}
+// Whether a producer loads its next row tile's values while it builds this
+// one: up to Q = 16; past it the registers go to the wider tile, whose
+// loads it issues before it waits for the stage, and past Q = 32 (more than
+// kTcCellsLoadDims dimensions a builder) kTcCellsLoadDims dimensions at a
+// time as it builds them.
+__host__ __device__ constexpr bool tc_cells_load_ahead(int qm) { return qm <= 16; }
+constexpr int kTcCellsLoadDims = 8;
+
+// The named barrier of psi2_fwd_tc_kernel's consumers (0 is
+// __syncthreads').
+constexpr int kTcBarConsumers = 1;
+
+// Stage s of the ring.
+struct TcCellsStage {
+  TcOperand rop, b2;
+  float *rc, *w;
+};
+template <int QM, bool CELLS>
+__device__ inline TcCellsStage tc_cells_stage(char* ring, int s) {
+  constexpr int KP = tc_k(QM), N2 = tc_n2_cells(QM);
+  TcCarve cv(ring + (size_t)s * tc_cells_stage_bytes(QM, CELLS));
+  TcCellsStage st;
+  st.rop.hi = cv.take<float>(kTcRows * KP * sizeof(float));
+  st.rop.lo = cv.take<float>(kTcRows * KP * sizeof(float));
+  st.rc = cv.take<float>(kTcRows * sizeof(float));
+  st.w = cv.take<float>(kTcRows * sizeof(float));
+  st.b2.hi = CELLS ? cv.take<float>(N2 * kTcRows * sizeof(float)) : nullptr;
+  st.b2.lo = CELLS ? cv.take<float>(N2 * kTcRows * sizeof(float)) : nullptr;
+  return st;
+}
+
+// A builder's raw values of one row tile (tc_cells_load): mu and s of its
+// dimensions, zero past hi or q, and w of its row, zero past hi.
+template <int KT>
+struct TcCellsRaw {
+  float mu[KT], s[KT], w;
+};
+
+// Row n's values of dimensions sub, sub + TPR, ... (live: n is a row of the
+// split, else zeros), from device memory into registers.
+template <int QM, int TPR>
+__device__ inline void tc_cells_load(TcCellsRaw<(QM + TPR - 1) / TPR>& x,
+                                     const float* __restrict__ mu, const float* __restrict__ s,
+                                     Strides ls, const float* __restrict__ w, int q, int n,
+                                     bool live, int sub) {
+  constexpr int KT = (QM + TPR - 1) / TPR;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    const int k = sub + j * TPR;
+    const bool ok = live && k < q;
+    x.mu[j] = ok ? mu[ls.at(n, k)] : 0.f;
+    x.s[j] = ok ? s[ls.at(n, k)] : 0.f;
+  }
+  x.w = live ? w[n] : 0.f;
+}
+
+// Dimensions j0 .. j0 + KC - 1 (mu_c, s_c) of builder (r, sub) of a row
+// tile into stage sg as tc_build_rows forms them from staged rows with TPR
+// builders a row (the threads of an unpipelined build of the whole block:
+// the builder takes dimensions sub, sub + TPR, ...; j its j-th): the row
+// operand, with CELLS the transposed operand [c mu' | c], and the row
+// constant's sums in rc, in the same groups and order. s_az: alpha (QM),
+// then zeta (QM).
+template <int QM, int TPR, bool CELLS, int KC>
+__device__ inline void tc_cells_build_dims(int r, int sub, int j0, const float (&mu_c)[KC],
+                                           const float (&s_c)[KC], const float* s_az, int q,
+                                           const TcCellsStage& sg, TcRowConst& rc) {
+  using F = TcForm<false>;
+  constexpr int KP = tc_k(QM);
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const int k = sub + (j0 + j) * TPR;
+    if (k >= QM) break;
+    float c = 0.f, mv = 0.f;
+    if (k < q) {
+      const float a = s_az[k];
+      const float den = F::kDen * a * s_c[j] + 1.f;
+      c = a / den;
+      mv = mu_c[j] - s_az[QM + k];
+      rc.add(den, c, mv);
+    }
+    tc_put(sg.rop.hi, sg.rop.lo, tc_at(r, k, KP), (F::kR * c * mv) * kLog2e);
+    tc_put(sg.rop.hi, sg.rop.lo, tc_at(r, QM + k, KP), -(F::kQ * c) * kLog2e);
+    if constexpr (CELLS) {
+      tc_put(sg.b2.hi, sg.b2.lo, tc_at(k, tc_kperm(r), 64), c * mv);
+      tc_put(sg.b2.hi, sg.b2.lo, tc_at(QM + k, tc_kperm(r), 64), c);
+    }
+  }
+}
+
+// Row r's constant from its builders' sums rc, added over the row's TPR
+// builders by warp shuffles in a fixed order, and its weight w, written by
+// sub 0 into stage sg.
+template <int TPR>
+__device__ inline void tc_cells_build_const(int r, int sub, TcRowConst rc, float w, float logsf2,
+                                            float shift, const TcCellsStage& sg) {
+  using F = TcForm<false>;
+  if (rc.in_prod) rc.lsum += (double)logf(rc.prod);
+  for (int o = 1; o < TPR; o <<= 1) {
+    rc.lsum += __shfl_xor_sync(0xffffffffu, rc.lsum, o);
+    rc.cm += __shfl_xor_sync(0xffffffffu, rc.cm, o);
+  }
+  if (sub == 0) {
+    sg.rc[r] = (float)((F::kSf * (double)logsf2 - 0.5 * rc.lsum - F::kQd * rc.cm) *
+                           (double)kLog2e +
+                       (double)shift);
+    sg.w[r] = w;
+  }
+}
+
+// The producer warpgroups of psi2_fwd_tc_kernel: row tile t of the split
+// (rows [lo + 64 t, lo + 64 t + 64) below hi) into stage t % NS once every
+// consumer has released the stage's last tile. Producer thread p is
+// builder p of an unpipelined build of the whole block (NB = 128 tc_wg
+// builders, TPR = NB / 64 a row), so that the row constants' sums keep
+// their grouping and order. It loads its raw values of each tile straight
+// from device memory into registers (tc_cells_load), up to Q = 16 a tile
+// ahead and up to Q = 32 before it waits for the stage, past it
+// kTcCellsLoadDims dimensions at a time as it builds them, builds its share
+// of the stage (tc_cells_build_dims, tc_cells_build_const), fences its
+// stores for the tensor cores and arrives on the stage's full barrier.
+template <int QM, bool CELLS>
+__device__ inline void tc_cells_produce(const float* __restrict__ mu, const float* __restrict__ s,
+                                        Strides ls, const float* __restrict__ w,
+                                        const float* s_az, float logsf2, float sh, int q, int lo,
+                                        int hi, char* ring, uint64_t* full, uint64_t* empty) {
+  constexpr int NS = tc_cells_stages(QM, CELLS), NB = tc_wg(QM) * kTcWarpgroup;
+  constexpr int TPR = NB / kTcRows, KT = (QM + TPR - 1) / TPR, KC = kTcCellsLoadDims;
+  constexpr bool kAhead = tc_cells_load_ahead(QM);
+  const int p = threadIdx.x - NB, r = p / TPR, sub = p % TPR;
+  const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
+  auto load = [&](TcCellsRaw<KT>& x, int t) {
+    const int n = lo + t * kTcRows + r;
+    tc_cells_load<QM, TPR>(x, mu, s, ls, w, q, n, t < ntiles && n < hi, sub);
+  };
+  TcCellsRaw<KT> x[2];
+  if (kAhead) load(x[0], 0);
+  for (int t0 = 0; t0 < ntiles; t0 += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + h, sx = t % NS;
+      if (t >= ntiles) break;
+      const TcCellsStage sg = tc_cells_stage<QM, CELLS>(ring, sx);
+      TcRowConst rc;
+      if constexpr (KT <= KC) {
+        load(x[kAhead ? h ^ 1 : h], kAhead ? t + 1 : t);
+        tc_bar_wait(empty + sx, (t / NS & 1) ^ 1);
+        tc_cells_build_dims<QM, TPR, CELLS>(r, sub, 0, x[h].mu, x[h].s, s_az, q, sg, rc);
+        tc_cells_build_const<TPR>(r, sub, rc, x[h].w, logsf2, sh, sg);
+      } else {
+        const int n = lo + t * kTcRows + r;
+        const float wn = n < hi ? w[n] : 0.f;
+        tc_bar_wait(empty + sx, (t / NS & 1) ^ 1);
+#pragma unroll 1
+        for (int j0 = 0; j0 < KT; j0 += KC) {
+          float mu_c[KC], s_c[KC];
+#pragma unroll
+          for (int j = 0; j < KC; ++j) {
+            const int k = sub + (j0 + j) * TPR;
+            const bool ok = n < hi && k < q;
+            mu_c[j] = ok ? mu[ls.at(n, k)] : 0.f;
+            s_c[j] = ok ? s[ls.at(n, k)] : 0.f;
+          }
+          tc_cells_build_dims<QM, TPR, CELLS>(r, sub, j0, mu_c, s_c, s_az, q, sg, rc);
+        }
+        tc_cells_build_const<TPR>(r, sub, rc, wn, logsf2, sh, sg);
+      }
+      tc_fence_async();
+      tc_bar_arrive(full + sx);
+    }
+  }
+}
+
+// The consumer warpgroups of psi2_fwd_tc_kernel: warpgroup wg's CT cell
+// tiles against every row tile of the split in turn, as stage t % NS
+// fills. Per row tile and cell tile the exponents (tc_tile, the cells on
+// the tile's M axis), then the epilogue: each thread adds w exp2(L2) over
+// its 16 rows into float32 sums of its two cells, and the four threads of
+// a cell (one quad of a warp) add theirs by shuffles in float64,
+// ((t0 + t1) + (t2 + t3)), into the cell's total p2 (lane 0's); with CELLS
+// the exponents in registers become ev = w exp2(L2) (0 past the last
+// cell), multiplied by the stage's [c mu' | c] on the tensor cores
+// (tc_reduce) and added to the float64 totals tot, tile after tile; then
+// the stage is released. Up to Q = 10 (tc_cells_ahead) a warpgroup keeps
+// the tensor cores busy over its epilogues, its cells' operand held in
+// registers as the exponents' A (TcRowsA): with CELLS, tile t's ev split
+// into the reduction's A registers, it issues tile t + 1's exponents and
+// then tile t's sums and waits for the exponents alone (wgmma.wait_group
+// 1), so that tile t + 1's epilogue runs while tile t's sums do; without,
+// each cell tile's next exponents are issued as soon as its epilogue is
+// done, so that one cell tile's epilogue runs while the other's exponents
+// do.
+template <int QM, bool CELLS>
+__device__ inline void tc_cells_consume(const TcOperand& cop, const float* s_ce, const int2* s_ij,
+                                        char* ring, uint64_t* full, uint64_t* empty, int ntiles,
+                                        double (&p2)[tc_cell_tiles(QM, CELLS)][2],
+                                        double (&tot)[tc_n2_cells(QM) / 2]) {
+  constexpr int KP = tc_k(QM), N2 = tc_n2_cells(QM), NS = tc_cells_stages(QM, CELLS);
+  constexpr int CT = tc_cell_tiles(QM, CELLS);
+  const int tile0 = threadIdx.x / kTcWarpgroup * CT * kTcRows;
+  auto epilogue = [&](float (&d)[32], int j, const TcCellsStage& st) {
+    const int tile = tile0 + j * kTcRows;
+    // the constants and weights of the thread's 16 rows, tc_n(4 g) and
+    // tc_n(4 g) + 1 in pairs
+    float2 rc2[8], w2[8];
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      rc2[g] = *reinterpret_cast<const float2*>(st.rc + tc_n(4 * g));
+      w2[g] = *reinterpret_cast<const float2*>(st.w + tc_n(4 * g));
+    }
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = tc_m(i);
+      const float rc = i & 1 ? rc2[i >> 2].y : rc2[i >> 2].x;
+      const float wr = i & 1 ? w2[i >> 2].y : w2[i >> 2].x;
+      const float ev = tc_exp2(d[i] + s_ce[tile + c] + rc);
+      part[(i >> 1) & 1] += wr * ev;
+      if constexpr (CELLS) d[i] = s_ij[tile + c].x >= 0 ? wr * ev : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double x = (double)part[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      p2[j][h] += x;
+    }
+  };
+  auto add = [&](const float (&d2)[N2 / 2]) {
+#pragma unroll
+    for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
+  };
+  auto stage = [&](int t) { return tc_cells_stage<QM, CELLS>(ring, t % NS); };
+  auto wait_full = [&](int t) { tc_bar_wait(full + t % NS, t / NS & 1); };
+  if (ntiles == 0) return;
+  if constexpr (tc_cells_ahead(QM) && CELLS) {
+    TcRowsA<KP> ca;
+    ca.load(cop.hi, cop.lo, tile0);
+    TcRegA a;
+    float d[32], d2[N2 / 2];
+    auto exps = [&](int t) {
+      wait_full(t);
+      const TcCellsStage sx = stage(t);
+      tc_tile_issue_regs<KP>(ca, sx.rop.hi, sx.rop.lo, d);
+    };
+    // tile t's epilogue and split, once tile t - 1's sums are in
+    auto front = [&](int t, const TcCellsStage& st) {
+      epilogue(d, 0, st);
+      tc_wgmma_wait<0>();
+      tc_fence_vals(d2);
+      a.fence();
+      if (t > 0) {
+        add(d2);
+        tc_bar_arrive(empty + (t - 1) % NS);
+      }
+      a.set(d, nullptr);
+    };
+    exps(0);
+    tc_wgmma_wait<0>();
+    tc_fence_vals(d);
+    int t = 0;
+    for (; t + 1 < ntiles; ++t) {
+      const TcCellsStage st = stage(t);
+      front(t, st);
+      exps(t + 1);
+      tc_reduce_issue<N2>(a, st.b2.hi, st.b2.lo, d2);
+      tc_wgmma_wait<1>();
+      tc_fence_vals(d);
+    }
+    const TcCellsStage st = stage(t);
+    front(t, st);
+    tc_reduce_issue<N2>(a, st.b2.hi, st.b2.lo, d2);
+    tc_wgmma_wait<0>();
+    tc_fence_vals(d2);
+    a.fence();
+    add(d2);
+    tc_bar_arrive(empty + t % NS);
+  } else if constexpr (tc_cells_ahead(QM)) {
+    static_assert(CT == 2, "the walk without the cell sums alternates two cell tiles");
+    TcRowsA<KP> ca[CT];
+    float d[CT][32];
+#pragma unroll
+    for (int j = 0; j < CT; ++j) ca[j].load(cop.hi, cop.lo, tile0 + j * kTcRows);
+    auto exps = [&](int t, int j) {
+      const TcCellsStage sx = stage(t);
+      tc_tile_issue_regs<KP>(ca[j], sx.rop.hi, sx.rop.lo, d[j]);
+    };
+    wait_full(0);
+#pragma unroll
+    for (int j = 0; j < CT; ++j) exps(0, j);
+    for (int t = 0; t < ntiles; ++t) {
+      const TcCellsStage st = stage(t);
+      const bool next = t + 1 < ntiles;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        // in flight: (t, j), and (t, 1) or (t + 1, 0) after it
+        if (j == 0 || next)
+          tc_wgmma_wait<1>();
+        else
+          tc_wgmma_wait<0>();
+        tc_fence_vals(d[j]);
+        epilogue(d[j], j, st);
+        if (j + 1 == CT) tc_bar_arrive(empty + t % NS);
+        if (next) {
+          if (j == 0) wait_full(t + 1);
+          exps(t + 1, j);
+        }
+      }
+    }
+  } else {
+    for (int t = 0; t < ntiles; ++t) {
+      wait_full(t);
+      const TcCellsStage st = stage(t);
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int tile = tile0 + j * kTcRows;
+        float d[32];
+        tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, st.rop.hi, st.rop.lo, d);
+        epilogue(d, j, st);
+        if constexpr (CELLS) {
+          float d2[N2 / 2];
+          tc_reduce<N2>(d, st.b2.hi, st.b2.lo, d2, nullptr);
+          add(d2);
+        }
+      }
+      tc_bar_arrive(empty + t % NS);
+    }
+  }
+}
 
 // The Psi2 forward (Q <= 64): sum_n w_n Psi2_n and, with CELLS (where dZ
 // will be wanted), the centred cell sums A_q = sum_n w e c_nq (mu'_nq -
 // zb'_q) that dZ takes (e = Psi2[n, cell]) in the same sweep, per block of
-// packed cells (grid x: tc_wg warpgroups with tc_cell_tiles tiles of 64
-// cells each, on the tiles' M axis) and N-split (grid y). The cells'
+// packed cells (grid x: tc_wg consumer warpgroups with tc_cell_tiles tiles
+// of 64 cells each, on the tiles' M axis) and N-split (grid y). The cells'
 // operand is built once; the split's rows are walked in tiles of 64 (the
-// tile's N axis), staged by cp.async (a ring of tc_stages), each tile's row
-// operand built once in shared memory for all the block's cell tiles, and
-// with CELLS the rows' transposed operand [c mu' | c] beside it. The
-// exponents come from the tensor cores. Each thread adds w exp2(L2) over
-// its 16 rows into float32 tile sums of its two cells a tile and leaves
-// them in shared memory; with CELLS the warpgroup turns the tile's
-// exponents in registers into ev = w exp2(L2) (0 past the last cell) and
-// multiplies that tile by the transpose on the tensor cores (tc_reduce):
-// S1_q = sum ev c mu'_q and S2_q = sum ev c_q over the tile's 64 rows,
-// added to float64 registers. After the tile, one of the four threads of a
-// cell adds their four tile sums in float64 into the cell's total in shared
-// memory (no register lives across the loop beside the products' totals:
-// at Q = 10 those fill the 128 that two resident blocks allow). At the end
-// each split writes its cells' sum_n w_n Psi2_n into its float64 (Q + 1, M,
-// M) partial, Psi2 first, both triangles, and with CELLS, in float64, the
-// centred A_q = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form "tc") after
-// it. A cell's tile takes the same rows, threads and order in both
-// instantiations, so Psi2 does not depend on CELLS, bit for bit. Up to
-// Q = 16, two resident blocks per SM.
+// tile's N axis), pipelined: producer warpgroups (tc_cells_producers) build
+// each row tile's operand, constants and weights, with CELLS also its
+// transposed operand [c mu' | c], once for the block into a ring of
+// tc_cells_stages stages, handed over by a full and an empty mbarrier a
+// stage, with no block barrier in the walk (tc_cells_produce); each
+// consumer warpgroup forms its
+// cells' exponents on the tensor cores and adds w exp2(L2) into the
+// cells' float64 totals, with CELLS also the tile's sums S1_q = sum ev c
+// mu'_q and S2_q = sum ev c_q, each tile's added to float64 registers
+// (tc_cells_consume; no float32 sum spans more than a 64-row tile). At the
+// end each split writes its cells' sum_n w_n Psi2_n into its float64
+// (Q + 1, M, M) partial, Psi2 first, both triangles, and with CELLS, in
+// float64, the centred A_q = S1_q - zb'_q S2_q (ops/psi_tc_model.py, form
+// "tc") after it. Every value and sum is the one an unpipelined walk forms,
+// in the same order, and a cell's tile takes the same rows, threads and
+// order in both instantiations, so Psi2 does not depend on CELLS, bit for
+// bit. One block an SM.
 template <int QM, bool CELLS>
-__global__ void __launch_bounds__(tc_wg(QM) * kTcWarpgroup, tc_cells_min_blocks(QM))
+__global__ void __launch_bounds__(tc_cells_threads(QM), 1)
 psi2_fwd_tc_kernel(const float* __restrict__ mu, const float* __restrict__ s, Strides ls,
                    const float* __restrict__ w, const float* __restrict__ z,
                    const float* __restrict__ alpha, const float* __restrict__ sf2,
                    const float* __restrict__ zeta, const int2* __restrict__ cells,
                    const float* __restrict__ ce, const float* __restrict__ shift, int n, int m,
                    int q, int rows_per_split, double* __restrict__ out) {
-  constexpr int KP = tc_k(QM), S = tc_stages(QM), QS = QM / 2, CT = tc_cell_tiles(QM, CELLS);
+  constexpr int KP = tc_k(QM), QS = QM / 2, CT = tc_cell_tiles(QM, CELLS);
   constexpr int N2 = tc_n2_cells(QM), NC = tc_cell_cells(QM, CELLS);
+  constexpr int NS = tc_cells_stages(QM, CELLS), NT = tc_wg(QM) * kTcWarpgroup;
+  static_assert(NS >= (tc_cells_ahead(QM) ? 2 : 1), "the ring holds too few stages");
   extern __shared__ float4 smem4[];
   TcCarve cv(smem4);
   const TcOperand cop = tc_take_operand<KP>(cv, NC);
   float* s_ce = cv.take<float>(NC * sizeof(float));
   int2* s_ij = cv.take<int2>(NC * sizeof(int2));
-  const TcOperand rop = tc_take_operand<KP>(cv, kTcRows);
-  float* s_rc = cv.take<float>(kTcRows * sizeof(float));
-  const int stage = (int)(tc_stage_bytes(kTcRows, QM) / sizeof(float));
-  float* ring = cv.take<float>(S * tc_stage_bytes(kTcRows, QM));
-  const TcOperand b2 = CELLS ? tc_take_operand<kTcRows>(cv, N2) : TcOperand{nullptr, nullptr};
-  const int wg = threadIdx.x / kTcWarpgroup;
-  float* scratch =
-      CELLS ? cv.take<float>(tc_scratch_bytes(tc_wg(QM))) + wg * kTcRows * kTcTileLd : nullptr;
-  float* s_part = cv.take<float>(tc_wg(QM) * kTcWarpgroup * 2 * CT * sizeof(float));
-  double* s_p2 = cv.take<double>(NC * sizeof(double));
-  for (int c = threadIdx.x; c < NC; c += blockDim.x) s_p2[c] = 0.0;
-  __syncthreads();
+  uint64_t* full = cv.take<uint64_t>(2 * kTcCellsStagesMax * sizeof(uint64_t));
+  uint64_t* empty = full + NS;
+  float* s_az = cv.take<float>(2 * QM * sizeof(float));
+  char* ring = cv.take<char>(NS * tc_cells_stage_bytes(QM, CELLS));
 
-  const int p0 = blockIdx.x * NC;
-  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, p0, cop, s_ce, s_ij);
-  const int tile0 = wg * CT * kTcRows;  // the warpgroup's cells
-  double tot[N2 / 2];
-#pragma unroll
-  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
-
-  const float logsf2 = logf(*sf2), sh = *shift;
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
   const int ntiles = hi > lo ? (hi - lo + kTcRows - 1) / kTcRows : 0;
-  if (S == 2 && ntiles > 0) tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo, hi, ring);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const float* st = ring + (t % S) * stage;
-    if (S == 2) {
-      if (t + 1 < ntiles)
-        tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + (t + 1) * kTcRows, hi,
-                                   ring + ((t + 1) % S) * stage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      tc_stage_rows<QM, kTcRows>(mu, s, ls, w, q, lo + t * kTcRows, hi, ring);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tc_build_rows<QM, KP, kTcRows>(st, alpha, zeta, logsf2, sh, q, rop, s_rc,
-                                   CELLS ? &b2 : nullptr);
-    tc_operands_ready();
-    const float* st_w = st + 2 * kTcRows * QM;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int tile = tile0 + j * kTcRows;
-      float d[32];
-      tc_tile<KP>(cop.hi + tile * KP, cop.lo + tile * KP, rop.hi, rop.lo, d);
-      float part[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int c = tc_m(i), r = tc_n(i);
-        const float ev = tc_exp2(d[i] + s_ce[tile + c] + s_rc[r]);
-        part[(i >> 1) & 1] += st_w[r] * ev;
-        if constexpr (CELLS) d[i] = s_ij[tile + c].x >= 0 ? st_w[r] * ev : 0.f;
-      }
-      float* sp = s_part + 2 * (j * blockDim.x + threadIdx.x);
-      sp[0] = part[0];
-      sp[1] = part[1];
-      if constexpr (CELLS) {
-        float d2[N2 / 2];
-        tc_reduce<N2>(d, b2.hi, b2.lo, d2, scratch);
-#pragma unroll
-        for (int e = 0; e < N2 / 2; ++e) tot[e] += d2[e];
-      }
-    }
-    __syncthreads();
-    // the tile's sums of this thread's two cells a tile from their four
-    // threads (read before the next tile's operands are ready, written after)
-    if ((threadIdx.x & 3) == 0) {
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int tile = tile0 + j * kTcRows;
-        const float4* pt =
-            reinterpret_cast<const float4*>(s_part + 2 * (j * blockDim.x + threadIdx.x));
-        const float4 u = pt[0], v = pt[1];
-        s_p2[tile + tc_m(0)] += ((double)u.x + (double)u.z) + ((double)v.x + (double)v.z);
-        s_p2[tile + tc_m(2)] += ((double)u.y + (double)u.w) + ((double)v.y + (double)v.w);
-      }
-    }
+  // the stages the walk fills, zeroed (the operands' padding stays zero)
+  float* ring_f = reinterpret_cast<float*>(ring);
+  const int ring_used = min(NS, ntiles) * (int)(tc_cells_stage_bytes(QM, CELLS) / sizeof(float));
+  for (int i = threadIdx.x; i < ring_used; i += blockDim.x) ring_f[i] = 0.f;
+  for (int k = threadIdx.x; k < QM; k += blockDim.x) {
+    s_az[k] = k < q ? alpha[k] : 0.f;
+    s_az[QM + k] = k < q ? zeta[k] : 0.f;
   }
+  tc_build_cells<QM, KP, NC>(z, zeta, cells, ce, m, q, blockIdx.x * NC, cop, s_ce, s_ij);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      tc_bar_init(full + i, tc_cells_producers(QM) * kTcWarpgroup);
+      tc_bar_init(empty + i, NT);
+    }
+    tc_bar_init_fence();
+  }
+  tc_operands_ready();
 
-  // out: (splits, q + 1, M, M), Psi2 first
+  const float sh = *shift;
+  constexpr bool kRegs = NT > kTcWarpgroup;  // setmaxnreg
+  if (threadIdx.x >= NT) {
+    if constexpr (kRegs) tc_setmaxnreg_dec<tc_cells_producer_regs(QM)>();
+    tc_cells_produce<QM, CELLS>(mu, s, ls, w, s_az, logf(*sf2), sh, q, lo, hi, ring, full,
+                                empty);
+    return;
+  }
+  if constexpr (kRegs) tc_setmaxnreg_inc<tc_cells_consumer_regs(QM)>();
+  double p2[CT][2], tot[N2 / 2];
+#pragma unroll
+  for (int j = 0; j < CT; ++j) p2[j][0] = p2[j][1] = 0.0;
+#pragma unroll
+  for (int e = 0; e < N2 / 2; ++e) tot[e] = 0.0;
+  tc_cells_consume<QM, CELLS>(cop, s_ce, s_ij, ring, full, empty, ntiles, p2, tot);
+
+  // out: (splits, q + 1, M, M), Psi2 first, each cell written by lane 0 of
+  // its quad
   const size_t mm = (size_t)m * m;
   double* o = out + (size_t)blockIdx.y * (q + 1) * mm;
   const double unshift = ldexp(1.0, -(int)sh);
+  const int tile0 = threadIdx.x / kTcWarpgroup * CT * kTcRows;
 #pragma unroll
   for (int h = 0; h < 2 * CT; ++h) {
     const int c = tile0 + (h >> 1) * kTcRows + tc_m(2 * (h & 1));
     const int2 ij = s_ij[c];
     if ((threadIdx.x & 3) != 0 || ij.x < 0) continue;
-    const double v = s_p2[c] * unshift;
+    const double v = p2[h >> 1][h & 1] * unshift;
     o[(size_t)ij.x * m + ij.y] = v;
     if (ij.x != ij.y) o[(size_t)ij.y * m + ij.x] = v;
   }
   if constexpr (CELLS) {
     o += mm;
-    // the cells' sums through shared memory (the cells' operand is done
-    // with): NC x N2 (N2 == KP)
+    // the cells' sums through shared memory, once every consumer's products
+    // are done with the cells' operand: NC x N2 (N2 == KP)
     double* s_tot = reinterpret_cast<double*>(cop.hi);
+    tc_bar_sync(kTcBarConsumers, NT);
 #pragma unroll
     for (int e = 0; e < N2 / 2; ++e) s_tot[(tile0 + tc_m(e)) * N2 + tc_n(e)] = tot[e];
-    __syncthreads();
+    tc_bar_sync(kTcBarConsumers, NT);
     // each (cell, dimension) written by one thread
-    for (int idx = threadIdx.x; idx < 2 * NC; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < 2 * NC; idx += NT) {
       const int c = idx % NC, k0 = (idx / NC) * QS;
       const int2 ij = s_ij[c];
       if (ij.x < 0) continue;
@@ -556,7 +890,7 @@ int psi2_fwd_residency(int* out) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, fa.maxThreadsPerBlock,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
-  out[1] = tc_cells_min_blocks(QM);
+  out[1] = 1;
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;
   return 0;
@@ -579,7 +913,7 @@ cudaError_t launch_psi2_fwd(const float* mu, const float* s, Strides ls, const f
   cudaError_t err = allow_smem(psi2_fwd_tc_kernel<QM, CELLS>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(tc_blocks(m, tc_cell_cells(QM, CELLS)), splits2);
-  psi2_fwd_tc_kernel<QM, CELLS><<<grid, tc_wg(QM) * kTcWarpgroup, smem, stream>>>(
+  psi2_fwd_tc_kernel<QM, CELLS><<<grid, tc_cells_threads(QM), smem, stream>>>(
       mu, s, ls, w, z, alpha, sf2, zeta, cells, ce, shift, n, m, q,
       (n + splits2 - 1) / splits2, p2_part);
   return cudaGetLastError();
@@ -655,8 +989,9 @@ extern "C" int gparml_psi_fwd_plan(int n, int m, int q, int d, int num_sms,
   plan[1] = cap_splits(n_splits(n, p1b * p1_fwd_passes(d, p1), kTcRows,
                                 kFwdRowsMax, num_sms),
                        (size_t)m * d * sizeof(double), partial_bytes);
-  plan[2] = smem_bytes(std::max(qm == 0 ? tc_fwd_chunked_smem() : tc_cells_smem(qm, true),
-                                tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))));
+  plan[2] = smem_bytes(std::max({qm == 0 ? tc_fwd_chunked_smem() : tc_cells_smem(qm, true),
+                                 qm == 0 ? 0 : tc_cells_smem(qm, false),
+                                 tc_p1_fwd_smem(p1, p1_fwd_cols(d, p1))}));
   return (int)smem_limit(plan);
 }
 

@@ -129,14 +129,13 @@ struct TcForm {
 
 // K of a bucket: [2 c mu' | -c], 2 QM columns padded to a multiple of 8.
 __host__ __device__ constexpr int tc_k(int qm) { return (2 * qm + 7) / 8 * 8; }
-// Warpgroups of a block, cell tiles per warpgroup of the forward without
-// the cell sums, and stages of the raw-row ring, by bucket: as many as keep
-// two blocks resident on an H100 at Q <= 10 and one block in 227 KB at
-// Q = 64 (the passes that reduce on the tensor cores take one tile a
-// warpgroup: two took 200 registers in the backward).
+// Warpgroups of a block (consumer warpgroups where a producer warpgroup
+// feeds them) and cell tiles per warpgroup of the forward without the cell
+// sums, by bucket: as many as fit one block in 227 KB at Q = 64 (the
+// passes that reduce on the tensor cores take one tile a warpgroup: two
+// took 200 registers in the backward).
 __host__ __device__ constexpr int tc_wg(int qm) { return qm <= 32 ? 2 : 1; }
 __host__ __device__ constexpr int tc_fwd_ct(int qm) { return qm <= 16 ? 2 : 1; }
-__host__ __device__ constexpr int tc_stages(int qm) { return qm <= 32 ? 2 : 1; }
 // N of the reduction products (tc_reduce), a multiple of 8: the backward
 // row pass's [zb' | zb'^2 | 1] (2 QM + 1 columns) and the cell sums'
 // [c mu' | c] (2 QM; psi2_fwd_tc_kernel<QM, true>).
@@ -243,8 +242,8 @@ __device__ inline void tc_operands_ready() {
 }
 
 // --- the pipeline pieces: a ring of stages in shared memory that a
-// producer warpgroup fills and consumer warpgroups drain (psi_bwd.cu
-// psi2_bwd_rows_tc_kernel) -------------------------------------------------
+// producer warpgroup fills and consumer warpgroups drain (psi_fwd.cu
+// psi2_fwd_tc_kernel, psi_bwd.cu psi2_bwd_rows_tc_kernel) ------------------
 
 // The most dynamic shared memory an H100 gives a block.
 constexpr size_t kTcSmemMax = 232448;

@@ -192,6 +192,56 @@ def test_pipelined_row_pass_matches_float64(cuda, n, m, q, layout):
         assert err <= chip_smoke.GRAD_TOL_F64, (chip_smoke.GRAD_NAMES[i], err)
 
 
+def _cell_sums_f64(host, device):
+    """The centred cell sums A_q[i, j] = sum_n w_n Psi2_n[i, j] c_nq (mu_nq -
+    zb_q) (Q, M, M), zb = (z_i + z_j) / 2 and c = alpha / (2 alpha s + 1), in
+    float64 on the host's inputs."""
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=device)
+    mu, s, z, alpha, w = (t(host[k]) for k in ("mu", "s", "z", "alpha", "w"))
+    m, q = z.shape
+    den = 2.0 * alpha * s + 1.0
+    c = alpha / den
+    i, j = torch.triu_indices(m, m, device=device)
+    zb = 0.5 * (z[i] + z[j])
+    e0 = -0.25 * (alpha * (z[i] - z[j]) ** 2).sum(1)
+    quad = c @ (zb * zb).T - 2.0 * (c * mu) @ zb.T + (c * mu * mu).sum(1, keepdim=True)
+    lc = 2.0 * torch.log(t(host["sf2"])) - 0.5 * torch.log(den).sum(1)
+    we = w[:, None] * torch.exp(lc[:, None] + e0[None, :] - quad)        # (N, cells)
+    packed = (we.T @ (c * mu) - zb * (we.T @ c)).T                        # (Q, cells)
+    a = torch.zeros((q, m, m), dtype=torch.float64, device=device)
+    a[:, i, j] = packed
+    a[:, j, i] = packed
+    return a
+
+
+@pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
+@pytest.mark.parametrize("cells", [True, False], ids=["fit", "no_dz"])
+@pytest.mark.parametrize("n, m, q", [(1000, 37, q) for q in (2, 4, 10, 16, 32, 33, 64)]
+                         + [(1001, 200, 10), (16, 200, 10), (16, 37, 64), (1001, 64, 64)],
+                         ids=str)
+def test_pipelined_forward_sweep_matches_float64(cuda, n, m, q, cells, layout):
+    """The Psi2 forward sweep (psi2_fwd_tc_kernel: a producer warpgroup hands
+    64-row tiles to the consumer warpgroups through a ring of stages) at
+    every Q bucket, and at Q = 33, in both layouts, on the fit's route (the
+    cell sums too) and without them: M = 37 ends on a ragged cell block,
+    N = 1001 on a ragged row tile, N = 16 and N = 1000 give splits of fewer
+    row tiles than the ring has stages, as infer_latents' batches do. Psi2
+    stays within F64_TOL of the plain version in float64 (max abs error of
+    max|ref|) and the cell sums A within the gradients' tolerance
+    (GRAD_TOL_F64, norm-scaled) of their float64 sums."""
+    host = _route_inputs(q, None, n=n, m=m)
+    xs, _ = _route_tensors(host, cuda, layout)
+    out = psi_cuda._launch_fwd(layout, *xs, cells=cells)
+    xs64, _ = _route_tensors(host, cuda, layout, torch.float64)
+    want = chip_smoke._wrappers(layout)[3](*xs64)[1]
+    err = float((out[1].double() - want).abs().max() / want.abs().max())
+    assert err <= chip_smoke.F64_TOL, err
+    if cells:
+        a64 = _cell_sums_f64(host, cuda)
+        err = chip_smoke._norm_err(out[2].double().cpu().numpy(), a64.cpu().numpy())
+        assert err <= chip_smoke.GRAD_TOL_F64, err
+
+
 @pytest.mark.parametrize("layout", chip_smoke.LAYOUTS)
 def test_held_z_forms_no_cell_sums(cuda, layout):
     """Through the autograd.Function: with Z needing a gradient the forward
